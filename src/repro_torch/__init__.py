@@ -1,0 +1,13 @@
+"""PyTorch / CUDA port of the protocol-tuning reproduction.
+
+The batched scenario sweep — scenarios -> columnar plan -> batched fluid
+driver -> per-scenario results -> golden compare — runs here on an NVIDIA
+H100 through two hand-written CUDA kernels (the bisected water-fill and
+the fused sweep step). The package imports ``torch`` and ``numpy`` only;
+it keeps its own copy of every host-side module it needs.
+
+Entry points (``repro_torch.eval.runner.run_matrix``,
+``TorchFabricSimulation``) run on the card by default and raise when no
+card is present, unless the caller passes ``device="cpu"``, where every
+kernel wrapper runs its plain PyTorch version.
+"""

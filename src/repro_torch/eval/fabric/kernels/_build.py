@@ -1,0 +1,112 @@
+"""Build and load the hand-written CUDA kernels of the sweep.
+
+Each ``csrc/<name>.cu`` has a plain C interface. It is compiled at first
+use with ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/`` at the
+repository root (the shared library's name carries a hash of its source,
+so an edited source is rebuilt and an unchanged one is loaded as is) and
+loaded with ``ctypes``. ``-fmad=false`` keeps every multiply and add
+separately rounded, as the plain PyTorch versions compute them.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Tuple
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[5] / "build" / "torch_kernels"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_libs: Dict[str, ctypes.CDLL] = {}
+#: name -> (seconds, ptxas register / spill report) of builds in this process
+BUILD_LOG: Dict[str, Tuple[float, str]] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _target(name: str) -> Tuple[Path, Path]:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start(name: str):
+    src, lib = _target(name)
+    if lib.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    proc = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    )
+    return proc, tmp, lib, time.perf_counter()
+
+
+def _finish(name: str, job) -> None:
+    proc, tmp, lib, t0 = job
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+    os.replace(tmp, lib)
+    report = " | ".join(
+        line.split("ptxas info    :")[-1].strip()
+        for line in out.splitlines()
+        if "registers" in line or "spill" in line
+    )
+    BUILD_LOG[name] = (time.perf_counter() - t0, report)
+
+
+def build(names: Iterable[str]) -> None:
+    """Compile every named kernel that is not built yet, one ``nvcc`` per
+    source, all started together."""
+    with _lock:
+        jobs = [(n, _start(n)) for n in names]
+        for name, job in jobs:
+            if job is not None:
+                _finish(name, job)
+
+
+def check(t, name: str, dtype, shape: tuple, device) -> int:
+    """Validate one kernel operand and return its data pointer."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    return t.data_ptr()
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded shared library of ``csrc/<name>.cu`` (built on demand)."""
+    lib = _libs.get(name)
+    if lib is None:
+        build([name])
+        with _lock:
+            lib = _libs.get(name)
+            if lib is None:
+                lib = _libs[name] = ctypes.CDLL(str(_target(name)[1]))
+    return lib

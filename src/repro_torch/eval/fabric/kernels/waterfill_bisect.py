@@ -1,0 +1,91 @@
+"""Bisected max-min water-fill: the CUDA kernel ``csrc/waterfill.cu`` and
+its plain PyTorch version.
+
+Port of the Pallas kernel ``_waterfill_kernel``
+(``src/repro/eval/fabric/kernels/waterfill_pallas.py``): per row of caps
+(S, C) and pool (S,), :data:`BISECT_ITERS` halvings of the water level
+from ``max(caps)``; the allocation is ``min(cap, level)``. It agrees with
+the sort-based closed form :func:`repro_torch.eval.fabric.kernels.
+waterfill` to ~1e-12 relative.
+
+:func:`waterfill_bisect` launches the kernel for CUDA tensors and runs
+:func:`waterfill_bisect_plain` only for CPU tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+
+BISECT_ITERS = 80
+
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The kernel's C entry point, built and loaded at first use."""
+    fn = _build.load("waterfill").waterfill_f64
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def bisect_level(caps, pool):
+    """The bisected water level (S,) of ``caps`` (S, C) for ``pool`` (S,):
+    the upper end of the bracket after :data:`BISECT_ITERS` halvings,
+    keeping ``sum(min(caps, hi)) >= min(pool, sum(caps))``."""
+    total = caps.sum(dim=-1)
+    pool_eff = torch.clamp(torch.minimum(pool, total), min=0.0)
+    hi = caps.amax(dim=-1)
+    lo = torch.zeros_like(hi)
+    for _ in range(BISECT_ITERS):
+        mid = 0.5 * (lo + hi)
+        low = torch.minimum(caps, mid.unsqueeze(-1)).sum(dim=-1) < pool_eff
+        lo = torch.where(low, mid, lo)
+        hi = torch.where(low, hi, mid)
+    return hi
+
+
+def waterfill_bisect_plain(caps, pool):
+    """Plain PyTorch version of the kernel: ``min(caps, level)``."""
+    if caps.shape[-1] == 0:
+        return torch.zeros_like(caps)
+    return torch.minimum(caps, bisect_level(caps, pool).unsqueeze(-1))
+
+
+def waterfill_bisect(caps, pool):
+    """Bisected water-fill of ``caps`` (S, C) float64 by ``pool`` (S,)
+    float64. CPU tensors take the plain version; CUDA tensors launch the
+    kernel on the current stream (C up to 1024)."""
+    if caps.dim() != 2:
+        raise ValueError(f"caps must be (S, C), got {tuple(caps.shape)}")
+    S, C = caps.shape
+    if caps.device.type == "cpu":
+        return waterfill_bisect_plain(caps, pool)
+    if caps.device.type != "cuda":
+        raise ValueError(f"unsupported device {caps.device}")
+    if C > 1024:
+        raise ValueError(f"the water-fill kernel takes C <= 1024, got {C}")
+    dev = caps.device
+    f8 = torch.float64
+    out = torch.empty((S, C), dtype=f8, device=dev)
+    ptrs = (
+        _build.check(caps, "caps", f8, (S, C), dev),
+        _build.check(pool, "pool", f8, (S,), dev),
+        out.data_ptr(),
+    )
+    fn = _entry()
+    with torch.cuda.device(dev):
+        err = fn(*ptrs, S, C, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"waterfill kernel launch failed: cudaError {err}")
+    waterfill_bisect.launches += 1
+    return out
+
+
+#: launches of the CUDA kernel in this process
+waterfill_bisect.launches = 0
