@@ -4,14 +4,18 @@
     python3 chip_smoke.py --quick    # build + kernel checks only
 
 Phases, each printing its own lines:
-  1. environment: the card's name and power limit, torch and CUDA versions;
-  2. build of every CUDA kernel of the sweep (one nvcc per source, all
-     started together), timed;
+  1. environment: the card's name and power limit, torch and CUDA versions
+     (fp32 matrix products must not run in TF32);
+  2. build of every CUDA kernel (one nvcc per source, all started
+     together), timed;
   3. each kernel against its plain PyTorch version on the card at the
-     shapes the sweep gives it, and on a live default-grid state: max
-     error (limit 1e-12 relative; bool and int64 outputs exact), device
-     time, the plain version's time, and the bound (bytes moved at
-     3.35 TB/s or float64 operations at 34 TFLOP/s, whichever is longer);
+     shapes its path gives it: the sweep's kernels also on a live
+     default-grid state (limit 1e-12 relative; bool and int64 outputs
+     exact), the WKV-6 kernel at the serving run's prefill and decode
+     shapes and a long prompt (rtol = atol = 1e-4, fp32); max error,
+     device time, the plain version's time, and the bound (bytes moved at
+     3.35 TB/s, or operations at 34 TFLOP/s float64 / 67 TFLOP/s float32,
+     whichever is longer);
   4. the 276-row default grid on the fused route and on the split route,
      each held to tests/golden/eval_matrix.json at rtol 1e-6;
   5. the main path: the 1116-row full grid on the default (fused) route,
@@ -19,7 +23,18 @@ Phases, each printing its own lines:
      sample of 64 rows must match the port's own CPU run (plain kernel
      versions) within 1e-6 relative;
   6. one profiled run of the default grid: device busy and idle share;
-  7. a {"kernels": [...]} JSON line, then the nvidia-smi name/power line,
+  7. the serving path: rwkv6-3b at full width (32 layers, fp32 weights
+     from a seeded generator) serves 8 prompts of 512 tokens and 32 new
+     greedy tokens through ``train.serve_step.generate``, with the WKV
+     launch count set to 0 just before and read just after (it must be
+     32 layers x 32 model calls); then prefill and decode are timed;
+  8. the same model cut to 2 layers on the card against the port's CPU
+     run on the same weights: prefill of 2 x 64 tokens, then 4
+     teacher-forced decode steps; every layer of every call is replayed
+     on the card on the CPU run's inputs (wkv state within rtol = atol =
+     1e-3, logits within atol 2e-2); the free-running drift is printed
+     beside the CPU's own drift between thread counts;
+  9. a {"kernels": [...]} JSON line, then the nvidia-smi name/power line,
      then the result line {"ok": true, "device": {...}}.
 
 Any failure exits non-zero without the result line. The script imports
@@ -40,6 +55,7 @@ GOLDEN = ROOT / "tests" / "golden" / "eval_matrix.json"
 #: H100 SXM data-sheet rates the bounds are computed against
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS = 34e12
+FP32_FLOPS = 67e12  # outside the tensor cores
 
 #: (S, C, K, Q) kernel-check shapes: the sweep's row chunks (276-row
 #: default grid, 1024-row full-grid chunks), its channel ladder and its
@@ -50,6 +66,16 @@ SHAPES = [
 #: shape whose numbers go into the kernels JSON line: a full-grid chunk
 JSON_SHAPE = (1024, 16, 4, 16384)
 REL_TOL = 1e-12
+
+#: (B, H, T, D) WKV-6 check shapes: the serving run's prefill (8 prompts
+#: of 512 tokens) and decode (T = 1) at rwkv6-3b's 40 heads of 64, and
+#: one long prompt; the first goes into the kernels JSON line
+WKV_SHAPES = [(8, 40, 512, 64), (8, 40, 1, 64), (1, 40, 2048, 64)]
+WKV_TOL = 1e-4
+#: the serving run: requests, prompt tokens, new tokens
+SERVE_B, SERVE_PROMPT, SERVE_NEW = 8, 512, 32
+#: the card-against-CPU check: layers, requests, prompt tokens, forced steps
+CHECK_LAYERS, CHECK_B, CHECK_PROMPT, CHECK_STEPS = 2, 2, 64, 4
 
 
 class SmokeFailure(RuntimeError):
@@ -246,6 +272,256 @@ def kernel_checks(wf, fs, live_state):
     return rows
 
 
+def wkv_checks(wk, ref):
+    """Phase 3, WKV-6: the kernel against its plain version on the card.
+    Returns {shape: row} of measurements."""
+    import numpy as np
+    import torch
+
+    rows = {}
+    for B, H, T, D in WKV_SHAPES:
+        rng = np.random.RandomState(T)
+        f = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda")  # noqa: E731
+        r, k, v = (f(0.5 * rng.standard_normal((B, H, T, D))) for _ in range(3))
+        w = f(np.exp(-np.exp(0.5 * rng.standard_normal((B, H, T, D)))))
+        u = f(0.5 * rng.standard_normal((H, D)))
+        s0 = f(0.1 * rng.standard_normal((B, H, D, D)))
+        args = (r, k, v, w, u, s0)
+        out = wk.rwkv6_scan(*args)
+        want = ref(*args)
+        torch.cuda.synchronize()
+        err = 0.0
+        for o, x in zip(out, want):
+            fail_if(o.shape != x.shape or o.dtype != x.dtype, f"wkv {B, H, T, D}: shape/dtype")
+            excess = ((o - x).abs() - WKV_TOL * x.abs()).max().item()
+            fail_if(not excess <= WKV_TOL,
+                    f"wkv {B, H, T, D}: outside rtol = atol = {WKV_TOL}")
+            err = max(err, (o - x).abs().max().item())
+        # each input read once, each output written once; 5 D^2 flops a
+        # step of a (b, h): the k v^T outer product, w S + k v^T, r^T S
+        nbytes = 4 * (5 * B * H * T * D + H * D + 2 * B * H * D * D)
+        ops = 5 * B * H * T * D * D
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / FP32_FLOPS * 1e3
+        row = {
+            "max_abs_err": err,
+            "ms": device_ms(lambda: wk.rwkv6_scan(*args), 20),
+            "call_ms": event_ms(lambda: wk.rwkv6_scan(*args), 20),
+            "plain_ms": event_ms(lambda: ref(*args), 3),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+        fail_if(row["ms"] <= 0.0, f"wkv {B, H, T, D}: profiler recorded no device time")
+        rows[(B, H, T, D)] = row
+        print(f"[kernels] rwkv6_scan B={B} H={H} T={T:4d} D={D}: max_abs_err {err:.3g} | "
+              f"device {row['ms'] * 1e3:.2f} us | wrapper call {row['call_ms'] * 1e3:.2f} us | "
+              f"plain {row['plain_ms'] * 1e3:.1f} us | bound {row['bound_ms'] * 1e3:.3f} us "
+              f"({row['bound_by']}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP) | "
+              "library: none", flush=True)
+    return rows
+
+
+def serve_full_width(wk):
+    """Phase 7: rwkv6-3b at full width through ``generate``. Returns the
+    WKV launch count of the generate run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.model import build_model
+    from repro_torch.train.serve_step import generate, make_decode_step, make_prefill
+
+    t0 = time.perf_counter()
+    model = build_model("rwkv6-3b", device="cuda")
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    init_s = time.perf_counter() - t0
+    cfg = model.cfg
+    prompts = np.random.RandomState(0).randint(0, cfg.vocab_size, (SERVE_B, SERVE_PROMPT))
+    prompt = torch.as_tensor(prompts, device="cuda")
+    generate(model, prompt[:, :16], 2)  # warm-up: cuBLAS handles, the kernel's library
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wk.rwkv6_scan.launches = 0
+    t0 = time.perf_counter()
+    tokens = generate(model, prompt, SERVE_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = wk.rwkv6_scan.launches
+    peak = torch.cuda.max_memory_allocated()
+    fail_if(tuple(tokens.shape) != (SERVE_B, SERVE_NEW), f"serve: tokens {tuple(tokens.shape)}")
+    fail_if(not (0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size),
+            "serve: tokens out of the vocabulary")
+    want = cfg.num_layers * SERVE_NEW
+    fail_if(launches != want, f"serve: {launches} WKV launches, expected {want}")
+
+    # prefill and decode timed apart, on the same model and prompts
+    prefill, decode = make_prefill(model), make_decode_step(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill({"tokens": prompt}, model.init_cache(SERVE_B, SERVE_PROMPT + SERVE_NEW))
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    fail_if(not bool(torch.isfinite(logits.float()).all()), "serve: non-finite prefill logits")
+    tok = torch.argmax(logits[:, -1, :], dim=-1)
+    fail_if(not torch.equal(tok, tokens[:, 0]), "serve: prefill token differs from generate's")
+    t0 = time.perf_counter()
+    for i in range(SERVE_NEW - 1):
+        tok, cache = decode(tok, cache, SERVE_PROMPT + i)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    fail_if(not torch.equal(tok, tokens[:, -1]), "serve: decode tokens differ from generate's")
+    fail_if(not bool(torch.isfinite(cache["wkv"]).all()), "serve: non-finite wkv state")
+    steps = SERVE_NEW - 1
+    row = {
+        "params": n_params, "init_s": init_s, "generate_s": gen_s,
+        "prefill_tok_s": SERVE_B * SERVE_PROMPT / prefill_s,
+        "decode_tok_s": SERVE_B * steps / decode_s,
+        "decode_step_ms": decode_s / steps * 1e3,
+        "peak_gib": peak / 2**30,
+    }
+    print(f"[serve] rwkv6-3b full width: {n_params:,} fp32 parameters (init {init_s:.2f}s); "
+          f"{SERVE_B} requests x {SERVE_PROMPT} prompt tokens, {SERVE_NEW} new greedy tokens: "
+          f"generate {gen_s:.3f}s, WKV launches {launches} (= {cfg.num_layers} layers x "
+          f"{SERVE_NEW} model calls), peak device memory {row['peak_gib']:.2f} GiB", flush=True)
+    print(f"[serve] prefill {prefill_s * 1e3:.1f} ms ({row['prefill_tok_s']:.0f} tokens/s); "
+          f"decode {steps} steps in {decode_s * 1e3:.1f} ms ({row['decode_step_ms']:.2f} ms a step, "
+          f"{row['decode_tok_s']:.1f} tokens/s)", flush=True)
+    # where the time goes: one prefill and 4 decode steps under the profiler
+    cache0 = model.init_cache(SERVE_B, SERVE_PROMPT + SERVE_NEW)
+    for label, fn in (
+        ("prefill", lambda: prefill({"tokens": prompt}, cache0)),
+        ("4 decode steps", lambda: [decode(tok, cache, SERVE_PROMPT) for _ in range(4)]),
+    ):
+        print(f"[serve] profiled {label}: {profile_window(fn, 'wkv6_kernel')}", flush=True)
+    del model, cache, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_window(fn, kernel):
+    """One call of ``fn`` under the profiler: wall time, device busy share,
+    the device time of ``kernel`` and the three costliest device rows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = _device_events(prof)
+    busy = sum(_self_device_us(e) for e in rows) / 1e6
+    if busy <= 0:
+        return f"wall {wall * 1e3:.1f} ms; device time not measured (no device rows)"
+    own = sum(_self_device_us(e) for e in rows if kernel in e.key) / 1e6
+    top = sorted(rows, key=_self_device_us, reverse=True)[:3]
+    top_s = "; ".join(f"{e.key[:60]} {_self_device_us(e) / 1e3:.2f} ms x{e.count}" for e in top)
+    return (f"wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
+            f"({100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%), "
+            f"{sum(e.count for e in rows)} device operations, {kernel} {own * 1e3:.2f} ms "
+            f"({100 * own / busy:.1f}% of device time); costliest: {top_s}")
+
+
+def card_against_cpu(wk):
+    """Phase 8: rwkv6-3b at full width cut to CHECK_LAYERS layers, on the
+    card and in the port's CPU run with the same weights.
+
+    Each layer is held to the CPU run on the CPU run's own inputs: every
+    block call of the CPU's prefill and decode steps is recorded and
+    replayed on the card's block, and the card's output head is given the
+    CPU's last hidden state. Run freely, the two runs drift apart further:
+    the residual stream is bf16, so an fp32 difference in the last bit
+    (another summation order) can round a bf16 value the other way, and the
+    next layer carries that on. That drift is printed beside the CPU run's
+    own drift between one thread and all of them (another summation order
+    on the same machine)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_config("rwkv6-3b"), num_layers=CHECK_LAYERS)
+    gpu = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(1))
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    rng = np.random.RandomState(1)
+    prompt = rng.randint(0, cfg.vocab_size, (CHECK_B, CHECK_PROMPT))
+    forced = rng.randint(0, cfg.vocab_size, (CHECK_STEPS, CHECK_B))
+
+    def run(m, calls=None):
+        """Prefill and the forced decode steps -> [(logits (B, V), cache)] on
+        the CPU; ``calls`` collects (layer, inputs, outputs) of each block."""
+        hooks = [blk.register_forward_hook(
+                 lambda mod, args, out, i=i: calls.append((i, args, out)))
+                 for i, blk in enumerate(m.layers)] if calls is not None else []
+        with torch.inference_mode():
+            lg, c = m.prefill({"tokens": torch.as_tensor(prompt, device=m.device)},
+                              m.init_cache(CHECK_B, CHECK_PROMPT + CHECK_STEPS))
+            out = [(lg[:, 0], c)]
+            for i, tok in enumerate(forced):
+                out.append(m.decode_step(torch.as_tensor(tok, device=m.device), out[-1][1],
+                                         CHECK_PROMPT + i))
+        for h in hooks:
+            h.remove()
+        return [(lg.float().cpu(), {k: v.cpu() for k, v in c.items()}) for lg, c in out]
+
+    def drift(a, b):
+        """(worst logits difference, worst wkv difference per layer)."""
+        lg = max((x[0] - y[0]).abs().max().item() for x, y in zip(a, b))
+        wkv = [max((x[1]["wkv"][i] - y[1]["wkv"][i]).abs().max().item() for x, y in zip(a, b))
+               for i in range(CHECK_LAYERS)]
+        return lg, wkv
+
+    t0 = time.perf_counter()
+    wk.rwkv6_scan.launches = 0
+    free = run(gpu)
+    calls = []
+    ref = run(cpu, calls)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    one_thread = run(cpu)
+    torch.set_num_threads(threads)
+
+    # every layer of every call, on the CPU run's inputs
+    worst_wkv = worst_lg = 0.0
+    with torch.inference_mode():
+        for i, (h, state), (h_out, st_out) in calls:
+            _, st = gpu.layers[i](h.cuda(), {k: v.cuda() for k, v in state.items()})
+            want, got = st_out["wkv"], st["wkv"].cpu()
+            excess = ((got - want).abs() - 1e-3 * want.abs()).max().item()
+            fail_if(not excess <= 1e-3,
+                    f"check: layer {i} wkv state outside rtol = atol = 1e-3 on the CPU's inputs")
+            worst_wkv = max(worst_wkv, (got - want).abs().max().item())
+        finals = [h_out for i, _, (h_out, _) in calls if i == CHECK_LAYERS - 1]
+        for h_last, (want, _) in zip(finals, ref):
+            got = gpu._logits(h_last[:, -1:, :].cuda())[:, 0].float().cpu()
+            fail_if(not bool(torch.isfinite(got).all()), "check: non-finite logits on the card")
+            worst_lg = max(worst_lg, (got - want).abs().max().item())
+    secs = time.perf_counter() - t0
+    launches = wk.rwkv6_scan.launches
+    want_launches = 2 * CHECK_LAYERS * (1 + CHECK_STEPS)
+    fail_if(launches != want_launches, f"check: {launches} WKV launches, expected {want_launches}")
+    free_lg, free_wkv = drift(free, ref)
+    cpu_lg, cpu_wkv = drift(one_thread, ref)
+    print(f"[check] rwkv6-3b full width cut to {CHECK_LAYERS} layers, card vs the port's CPU run "
+          f"({secs:.1f}s): {CHECK_B} x {CHECK_PROMPT} prefill + {CHECK_STEPS} forced decode "
+          f"steps; each layer on the CPU run's inputs: worst |wkv| difference {worst_wkv:.3g} "
+          f"(limit 1e-3 + 1e-3 |x|), output head worst |logits| difference {worst_lg:.3g} "
+          f"(limit 2e-2); WKV launches {launches}", flush=True)
+    print(f"[check] free-running drift: card vs CPU worst |logits| {free_lg:.3g}, |wkv| by layer "
+          f"{[float(f'{x:.3g}') for x in free_wkv]}; CPU 1 thread vs {threads} threads worst "
+          f"|logits| {cpu_lg:.3g}, |wkv| by layer {[float(f'{x:.3g}') for x in cpu_wkv]}",
+          flush=True)
+    fail_if(not worst_lg <= 2e-2, f"check: logits differ by {worst_lg:.3g}")
+    return launches
+
+
 def live_default_state():
     """A default-grid driver state a few sweeps in, as fused-step operands."""
     import torch
@@ -302,9 +578,11 @@ def main(argv) -> int:
     sys.path.insert(0, str(SRC))
     import numpy as np
 
-    from repro_torch.eval.fabric.kernels import _build
+    from repro_torch import _cuda_build as _build
     from repro_torch.eval.fabric.kernels import fused_step as fs
     from repro_torch.eval.fabric.kernels import waterfill_bisect as wf
+    from repro_torch.kernels import rwkv6_scan as wk
+    from repro_torch.kernels.ref import rwkv6_scan_ref
     from repro_torch.eval.runner import compare_golden, load_golden, metrics_snapshot
     from repro_torch.eval.scenarios import default_matrix, full_matrix
 
@@ -312,21 +590,27 @@ def main(argv) -> int:
     smi = nvidia_smi_line()
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True)
     print(f"[env] {smi} | torch {torch.__version__} | CUDA {torch.version.cuda} | "
-          f"{nvcc.stdout.strip().splitlines()[-1]} | python {sys.version.split()[0]}",
-          flush=True)
+          f"{nvcc.stdout.strip().splitlines()[-1]} | python {sys.version.split()[0]} | "
+          f"fp32 matmul precision {torch.get_float32_matmul_precision()}, allow_tf32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
+    fail_if(torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest",
+            "fp32 matrix products would run in TF32")
 
     # ---- 2. build ----
     t0 = time.perf_counter()
-    _build.build(["waterfill", "fused_step"])
-    print(f"[build] 2 kernels in {time.perf_counter() - t0:.2f}s", flush=True)
+    sources = [wf.SOURCE, fs.SOURCE, wk.SOURCE]
+    _build.build(sources)
+    print(f"[build] {len(sources)} kernels in {time.perf_counter() - t0:.2f}s", flush=True)
     for name, (secs, report) in _build.BUILD_LOG.items():
         print(f"[build] {name}: {secs:.2f}s; {report}", flush=True)
 
     # ---- 3. kernels against their plain versions ----
     rows = kernel_checks(wf, fs, None if quick else live_default_state())
+    rows["rwkv6_scan"] = wkv_checks(wk, rwkv6_scan_ref)
 
-    launches = {"waterfill": 0, "fused_step": 0}
-    by_path = {"waterfill": {}, "fused_step": {}}
+    launches = {"waterfill": 0, "fused_step": 0, "rwkv6_scan": 0}
+    by_path = {"waterfill": {}, "fused_step": {}, "rwkv6_scan": {}}
     if not quick:
         # ---- 4. the default grid on both routes ----
         golden = load_golden(str(GOLDEN))
@@ -400,14 +684,22 @@ def main(argv) -> int:
             print(f"[profile] wall {wall:.3f}s; device time not measured (the profiler "
                   "recorded no device activity)", flush=True)
 
-    # ---- 7. summary lines ----
-    pick = JSON_SHAPE
+        # ---- 7. the serving path: rwkv6-3b at full width ----
+        launches["rwkv6_scan"] = serve_full_width(wk)
+        by_path["rwkv6_scan"]["serve"] = launches["rwkv6_scan"]
+
+        # ---- 8. the card against the port's CPU run, 2 layers ----
+        by_path["rwkv6_scan"]["card_vs_cpu"] = card_against_cpu(wk)
+
+    # ---- 9. summary lines ----
     kernels = []
-    for name, src, replaces in (
+    for name, src, replaces, pick, shape in (
         ("waterfill", "src/repro_torch/eval/fabric/csrc/waterfill.cu",
-         "src/repro/eval/fabric/kernels/waterfill_pallas.py:40"),
+         "src/repro/eval/fabric/kernels/waterfill_pallas.py:40", JSON_SHAPE, "SCKQ"),
         ("fused_step", "src/repro_torch/eval/fabric/csrc/fused_step.cu",
-         "src/repro/eval/fabric/kernels/fused_step_pallas.py:37"),
+         "src/repro/eval/fabric/kernels/fused_step_pallas.py:37", JSON_SHAPE, "SCKQ"),
+        ("rwkv6_scan", "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+         "src/repro/kernels/rwkv6_scan.py:26", WKV_SHAPES[0], "BHTD"),
     ):
         row = rows[name][pick]
         kernels.append({
@@ -416,7 +708,7 @@ def main(argv) -> int:
             "max_abs_err": max(r["max_abs_err"] for r in rows[name].values()),
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
-            "shape": {"S": pick[0], "C": pick[1], "K": pick[2], "Q": pick[3]},
+            "shape": dict(zip(shape, pick)),
         })
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))

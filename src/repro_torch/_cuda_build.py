@@ -1,11 +1,12 @@
-"""Build and load the hand-written CUDA kernels of the sweep.
+"""Build and load the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` has a plain C interface. It is compiled at first
-use with ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/`` at the
-repository root (the shared library's name carries a hash of its source,
-so an edited source is rebuilt and an unchanged one is loaded as is) and
-loaded with ``ctypes``. ``-fmad=false`` keeps every multiply and add
-separately rounded, as the plain PyTorch versions compute them.
+Each kernel is one ``.cu`` source with a plain C interface, kept in a
+``csrc/`` directory beside the module that wraps it. It is compiled at
+first use with ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/`` at
+the repository root (the shared library's name carries a hash of its
+source, so an edited source is rebuilt and an unchanged one is loaded as
+is) and loaded with ``ctypes``. ``-fmad=false`` keeps every multiply and
+add separately rounded, as the plain PyTorch versions compute them.
 """
 from __future__ import annotations
 
@@ -19,8 +20,7 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
 
-CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[5] / "build" / "torch_kernels"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -28,8 +28,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_libs: Dict[str, ctypes.CDLL] = {}
-#: name -> (seconds, ptxas register / spill report) of builds in this process
+_libs: Dict[Path, ctypes.CDLL] = {}
+#: kernel name (the source's stem) -> (seconds, ptxas register / spill
+#: report) of builds in this process
 BUILD_LOG: Dict[str, Tuple[float, str]] = {}
 _lock = threading.Lock()
 
@@ -44,14 +45,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _target(name: str) -> Tuple[Path, Path]:
-    src = CSRC / f"{name}.cu"
+def _target(src: Path) -> Path:
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return src, BUILD_DIR / f"lib{name}-{digest}.so"
+    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 
 
-def _start(name: str):
-    src, lib = _target(name)
+def _start(src: Path):
+    lib = _target(src)
     if lib.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -63,28 +63,28 @@ def _start(name: str):
     return proc, tmp, lib, time.perf_counter()
 
 
-def _finish(name: str, job) -> None:
+def _finish(src: Path, job) -> None:
     proc, tmp, lib, t0 = job
     out, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+        raise RuntimeError(f"nvcc failed for {src.name}:\n{out}")
     os.replace(tmp, lib)
     report = " | ".join(
         line.split("ptxas info    :")[-1].strip()
         for line in out.splitlines()
         if "registers" in line or "spill" in line
     )
-    BUILD_LOG[name] = (time.perf_counter() - t0, report)
+    BUILD_LOG[src.stem] = (time.perf_counter() - t0, report)
 
 
-def build(names: Iterable[str]) -> None:
-    """Compile every named kernel that is not built yet, one ``nvcc`` per
-    source, all started together."""
+def build(sources: Iterable[Path]) -> None:
+    """Compile every ``.cu`` source that is not built yet, one ``nvcc``
+    per source, all started together."""
     with _lock:
-        jobs = [(n, _start(n)) for n in names]
-        for name, job in jobs:
+        jobs = [(src, _start(src)) for src in sources]
+        for src, job in jobs:
             if job is not None:
-                _finish(name, job)
+                _finish(src, job)
 
 
 def check(t, name: str, dtype, shape: tuple, device) -> int:
@@ -100,13 +100,14 @@ def check(t, name: str, dtype, shape: tuple, device) -> int:
     return t.data_ptr()
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded shared library of ``csrc/<name>.cu`` (built on demand)."""
-    lib = _libs.get(name)
+def load(src: Path) -> ctypes.CDLL:
+    """The loaded shared library of the ``.cu`` source ``src`` (built on
+    demand)."""
+    lib = _libs.get(src)
     if lib is None:
-        build([name])
+        build([src])
         with _lock:
-            lib = _libs.get(name)
+            lib = _libs.get(src)
             if lib is None:
-                lib = _libs[name] = ctypes.CDLL(str(_target(name)[1]))
+                lib = _libs[src] = ctypes.CDLL(str(_target(src)))
     return lib

@@ -20,13 +20,18 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from pathlib import Path
 
 import torch
 
-from . import _build, advance_channels, disk_pool, event_horizon, feed_queues
+from repro_torch import _cuda_build as _build
+from . import advance_channels, disk_pool, event_horizon, feed_queues
 from .waterfill_bisect import bisect_level
 
 _EPS = 1e-12
+
+#: the kernel's CUDA source
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fused_step.cu"
 
 _ARGTYPES = [ctypes.c_void_p] * 26 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
 
@@ -34,7 +39,7 @@ _ARGTYPES = [ctypes.c_void_p] * 26 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
 @functools.lru_cache(maxsize=None)
 def _entry():
     """The kernel's C entry point, built and loaded at first use."""
-    fn = _build.load("fused_step").fused_step_f64
+    fn = _build.load(SOURCE).fused_step_f64
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn

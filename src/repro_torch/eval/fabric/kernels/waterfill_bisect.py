@@ -15,12 +15,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from pathlib import Path
 
 import torch
 
-from . import _build
+from repro_torch import _cuda_build as _build
 
 BISECT_ITERS = 80
+
+#: the kernel's CUDA source
+SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "waterfill.cu"
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
 
@@ -28,7 +32,7 @@ _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
 @functools.lru_cache(maxsize=None)
 def _entry():
     """The kernel's C entry point, built and loaded at first use."""
-    fn = _build.load("waterfill").waterfill_f64
+    fn = _build.load(SOURCE).waterfill_f64
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn

@@ -1,0 +1,21 @@
+"""Model-facing wrappers of the kernels: they take the model layouts and
+adapt them to the kernel layouts. Each wrapper launches its CUDA kernel for
+CUDA tensors and runs the plain version for CPU tensors."""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import rwkv6_scan as _wk
+
+
+def rwkv6_scan(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+    u: torch.Tensor, s0: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Model layout: r/k/v/w (B, T, H, D); u (H, D); s0 (B, H, D, D).
+    Returns y (B, T, H, D) fp32 and the final state (B, H, D, D) fp32."""
+    args = [x.movedim(1, 2) for x in (r, k, v, w)]
+    y, s_fin = _wk.rwkv6_scan(*args, u, s0)
+    return y.movedim(2, 1), s_fin

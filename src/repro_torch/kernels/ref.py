@@ -1,0 +1,34 @@
+"""Plain PyTorch versions of the LLM scaffold's kernels.
+
+Each is the single plain version of its kernel: the CPU path of the
+kernel's wrapper, and what ``chip_smoke.py`` and the card tests hold the
+kernel to.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def rwkv6_scan_ref(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+    u: torch.Tensor, s0: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """WKV-6 recurrence, step by step.
+
+    r, k, v, w: (B, H, T, D); u: (H, D); s0: (B, H, D, D) [key x value].
+        y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)
+        S_t = diag(w_t) S_{t-1} + k_t v_t^T
+    T >= 1. Returns y (B, H, T, D) fp32 and S_T (B, H, D, D) fp32.
+    """
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    s = s0.float()
+    ys = []
+    for t in range(rf.shape[2]):
+        r_t, k_t, v_t, w_t = rf[:, :, t], kf[:, :, t], vf[:, :, t], wf[:, :, t]
+        kv = k_t[..., :, None] * v_t[..., None, :]  # (B, H, D, D)
+        ys.append(torch.einsum("bhi,bhij->bhj", r_t, s + uf * kv))
+        s = w_t[..., None] * s + kv
+    return torch.stack(ys, dim=2), s

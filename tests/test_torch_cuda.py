@@ -1,5 +1,6 @@
 """The CUDA kernels on the card: each against its plain PyTorch version,
-and the smoke matrix through both routes against the golden snapshot.
+the smoke matrix through both routes against the golden snapshot, and the
+RWKV-6 model on the card against its CPU run.
 
 These need an NVIDIA GPU and ``nvcc``; without a card they skip. On the
 card: ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py``.
@@ -12,10 +13,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.eval.fabric.kernels import fused_step as fs
 from repro_torch.eval.fabric.kernels import waterfill_bisect as wf
 from repro_torch.eval.runner import compare_golden, load_golden, metrics_snapshot, run_matrix
 from repro_torch.eval.scenarios import smoke_matrix
+from repro_torch.kernels import rwkv6_scan as wk
+from repro_torch.kernels.ref import rwkv6_scan_ref
+from repro_torch.models.config import reduce_for_smoke
+from repro_torch.models.model import build_model
 
 pytestmark = pytest.mark.gpu
 
@@ -77,3 +83,61 @@ def test_smoke_matrix_on_the_card_matches_golden(cuda, fused):
     assert compare_golden(load_golden(str(GOLDEN)), metrics_snapshot(scs, out)) == []
     used = fs.fused_step.launches if fused == "kernel" else wf.waterfill_bisect.launches
     assert used > launches[fused == "kernel"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [(1, 2, 64, 32), (2, 4, 128, 64), (1, 1, 96, 16),
+                                  (2, 3, 1, 64), (3, 2, 97, 32)], ids=str)
+def test_wkv_kernel_matches_its_plain_version_on_the_card(cuda, case, dtype):
+    """rtol = atol = 1e-4 for both input types: the wrapper and the plain
+    version upcast the same bf16 values, so only the fp32 summation order
+    differs."""
+    b, h, t, d = case
+    rng = np.random.RandomState(t)
+    r, k, v = (torch.tensor(0.5 * rng.standard_normal((b, h, t, d)), dtype=dtype, device=cuda)
+               for _ in range(3))
+    w = torch.tensor(np.exp(-np.exp(0.5 * rng.standard_normal((b, h, t, d)))),
+                     dtype=dtype, device=cuda)
+    u = torch.tensor(0.5 * rng.standard_normal((h, d)), dtype=torch.float32, device=cuda)
+    s0 = torch.tensor(0.1 * rng.standard_normal((b, h, d, d)), dtype=torch.float32, device=cuda)
+    before = wk.rwkv6_scan.launches
+    y, s = wk.rwkv6_scan(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert wk.rwkv6_scan.launches == before + 1
+    y_ref, s_ref = rwkv6_scan_ref(r, k, v, w, u, s0)
+    torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s, s_ref, rtol=1e-4, atol=1e-4)
+
+
+def test_wkv_kernel_refuses_other_head_dims(cuda):
+    r = torch.zeros((1, 1, 4, 48), device=cuda)
+    with pytest.raises(ValueError, match="D in"):
+        wk.rwkv6_scan(r, r, r, r, torch.zeros((1, 48), device=cuda),
+                      torch.zeros((1, 1, 48, 48), device=cuda))
+
+
+def test_rwkv_model_on_the_card_matches_its_cpu_run(cuda):
+    """Prefill and two decode steps of the smoke config: logits within atol
+    2e-2, caches within rtol = atol = 1e-3; every layer of every call
+    launches the WKV kernel once."""
+    cfg = reduce_for_smoke(get_config("rwkv6-3b"))
+    gpu = build_model(cfg, device=cuda).init(torch.Generator(device=cuda).manual_seed(0))
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    tokens = np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 16))
+    runs = []
+    before = wk.rwkv6_scan.launches
+    for m in (gpu, cpu):
+        with torch.inference_mode():
+            lg, c = m.prefill({"tokens": torch.as_tensor(tokens, device=m.device)},
+                              m.init_cache(2, 18))
+            out = [(lg[:, 0], c)]
+            for i in range(2):
+                tok = torch.as_tensor(tokens[:, i], device=m.device)
+                out.append(m.decode_step(tok, out[-1][1], 16 + i))
+        runs.append(out)
+    assert wk.rwkv6_scan.launches == before + 3 * cfg.num_layers
+    for (lg_g, c_g), (lg_c, c_c) in zip(*runs):
+        torch.testing.assert_close(lg_g.float().cpu(), lg_c.float(), rtol=0, atol=2e-2)
+        for name in c_c:
+            torch.testing.assert_close(c_g[name].cpu(), c_c[name], rtol=1e-3, atol=1e-3)

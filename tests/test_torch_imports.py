@@ -89,3 +89,21 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
         TorchFabricSimulation(build_plan(scs))
     res = run_matrix(scs, device="cpu")
     assert len(res) == 2 and all(r.total_time > 0 for r in res)
+
+
+def test_model_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import reduce_for_smoke
+    from repro_torch.models.model import build_model
+    from repro_torch.train.serve_step import generate
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduce_for_smoke(get_config("rwkv6-3b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg, device="cuda")
+    model = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    out = generate(model, torch.zeros((2, 3), dtype=torch.int64), 4)
+    assert out.shape == (2, 4) and out.device.type == "cpu"
+    assert int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size

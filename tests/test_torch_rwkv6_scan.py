@@ -1,0 +1,114 @@
+"""The WKV-6 scan's plain PyTorch version against the Pallas kernel it ports
+(interpreted on the CPU) and against the reference's plain version.
+
+Inputs are drawn with numpy from a seed and handed to both frameworks.
+Tolerance, as in the reference's own kernel tests: rtol = atol = 1e-4 for
+fp32 inputs, 5e-2 for bf16 inputs (both sides upcast the same bf16 values
+to fp32, but the limit is the reference's)."""
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as ref_ops
+from repro.kernels import ref as jax_ref
+from repro.kernels.rwkv6_scan import rwkv6_scan as pallas_rwkv6_scan
+from repro_torch.kernels import ops
+from repro_torch.kernels import rwkv6_scan as wk
+from repro_torch.kernels.ref import rwkv6_scan_ref
+
+#: (B, H, T, D): the reference's WKV_CASES (tests/test_kernels.py)
+WKV_CASES = [(1, 2, 64, 32), (2, 4, 128, 64), (1, 1, 96, 16)]
+TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+
+
+def _draw(b, h, t, d, seed):
+    """r, k, v, w (B, H, T, D), u (H, D), s0 (B, H, D, D) as fp32 numpy."""
+    rng = np.random.RandomState(seed)
+    r, k, v = (0.5 * rng.standard_normal((b, h, t, d)) for _ in range(3))
+    w = np.exp(-np.exp(0.5 * rng.standard_normal((b, h, t, d))))  # decay in (0, 1)
+    u = 0.5 * rng.standard_normal((h, d))
+    s0 = 0.1 * rng.standard_normal((b, h, d, d))
+    return [a.astype(np.float32) for a in (r, k, v, w, u, s0)]
+
+
+def _jax(arrays, dtype):
+    """r, k, v, w in ``dtype``; u and s0 stay fp32, as in the reference."""
+    jd = getattr(jnp, dtype)
+    return [jnp.asarray(a, jd) for a in arrays[:4]] + [jnp.asarray(a) for a in arrays[4:]]
+
+
+def _torch(arrays, dtype):
+    td = getattr(torch, dtype)
+    return [torch.from_numpy(a).to(td) for a in arrays[:4]] + [torch.from_numpy(a) for a in arrays[4:]]
+
+
+def _close(out, ref, tol):
+    for o, r in zip(out, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("case", WKV_CASES, ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_interpreted_pallas_kernel(case, dtype):
+    arrays = _draw(*case, seed=sum(case))
+    ref = pallas_rwkv6_scan(*_jax(arrays, dtype), chunk=32, interpret=True)
+    out = rwkv6_scan_ref(*_torch(arrays, dtype))
+    assert out[0].dtype == out[1].dtype == torch.float32
+    _close(out, ref, TOL[dtype])
+
+
+@pytest.mark.parametrize("case", WKV_CASES, ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_the_reference_plain_version(case, dtype):
+    arrays = _draw(*case, seed=100 + sum(case))
+    ref = jax_ref.rwkv6_scan_ref(*_jax(arrays, dtype))
+    _close(rwkv6_scan_ref(*_torch(arrays, dtype)), ref, TOL[dtype])
+
+
+@pytest.mark.parametrize("case", [(2, 3, 1, 64), (3, 2, 97, 32)], ids=["decode_T1", "prime_T97"])
+def test_decode_step_and_a_length_no_chunk_divides(case):
+    """T = 1 (a decode step) and T = 97, which the Pallas kernel's chunk of
+    32 does not divide (it falls back to chunks of 1); the port's kernel has
+    no chunk."""
+    arrays = _draw(*case, seed=7)
+    ref = pallas_rwkv6_scan(*_jax(arrays, "float32"), chunk=32, interpret=True)
+    _close(rwkv6_scan_ref(*_torch(arrays, "float32")), ref, TOL["float32"])
+
+
+def test_state_carries_over_between_calls():
+    """The first half, then the second half from its final state, equals
+    the whole sequence in one call (and the whole equals the reference)."""
+    r, k, v, w, u, s0 = _torch(_draw(2, 2, 80, 32, seed=11), "float32")
+    y, s = rwkv6_scan_ref(r, k, v, w, u, s0)
+    h = 33
+    y1, s1 = rwkv6_scan_ref(r[:, :, :h], k[:, :, :h], v[:, :, :h], w[:, :, :h], u, s0)
+    y2, s2 = rwkv6_scan_ref(r[:, :, h:], k[:, :, h:], v[:, :, h:], w[:, :, h:], u, s1)
+    torch.testing.assert_close(torch.cat([y1, y2], dim=2), y, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(s2, s, rtol=1e-6, atol=1e-6)
+    ref = jax_ref.rwkv6_scan_ref(*(jnp.asarray(a.numpy()) for a in (r, k, v, w, u, s0)))
+    _close((y, s), ref, TOL["float32"])
+
+
+def test_model_layout_wrapper_matches_the_reference_ops():
+    """``ops.rwkv6_scan`` in model layout (B, T, H, D) against the
+    reference's ``kernels.ops.rwkv6_scan`` (the Pallas kernel, interpreted
+    off the TPU). CPU tensors take the plain version and count no launch."""
+    r, k, v, w, u, s0 = _draw(2, 4, 48, 32, seed=3)
+    model_layout = [np.ascontiguousarray(np.moveaxis(a, 2, 1)) for a in (r, k, v, w)]
+    ref = ref_ops.rwkv6_scan(*(jnp.asarray(a) for a in model_layout), jnp.asarray(u), jnp.asarray(s0))
+    before = wk.rwkv6_scan.launches
+    out = ops.rwkv6_scan(*(torch.from_numpy(a) for a in model_layout),
+                         torch.from_numpy(u), torch.from_numpy(s0))
+    assert wk.rwkv6_scan.launches == before
+    assert out[0].shape == (2, 48, 4, 32)
+    _close(out, ref, TOL["float32"])
+
+
+def test_wrapper_refuses_other_devices():
+    r = torch.empty((1, 1, 4, 16), device="meta")
+    u, s0 = torch.empty((1, 16), device="meta"), torch.empty((1, 1, 16, 16), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        wk.rwkv6_scan(r, r, r, r, u, s0)
