@@ -12,8 +12,10 @@ Phases, each printing its own lines:
      shapes its path gives it: the sweep's kernels also on a live
      default-grid state (limit 1e-12 relative; bool and int64 outputs
      exact), the WKV-6 kernel at the serving run's prefill and decode
-     shapes and a long prompt (rtol = atol = 1e-4, fp32); max error,
-     device time, the plain version's time, and the bound (bytes moved at
+     shapes and a long prompt (rtol = atol = 1e-4, fp32), the RG-LRU
+     kernel at recurrentgemma-9b's prefill, decode and long-prompt shapes,
+     an odd width and bf16 inputs (rtol = atol = 1e-6); max error, device
+     time, the plain version's time, and the bound (bytes moved at
      3.35 TB/s, or operations at 34 TFLOP/s float64 / 67 TFLOP/s float32,
      whichever is longer);
   4. the 276-row default grid on the fused route and on the split route,
@@ -34,7 +36,20 @@ Phases, each printing its own lines:
      on the card on the CPU run's inputs (wkv state within rtol = atol =
      1e-3, logits within atol 2e-2); the free-running drift is printed
      beside the CPU's own drift between thread counts;
-  9. a {"kernels": [...]} JSON line, then the nvidia-smi name/power line,
+  9. the hybrid serving path: recurrentgemma-9b at full width and depth
+     (38 layers, 9,396,408,320 fp32 parameters from a seeded generator)
+     serves 8 prompts of 512 tokens with 32 new greedy tokens (RG-LRU
+     launches exactly 26 x 32) and 1 prompt of 3,072 tokens with 8 new
+     tokens (the 2,048-token window wraps the rolling cache and the
+     query-chunked attention runs; 26 x 8 launches); prefill and decode
+     timed, one prefill and 4 decode steps profiled, peak device memory
+     under 80 GB;
+ 10. recurrentgemma-9b cut to one period (R, R, L) at full width on the
+     card against the port's CPU run, as phase 8: h / conv states within
+     rtol = atol = 1e-3, bf16 k / v caches within 1e-2, positions exact,
+     block outputs within two bf16 ulps of their largest magnitude, logits
+     within atol 2e-2;
+ 11. a {"kernels": [...]} JSON line, then the nvidia-smi name/power line,
      then the result line {"ok": true, "device": {...}}.
 
 Any failure exits non-zero without the result line. The script imports
@@ -43,6 +58,7 @@ only the port (src/repro_torch) and needs the repository around it.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -76,6 +92,22 @@ WKV_TOL = 1e-4
 SERVE_B, SERVE_PROMPT, SERVE_NEW = 8, 512, 32
 #: the card-against-CPU check: layers, requests, prompt tokens, forced steps
 CHECK_LAYERS, CHECK_B, CHECK_PROMPT, CHECK_STEPS = 2, 2, 64, 4
+
+#: (B, T, W) RG-LRU check shapes, fp32 unless marked: recurrentgemma-9b's
+#: serving prefill (8 prompts of 512 tokens), decode (T = 1) and long
+#: prompt (3,072 tokens) at its LRU width, an odd width, and bf16 inputs;
+#: the first goes into the kernels JSON line
+RG_SHAPES = [((8, 512, 4096), "float32"), ((8, 1, 4096), "float32"),
+             ((1, 3072, 4096), "float32"), ((3, 77, 1000), "float32"),
+             ((8, 512, 4096), "bfloat16")]
+RG_TOL = 1e-6
+#: the hybrid serving runs: (requests, prompt tokens, new tokens); the
+#: second prompt is longer than the 2,048-token window
+HYB_RUNS = [(8, 512, 32), (1, 3072, 8)]
+#: the hybrid card-against-CPU check: one "RRL" period at full width
+HYB_CHECK_LAYERS = 3
+#: one card's device memory
+CARD_BYTES = 80e9
 
 
 class SmokeFailure(RuntimeError):
@@ -159,10 +191,11 @@ def synthetic_inputs(S, C, K, Q, seed, device):
     )
 
 
-def device_ms(fn, n):
-    """Device time of one launch of the single-kernel ``fn``: the kernel
-    time the profiler records over ``n`` calls, averaged over the launches
-    it recorded (it may drop some), 0.0 when it records none."""
+def device_ms(fn, n, kernel=None):
+    """Device time of one launch of the single-kernel ``fn`` (or of the
+    kernel named ``kernel`` among what ``fn`` launches): the kernel time the
+    profiler records over ``n`` calls, averaged over the launches it
+    recorded (it may drop some), 0.0 when it records none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -170,7 +203,7 @@ def device_ms(fn, n):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    events = _device_events(prof)
+    events = [e for e in _device_events(prof) if kernel is None or kernel in e.key]
     launches = sum(e.count for e in events)
     return sum(_self_device_us(e) for e in events) / 1e3 / max(launches, 1)
 
@@ -321,6 +354,56 @@ def wkv_checks(wk, ref):
     return rows
 
 
+def rglru_checks(rg, ref):
+    """Phase 3, RG-LRU: the kernel against its plain version on the card.
+    Returns {(shape, dtype): row} of measurements."""
+    import torch
+
+    rows = {}
+    for (B, T, W), dtype in RG_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(B * T + W)
+        dt = getattr(torch, dtype)
+
+        def draw(*shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device="cuda") * scale
+
+        a = torch.sigmoid(draw(B, T, W)).to(dt)  # decay in (0, 1)
+        x = draw(B, T, W, scale=0.5).to(dt)
+        h0 = draw(B, W, scale=0.5)
+        args = (a, x, h0)
+        out = rg.rglru_scan(*args)
+        want = ref(*args)
+        torch.cuda.synchronize()
+        err = 0.0
+        for o, w in zip(out, want):
+            fail_if(o.shape != w.shape or o.dtype != w.dtype or o.dtype != torch.float32,
+                    f"rglru {B, T, W} {dtype}: shape/dtype")
+            excess = ((o - w).abs() - RG_TOL * w.abs()).max().item()
+            fail_if(not excess <= RG_TOL, f"rglru {B, T, W} {dtype}: outside rtol = atol = {RG_TOL}")
+            err = max(err, (o - w).abs().max().item())
+        # a, x read once (in their type), h written once, h0 in, h_T out;
+        # one multiply and one add an element
+        nbytes = 2 * B * T * W * a.element_size() + 4 * (B * T * W + 2 * B * W)
+        ops = 2 * B * T * W
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / FP32_FLOPS * 1e3
+        row = {
+            "max_abs_err": err,
+            "ms": device_ms(lambda: rg.rglru_scan(*args), 20, "rglru_kernel"),
+            "call_ms": event_ms(lambda: rg.rglru_scan(*args), 20),
+            "plain_ms": event_ms(lambda: ref(*args), 3),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+        fail_if(row["ms"] <= 0.0, f"rglru {B, T, W}: profiler recorded no device time")
+        rows[((B, T, W), dtype)] = row
+        print(f"[kernels] rglru_scan B={B} T={T:4d} W={W} {dtype}: max_abs_err {err:.3g} | "
+              f"device {row['ms'] * 1e3:.2f} us | wrapper call {row['call_ms'] * 1e3:.2f} us | "
+              f"plain {row['plain_ms'] * 1e3:.1f} us | bound {row['bound_ms'] * 1e3:.3f} us "
+              f"({row['bound_by']}: {nbytes / 1e6:.1f} MB) | library: none", flush=True)
+    return rows
+
+
 def serve_full_width(wk):
     """Phase 7: rwkv6-3b at full width through ``generate``. Returns the
     WKV launch count of the generate run."""
@@ -398,6 +481,95 @@ def serve_full_width(wk):
     del model, cache, logits
     torch.cuda.empty_cache()
     return launches
+
+
+def serve_hybrid(rg, wk):
+    """Phase 9: recurrentgemma-9b at full width and depth through
+    ``generate``. Returns {run: RG-LRU launches of its generate}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.model import build_model
+    from repro_torch.train.serve_step import generate, make_decode_step, make_prefill
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = build_model("recurrentgemma-9b", device="cuda")
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    init_s = time.perf_counter() - t0
+    cfg = model.cfg
+    n_rec = sum(t == "R" for t in cfg.layer_types())
+    rng = np.random.RandomState(0)
+    generate(model, torch.as_tensor(rng.randint(0, cfg.vocab_size, (2, 16)), device="cuda"), 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"[hybrid] recurrentgemma-9b full width: {n_params:,} fp32 parameters (init "
+          f"{init_s:.2f}s), {cfg.num_layers} layers of which {n_rec} RG-LRU", flush=True)
+    prefill, decode = make_prefill(model), make_decode_step(model)
+    by_run = {}
+    for b, s_len, new in HYB_RUNS:
+        prompt = torch.as_tensor(rng.randint(0, cfg.vocab_size, (b, s_len)), device="cuda")
+        torch.cuda.synchronize()
+        rg.rglru_scan.launches = wk.rwkv6_scan.launches = 0
+        t0 = time.perf_counter()
+        tokens = generate(model, prompt, new)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches, other = rg.rglru_scan.launches, wk.rwkv6_scan.launches
+        run = f"serve_{b}x{s_len}"
+        by_run[run] = launches
+        fail_if(tuple(tokens.shape) != (b, new), f"{run}: tokens {tuple(tokens.shape)}")
+        fail_if(not (0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size),
+                f"{run}: tokens out of the vocabulary")
+        fail_if(launches != n_rec * new or other != 0,
+                f"{run}: {launches} RG-LRU launches (expected {n_rec * new}), {other} WKV")
+
+        # prefill and decode timed apart, on the same prompts
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill({"tokens": prompt}, model.init_cache(b, s_len + new))
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        fail_if(not bool(torch.isfinite(logits.float()).all()), f"{run}: non-finite prefill logits")
+        tok = torch.argmax(logits[:, -1, :], dim=-1)
+        fail_if(not torch.equal(tok, tokens[:, 0]), f"{run}: prefill token differs from generate's")
+        t0 = time.perf_counter()
+        for i in range(new - 1):
+            tok, cache = decode(tok, cache, s_len + i)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        fail_if(not torch.equal(tok, tokens[:, -1]), f"{run}: decode tokens differ from generate's")
+        for name, state in cache["periods"].items():
+            for key, v in state.items():
+                fail_if(key != "pos" and not bool(torch.isfinite(v.float()).all()),
+                        f"{run}: non-finite {name}.{key} state")
+        written = cache["periods"]["l2"]["pos"]
+        want_pos = min(s_len + new - 1, cfg.window_size)
+        fail_if(int((written >= 0).sum(dim=-1).min()) != want_pos,
+                f"{run}: {int((written >= 0).sum(dim=-1).min())} written window slots, expected {want_pos}")
+        steps = new - 1
+        print(f"[hybrid] {b} requests x {s_len} prompt tokens, {new} new greedy tokens: generate "
+              f"{gen_s:.3f}s, RG-LRU launches {launches} (= {n_rec} layers x {new} model calls); "
+              f"prefill {prefill_s * 1e3:.1f} ms ({b * s_len / prefill_s:.0f} tokens/s); decode "
+              f"{steps} steps in {decode_s * 1e3:.1f} ms ({decode_s / steps * 1e3:.2f} ms a step, "
+              f"{b * steps / decode_s:.1f} tokens/s)", flush=True)
+        if (b, s_len, new) == HYB_RUNS[0]:
+            # where the time goes: one prefill and 4 decode steps under the profiler
+            cache0 = model.init_cache(b, s_len + new)
+            for label, fn in (
+                ("prefill", lambda: prefill({"tokens": prompt}, cache0)),
+                ("4 decode steps", lambda: [decode(tok, cache, s_len) for _ in range(4)]),
+            ):
+                print(f"[hybrid] profiled {label}: {profile_window(fn, 'rglru_kernel')}", flush=True)
+        del cache, logits
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[hybrid] peak device memory {peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB)", flush=True)
+    fail_if(not peak < CARD_BYTES, f"hybrid: peak device memory {peak / 1e9:.2f} GB")
+    del model
+    torch.cuda.empty_cache()
+    return by_run
 
 
 def profile_window(fn, kernel):
@@ -522,6 +694,138 @@ def card_against_cpu(wk):
     return launches
 
 
+def hybrid_card_against_cpu(rg):
+    """Phase 10: recurrentgemma-9b at full width cut to one period (R, R,
+    L), on the card and in the port's CPU run with the same weights. As in
+    phase 8, every block call of the CPU's prefill and forced decode steps
+    is replayed on the card's block on the CPU's inputs (state, caches and
+    block output held to the CPU's), and the card's output head is given
+    the CPU's last hidden state; the free-running drift is printed beside
+    the CPU run's own drift between one thread and all of them. Returns the
+    RG-LRU launch count of the phase."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), num_layers=HYB_CHECK_LAYERS)
+    gpu = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(1))
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    rng = np.random.RandomState(1)
+    prompt = rng.randint(0, cfg.vocab_size, (CHECK_B, CHECK_PROMPT))
+    forced = rng.randint(0, cfg.vocab_size, (CHECK_STEPS, CHECK_B))
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(to(v, dev) for v in tree)
+        return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+    def run(m, calls=None):
+        """Prefill and the forced decode steps -> [(logits (B, V), cache)] on
+        the CPU; ``calls`` collects (layer, inputs, outputs) of each block."""
+        hooks = [blk.register_forward_hook(
+                 lambda mod, args, out, i=i: calls.append((i, args, out)))
+                 for i, blk in enumerate(m.layers)] if calls is not None else []
+        with torch.inference_mode():
+            lg, c = m.prefill({"tokens": torch.as_tensor(prompt, device=m.device)},
+                              m.init_cache(CHECK_B, CHECK_PROMPT + CHECK_STEPS))
+            out = [(lg[:, 0], c)]
+            for i, tok in enumerate(forced):
+                out.append(m.decode_step(torch.as_tensor(tok, device=m.device), out[-1][1],
+                                         CHECK_PROMPT + i))
+        for h in hooks:
+            h.remove()
+        return [(lg.float().cpu(), to(c, "cpu")) for lg, c in out]
+
+    def states(cache):
+        """layer -> state, in layer order."""
+        return cpu._layer_states(cache)
+
+    def drift(a, b):
+        """(worst logits difference, worst state difference per layer)."""
+        lg = max((x[0] - y[0]).abs().max().item() for x, y in zip(a, b))
+        per = [max(max((sx[k].float() - sy[k].float()).abs().max().item() for k in sx)
+                   for sx, sy in ((states(x[1])[i], states(y[1])[i]) for x, y in zip(a, b)))
+               for i in range(HYB_CHECK_LAYERS)]
+        return lg, per
+
+    t0 = time.perf_counter()
+    rg.rglru_scan.launches = 0
+    free = run(gpu)
+    calls = []
+    ref = run(cpu, calls)
+    cpu_s = time.perf_counter() - t0
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    one_thread = run(cpu)
+    torch.set_num_threads(threads)
+    one_s = time.perf_counter() - t0 - cpu_s
+
+    # every layer of every call, on the CPU run's inputs
+    tol = {"h": 1e-3, "conv": 1e-3, "k": 1e-2, "v": 1e-2}
+    worst = {k: 0.0 for k in (*tol, "out")}
+    with torch.inference_mode():
+        for i, args, (h_out, st_out) in calls:
+            got_h, st = gpu.layers[i](*to(args, "cuda"))
+            got_h, st = got_h.cpu().float(), to(st, "cpu")
+            # the block output is the bf16 sum h + mixer + FFN, three
+            # roundings of terms that can be larger than the output itself,
+            # so it is held normwise: within two bf16 ulps of its largest
+            # magnitude (one ulp there is 2^-8 to 2^-7 of it)
+            d = (got_h - h_out.float()).abs().max().item()
+            top_ulp = 2.0 ** (math.floor(math.log2(h_out.float().abs().max().item())) - 7)
+            worst["out"] = max(worst["out"], d / top_ulp)
+            fail_if(not d <= 2 * top_ulp,
+                    f"hybrid check: layer {i} output differs by {d:.3g}, more than two bf16 "
+                    f"ulps ({top_ulp:.3g}) of its largest magnitude")
+            for k, want in st_out.items():
+                got = st[k]
+                if k == "pos":
+                    fail_if(not torch.equal(got, want), f"hybrid check: layer {i} positions differ")
+                    continue
+                d = (got.float() - want.float()).abs()
+                excess = (d - tol[k] * want.float().abs()).max().item()
+                fail_if(not excess <= tol[k],
+                        f"hybrid check: layer {i} {k} outside rtol = atol = {tol[k]} on the CPU's inputs")
+                worst[k] = max(worst[k], d.max().item())
+        finals = [h_out for i, _, (h_out, _) in calls if i == HYB_CHECK_LAYERS - 1]
+        worst_lg = 0.0
+        for h_last, (want, _) in zip(finals, ref):
+            got = gpu._logits(h_last[:, -1:, :].cuda())[:, 0].float().cpu()
+            fail_if(not bool(torch.isfinite(got).all()), "hybrid check: non-finite logits on the card")
+            worst_lg = max(worst_lg, (got - want).abs().max().item())
+    secs = time.perf_counter() - t0
+    launches = rg.rglru_scan.launches
+    n_rec = sum(t == "R" for t in cfg.layer_types())
+    want_launches = 2 * n_rec * (1 + CHECK_STEPS)
+    fail_if(launches != want_launches, f"hybrid check: {launches} RG-LRU launches, expected {want_launches}")
+    free_lg, free_st = drift(free, ref)
+    cpu_lg, cpu_st = drift(one_thread, ref)
+    print(f"[hybrid-check] recurrentgemma-9b full width cut to {HYB_CHECK_LAYERS} layers "
+          f"({cfg.layer_types()}), card vs the port's CPU run ({secs:.1f}s; card and CPU runs "
+          f"{cpu_s:.1f}s, 1-thread CPU run {one_s:.1f}s): {CHECK_B} x "
+          f"{CHECK_PROMPT} prefill + {CHECK_STEPS} forced decode steps; each layer on the CPU "
+          f"run's inputs: worst differences h {worst['h']:.3g}, conv {worst['conv']:.3g} (limit "
+          f"1e-3 + 1e-3 |x|), k {worst['k']:.3g}, v {worst['v']:.3g} (limit 1e-2 + 1e-2 |x|), "
+          f"block output {worst['out']:.3g} bf16 ulps of its largest magnitude (limit 2), "
+          f"positions equal; output head worst "
+          f"|logits| difference {worst_lg:.3g} (limit 2e-2); RG-LRU launches {launches}", flush=True)
+    print(f"[hybrid-check] free-running drift: card vs CPU worst |logits| {free_lg:.3g}, worst "
+          f"state difference by layer {[float(f'{x:.3g}') for x in free_st]}; CPU 1 thread vs "
+          f"{threads} threads worst |logits| {cpu_lg:.3g}, by layer "
+          f"{[float(f'{x:.3g}') for x in cpu_st]}", flush=True)
+    fail_if(not worst_lg <= 2e-2, f"hybrid check: logits differ by {worst_lg:.3g}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return launches
+
+
 def live_default_state():
     """A default-grid driver state a few sweeps in, as fused-step operands."""
     import torch
@@ -581,8 +885,9 @@ def main(argv) -> int:
     from repro_torch import _cuda_build as _build
     from repro_torch.eval.fabric.kernels import fused_step as fs
     from repro_torch.eval.fabric.kernels import waterfill_bisect as wf
+    from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import rwkv6_scan as wk
-    from repro_torch.kernels.ref import rwkv6_scan_ref
+    from repro_torch.kernels.ref import rglru_scan_ref, rwkv6_scan_ref
     from repro_torch.eval.runner import compare_golden, load_golden, metrics_snapshot
     from repro_torch.eval.scenarios import default_matrix, full_matrix
 
@@ -593,13 +898,18 @@ def main(argv) -> int:
           f"{nvcc.stdout.strip().splitlines()[-1]} | python {sys.version.split()[0]} | "
           f"fp32 matmul precision {torch.get_float32_matmul_precision()}, allow_tf32 "
           f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
+    from repro_torch.core.device import resolve_device
+
+    resolve_device("cuda")
+    fail_if(torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+            "bf16 matrix products would reduce partial sums in bf16")
     fail_if(torch.backends.cuda.matmul.allow_tf32
             or torch.get_float32_matmul_precision() != "highest",
             "fp32 matrix products would run in TF32")
 
     # ---- 2. build ----
     t0 = time.perf_counter()
-    sources = [wf.SOURCE, fs.SOURCE, wk.SOURCE]
+    sources = [wf.SOURCE, fs.SOURCE, wk.SOURCE, rg.SOURCE]
     _build.build(sources)
     print(f"[build] {len(sources)} kernels in {time.perf_counter() - t0:.2f}s", flush=True)
     for name, (secs, report) in _build.BUILD_LOG.items():
@@ -608,9 +918,10 @@ def main(argv) -> int:
     # ---- 3. kernels against their plain versions ----
     rows = kernel_checks(wf, fs, None if quick else live_default_state())
     rows["rwkv6_scan"] = wkv_checks(wk, rwkv6_scan_ref)
+    rows["rglru_scan"] = rglru_checks(rg, rglru_scan_ref)
 
-    launches = {"waterfill": 0, "fused_step": 0, "rwkv6_scan": 0}
-    by_path = {"waterfill": {}, "fused_step": {}, "rwkv6_scan": {}}
+    launches = {"waterfill": 0, "fused_step": 0, "rwkv6_scan": 0, "rglru_scan": 0}
+    by_path = {"waterfill": {}, "fused_step": {}, "rwkv6_scan": {}, "rglru_scan": {}}
     if not quick:
         # ---- 4. the default grid on both routes ----
         golden = load_golden(str(GOLDEN))
@@ -691,7 +1002,14 @@ def main(argv) -> int:
         # ---- 8. the card against the port's CPU run, 2 layers ----
         by_path["rwkv6_scan"]["card_vs_cpu"] = card_against_cpu(wk)
 
-    # ---- 9. summary lines ----
+        # ---- 9. the hybrid serving path: recurrentgemma-9b at full width ----
+        by_path["rglru_scan"].update(serve_hybrid(rg, wk))
+        launches["rglru_scan"] = sum(by_path["rglru_scan"].values())
+
+        # ---- 10. the card against the port's CPU run, one period ----
+        by_path["rglru_scan"]["card_vs_cpu"] = hybrid_card_against_cpu(rg)
+
+    # ---- 11. summary lines ----
     kernels = []
     for name, src, replaces, pick, shape in (
         ("waterfill", "src/repro_torch/eval/fabric/csrc/waterfill.cu",
@@ -700,6 +1018,8 @@ def main(argv) -> int:
          "src/repro/eval/fabric/kernels/fused_step_pallas.py:37", JSON_SHAPE, "SCKQ"),
         ("rwkv6_scan", "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
          "src/repro/kernels/rwkv6_scan.py:26", WKV_SHAPES[0], "BHTD"),
+        ("rglru_scan", "src/repro_torch/kernels/csrc/rglru_scan.cu",
+         "src/repro/kernels/rglru_scan.py:23", RG_SHAPES[0], "BTW"),
     ):
         row = rows[name][pick]
         kernels.append({
@@ -708,7 +1028,7 @@ def main(argv) -> int:
             "max_abs_err": max(r["max_abs_err"] for r in rows[name].values()),
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
-            "shape": dict(zip(shape, pick)),
+            "shape": dict(zip(shape, pick[0] if name == "rglru_scan" else pick)),
         })
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))

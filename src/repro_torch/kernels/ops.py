@@ -7,6 +7,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import rwkv6_scan as _wk
 
 
@@ -19,3 +20,10 @@ def rwkv6_scan(
     args = [x.movedim(1, 2) for x in (r, k, v, w)]
     y, s_fin = _wk.rwkv6_scan(*args, u, s0)
     return y.movedim(2, 1), s_fin
+
+
+def rglru_scan(a: torch.Tensor, x: torch.Tensor,
+               h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Model layout a, x (B, T, W), h0 (B, W), which is the kernel layout.
+    Returns h (B, T, W) fp32 and h_T (B, W) fp32."""
+    return _rg.rglru_scan(a, x, h0)

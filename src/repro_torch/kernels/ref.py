@@ -32,3 +32,19 @@ def rwkv6_scan_ref(
         ys.append(torch.einsum("bhi,bhij->bhj", r_t, s + uf * kv))
         s = w_t[..., None] * s + kv
     return torch.stack(ys, dim=2), s
+
+
+def rglru_scan_ref(a: torch.Tensor, x: torch.Tensor,
+                   h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Diagonal linear recurrence, step by step: h_t = a_t * h_{t-1} + x_t.
+
+    a, x: (B, T, W); h0: (B, W); T >= 1. Inputs are upcast to fp32.
+    Returns h (B, T, W) fp32 and h_T (B, W) fp32.
+    """
+    af, xf = a.float(), x.float()
+    h = h0.float()
+    hs = []
+    for t in range(af.shape[1]):
+        h = af[:, t] * h + xf[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1), h

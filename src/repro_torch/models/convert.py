@@ -6,38 +6,33 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from repro_torch.models.model import RwkvLM
-
-
-def _flat(tree: Mapping, shape_of) -> dict:
-    return {(group, name): shape_of(leaf)
-            for group, leaves in tree.items() for name, leaf in leaves.items()}
+from repro_torch.models.model import BaseLM, is_param_leaf, tree_leaves
 
 
 @torch.no_grad()
-def params_from_jax(model: RwkvLM, tree: Mapping) -> RwkvLM:
-    """Load the reference's ``RwkvLM.init`` tree, given as numpy arrays
-    (``{"embed": {"tok", "final_norm"}, "layers": {name: stacked on axis
-    0}}``), into ``model``. Every name and shape must match the model's;
-    a missing, extra or misshapen leaf raises ``ValueError``. Returns the
-    model."""
-    want = _flat(model.param_shapes(), tuple)
-    got = _flat(tree, np.shape)
+def params_from_jax(model: BaseLM, tree: Mapping) -> BaseLM:
+    """Load the reference's ``init`` tree of the same model, given as numpy
+    arrays, into ``model``: ``{"embed": {...}, "layers": {name: stacked on
+    axis 0}}`` for ``RwkvLM``; ``{"embed": {...}, "periods": {"l<j>": {name:
+    stacked on axis 0}}, "tail": [{name: array}, ...]}`` for ``HybridLM``.
+    Every name and shape must match the model's; a missing, extra or
+    misshapen leaf raises ``ValueError``. Returns the model."""
+    want = tree_leaves(model.param_shapes(), lambda n: isinstance(n, tuple))
+    got = tree_leaves(tree, lambda n: not isinstance(n, (dict, list)))
     if want.keys() != got.keys():
         raise ValueError(
-            f"parameter names differ: missing {sorted(want.keys() - got.keys())}, "
-            f"unexpected {sorted(got.keys() - want.keys())}")
-    bad = {key: (got[key], want[key]) for key in want if got[key] != want[key]}
+            f"parameter names differ: missing {sorted(want.keys() - got.keys(), key=str)}, "
+            f"unexpected {sorted(got.keys() - want.keys(), key=str)}")
+    bad = {key: (np.shape(got[key]), want[key]) for key in want
+           if np.shape(got[key]) != want[key]}
     if bad:
         raise ValueError(f"parameter shapes differ (given, expected): {bad}")
 
-    def load(param: torch.Tensor, value) -> None:
-        param.copy_(torch.from_numpy(np.array(value, dtype=np.float32)))
-
-    for name, value in tree["embed"].items():
-        load(model.embed[name], value)
-    for name, value in tree["layers"].items():
-        stacked = np.asarray(value)
-        for i, block in enumerate(model.layers):
-            load(getattr(block, name), stacked[i])
+    for path, target in tree_leaves(model.param_tree(), is_param_leaf).items():
+        value = np.asarray(got[path], dtype=np.float32)
+        if isinstance(target, list):
+            for param, v in zip(target, value):
+                param.copy_(torch.from_numpy(np.array(v)))
+        else:
+            target.copy_(torch.from_numpy(np.array(value)))
     return model

@@ -1,6 +1,6 @@
 """The CUDA kernels on the card: each against its plain PyTorch version,
 the smoke matrix through both routes against the golden snapshot, and the
-RWKV-6 model on the card against its CPU run.
+RWKV-6 and recurrentgemma models on the card against their CPU runs.
 
 These need an NVIDIA GPU and ``nvcc``; without a card they skip. On the
 card: ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py``.
@@ -18,8 +18,9 @@ from repro_torch.eval.fabric.kernels import fused_step as fs
 from repro_torch.eval.fabric.kernels import waterfill_bisect as wf
 from repro_torch.eval.runner import compare_golden, load_golden, metrics_snapshot, run_matrix
 from repro_torch.eval.scenarios import smoke_matrix
+from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import rwkv6_scan as wk
-from repro_torch.kernels.ref import rwkv6_scan_ref
+from repro_torch.kernels.ref import rglru_scan_ref, rwkv6_scan_ref
 from repro_torch.models.config import reduce_for_smoke
 from repro_torch.models.model import build_model
 
@@ -141,3 +142,75 @@ def test_rwkv_model_on_the_card_matches_its_cpu_run(cuda):
         torch.testing.assert_close(lg_g.float().cpu(), lg_c.float(), rtol=0, atol=2e-2)
         for name in c_c:
             torch.testing.assert_close(c_g[name].cpu(), c_c[name], rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", [(1, 64, 128), (2, 128, 256), (3, 100, 64), (2, 1, 4096),
+                                  (3, 97, 1000), (1, 37, 33)], ids=str)
+def test_rglru_kernel_matches_its_plain_version_on_the_card(cuda, case, dtype):
+    """Within rtol = atol = 1e-6 (built with -fmad=false, the kernel
+    rounds as the plain version does and should agree bit for bit); odd
+    widths and T = 1 included. Each call launches the kernel once."""
+    b, t, w = case
+    gen = torch.Generator(device=cuda).manual_seed(t * w)
+    a = torch.sigmoid(torch.randn((b, t, w), generator=gen, device=cuda)).to(dtype)
+    x = (0.5 * torch.randn((b, t, w), generator=gen, device=cuda)).to(dtype)
+    h0 = 0.5 * torch.randn((b, w), generator=gen, device=cuda)
+    before = rg.rglru_scan.launches
+    h, h_fin = rg.rglru_scan(a, x, h0)
+    torch.cuda.synchronize()
+    assert rg.rglru_scan.launches == before + 1
+    assert h.dtype == h_fin.dtype == torch.float32
+    h_ref, fin_ref = rglru_scan_ref(a, x, h0)
+    torch.testing.assert_close(h, h_ref, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(h_fin, fin_ref, rtol=1e-6, atol=1e-6)
+
+
+def test_hybrid_model_on_the_card_matches_its_cpu_run(cuda):
+    """Prefill (longer than the window of 8) and two decode steps of the
+    5-layer smoke model: free-running logits within atol 2e-2; every block
+    call of the CPU run replayed on the card on the CPU's inputs, its fp32
+    states within rtol = atol = 1e-3, bf16 caches and block output within
+    1e-2, positions exact (run freely, a bf16 rounding flip in one layer
+    would carry into the next layer's fp32 state); every RG-LRU layer of
+    every call launches the kernel once."""
+    import dataclasses
+
+    cfg = dataclasses.replace(reduce_for_smoke(get_config("recurrentgemma-9b")), num_layers=5)
+    gpu = build_model(cfg, device=cuda).init(torch.Generator(device=cuda).manual_seed(0))
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    tokens = np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 16))
+    calls = []
+    hooks = [blk.register_forward_hook(lambda mod, args, out, i=i: calls.append((i, args, out)))
+             for i, blk in enumerate(cpu.layers)]
+    logits = []
+    before = rg.rglru_scan.launches
+    for m in (gpu, cpu):
+        with torch.inference_mode():
+            lg, c = m.prefill({"tokens": torch.as_tensor(tokens, device=m.device)},
+                              m.init_cache(2, 18))
+            out = [lg[:, 0]]
+            for i in range(2):
+                tok = torch.as_tensor(tokens[:, i], device=m.device)
+                lg, c = m.decode_step(tok, c, 16 + i)
+                out.append(lg)
+        logits.append(out)
+    for h in hooks:
+        h.remove()
+    n_rec = sum(t == "R" for t in cfg.layer_types())
+    assert rg.rglru_scan.launches == before + 3 * n_rec
+    for lg_g, lg_c in zip(*logits):
+        torch.testing.assert_close(lg_g.float().cpu(), lg_c.float(), rtol=0, atol=2e-2)
+    assert len(calls) == 3 * cfg.num_layers
+    for i, (h, positions, state, pos), (h_out, st_out) in calls:
+        with torch.inference_mode():
+            got_h, got = gpu.layers[i](h.to(cuda), positions.to(cuda),
+                                       {k: v.to(cuda) for k, v in state.items()}, pos)
+        torch.testing.assert_close(got_h.cpu(), h_out, rtol=1e-2, atol=1e-2)
+        for name, want in st_out.items():
+            if want.dtype == torch.int32:
+                assert torch.equal(got[name].cpu(), want), (i, name)
+            else:
+                tol = 1e-3 if want.dtype == torch.float32 else 1e-2
+                torch.testing.assert_close(got[name].cpu(), want, rtol=tol, atol=tol)

@@ -107,3 +107,21 @@ def test_model_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
     out = generate(model, torch.zeros((2, 3), dtype=torch.int64), 4)
     assert out.shape == (2, 4) and out.device.type == "cpu"
     assert int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size
+
+
+def test_hybrid_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import reduce_for_smoke
+    from repro_torch.models.model import HybridLM, build_model
+    from repro_torch.train.serve_step import generate
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduce_for_smoke(get_config("recurrentgemma-9b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model("recurrentgemma-9b")
+    model = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    assert isinstance(model, HybridLM)
+    out = generate(model, torch.zeros((2, 3), dtype=torch.int64), 4)
+    assert out.shape == (2, 4) and out.device.type == "cpu"

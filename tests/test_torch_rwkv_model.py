@@ -208,10 +208,15 @@ def test_registry_matches_the_reference():
             dataclasses.asdict(ref_reduce_for_smoke(REF_ARCHS[name]))
 
 
-@pytest.mark.parametrize("arch", sorted(set(ARCHS) - {"rwkv6-3b"}))
+@pytest.mark.parametrize("arch", sorted(set(ARCHS) - {"rwkv6-3b", "recurrentgemma-9b"}))
 def test_other_families_are_not_ported_yet(arch):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         build_model(arch, device="meta")
+
+
+def test_hybrid_is_ported():
+    model = build_model("recurrentgemma-9b", device="meta")
+    assert type(model).__name__ == "HybridLM" and len(model.layers) == 38
 
 
 def test_params_from_jax_checks_names_and_shapes(case):
