@@ -14,10 +14,15 @@ Phases, each printing its own lines:
      exact), the WKV-6 kernel at the serving run's prefill and decode
      shapes and a long prompt (rtol = atol = 1e-4, fp32), the RG-LRU
      kernel at recurrentgemma-9b's prefill, decode and long-prompt shapes,
-     an odd width and bf16 inputs (rtol = atol = 1e-6); max error, device
-     time, the plain version's time, and the bound (bytes moved at
-     3.35 TB/s, or operations at 34 TFLOP/s float64 / 67 TFLOP/s float32,
-     whichever is longer);
+     an odd width and bf16 inputs (rtol = atol = 1e-6), the flash-attention
+     kernel at gemma3-1b's serving prefill shapes, the reference's FA cases
+     in fp32 and bf16 and ragged and edge shapes (rtol = atol = 2e-5 fp32,
+     2e-2 bf16; window 1 returns v exactly; a query no key may attend gets
+     zeros); max error, device time, the plain version's time, one
+     scaled_dot_product_attention call's time for the flash kernel, and the
+     bound (bytes moved at 3.35 TB/s, or operations at 34 TFLOP/s float64 /
+     67 TFLOP/s float32 / 989 TFLOP/s bf16 on the tensor cores, whichever
+     is longer);
   4. the 276-row default grid on the fused route and on the split route,
      each held to tests/golden/eval_matrix.json at rtol 1e-6;
   5. the main path: the 1116-row full grid on the default (fused) route,
@@ -49,7 +54,18 @@ Phases, each printing its own lines:
      rtol = atol = 1e-3, bf16 k / v caches within 1e-2, positions exact,
      block outputs within two bf16 ulps of their largest magnitude, logits
      within atol 2e-2;
- 11. a {"kernels": [...]} JSON line, then the nvidia-smi name/power line,
+ 11. the dense serving path: gemma3-1b at full width and depth (26 layers
+     "LLLLLG", 999,812,736 fp32 parameters from a seeded generator) serves
+     8 prompts of 512 tokens with 32 new greedy tokens and 1 prompt of
+     8,192 tokens with 8 new tokens; every prefill layer attends through
+     the flash kernel (exactly 26 launches a run, decode none); prefill and
+     decode timed, each prefill profiled, peak device memory;
+ 12. gemma3-1b cut to one period (L x 5, G) at full width on the card
+     against the port's CPU run: 1 x 640 prompt tokens (past the window),
+     4 forced decode steps, each layer on the CPU's inputs (k / v within
+     one bf16 ulp of their largest magnitude, block outputs two, logits
+     atol 2e-2), exactly 6 flash launches in the card's prefill;
+ 13. a {"kernels": [...]} JSON line, then the nvidia-smi name/power line,
      then the result line {"ok": true, "device": {...}}.
 
 Any failure exits non-zero without the result line. The script imports
@@ -108,6 +124,45 @@ HYB_RUNS = [(8, 512, 32), (1, 3072, 8)]
 HYB_CHECK_LAYERS = 3
 #: one card's device memory
 CARD_BYTES = 80e9
+
+#: bf16 dense tensor-core rate of the data sheet (the flash kernel's bound)
+BF16_TC_FLOPS = 989e12
+#: flash-attention checks, (B, H, KV, S, T, D, causal, window, softcap,
+#: dtype): gemma3-1b's serving prefill shapes (8 x 512 and 1 x 8,192, 4
+#: query heads and 1 KV head of 256, window 512 on 'L' layers, none on 'G'),
+#: the reference's FA_CASES (tests/test_kernels.py) in fp32 and bf16, and
+#: ragged and edge shapes; the serving shapes are timed, the first goes into
+#: the kernels JSON line
+FA_SERVING = [(8, 4, 1, 512, 512, 256, True, w, 0.0, "bfloat16") for w in (512, None)] + \
+             [(1, 4, 1, 8192, 8192, 256, True, w, 0.0, "bfloat16") for w in (512, None)]
+FA_CASES = [
+    (1, 4, 4, 128, 64, True, None, 0.0),
+    (2, 8, 2, 256, 64, True, None, 0.0),
+    (1, 4, 1, 256, 128, True, None, 0.0),
+    (1, 4, 4, 256, 64, False, None, 0.0),
+    (1, 4, 2, 512, 64, True, 128, 0.0),
+    (1, 2, 1, 384, 64, True, 64, 0.0),
+    (1, 4, 4, 256, 64, True, None, 50.0),
+    (2, 2, 2, 1024, 32, True, 256, 0.0),
+]
+FA_CHECKS = FA_SERVING + [
+    (b, h, kv, s, s, d, c, w, cap, dt) for b, h, kv, s, d, c, w, cap in FA_CASES
+    for dt in ("float32", "bfloat16")
+] + [
+    (3, 6, 3, 333, 333, 96, True, 77, 30.0, dt) for dt in ("float32", "bfloat16")
+] + [
+    (2, 8, 2, 1, 1, 128, True, None, 0.0, "bfloat16"),      # S = T = 1
+    (2, 8, 2, 1, 300, 128, False, None, 0.0, "float32"),   # one query over 300 keys
+    (2, 4, 2, 100, 100, 64, True, 1, 0.0, "float32"),      # window 1: the output is v
+    (2, 4, 2, 100, 100, 256, True, 1, 0.0, "bfloat16"),
+]
+FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: gemma3-1b serving runs: (requests, prompt tokens, new tokens); the second
+#: prompt is 16 windows long
+DENSE_RUNS = [(8, 512, 32), (1, 8192, 8)]
+#: the dense card-against-CPU check: one "LLLLLG" period at full width, one
+#: request of 640 tokens (longer than the 512 window), 4 forced steps
+DENSE_CHECK_LAYERS, DENSE_CHECK_B, DENSE_CHECK_PROMPT = 6, 1, 640
 
 
 class SmokeFailure(RuntimeError):
@@ -404,6 +459,105 @@ def rglru_checks(rg, ref):
     return rows
 
 
+def kept_pairs(S, T, causal, window) -> int:
+    """(query, key) pairs the mask keeps for queries 0..S-1, keys 0..T-1."""
+    import numpy as np
+
+    i = np.arange(S)
+    hi = np.minimum(i, T - 1) if causal else np.full(S, T - 1)
+    lo = np.maximum(i - window + 1, 0) if window is not None else np.zeros(S, np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def flash_checks(fa, ref):
+    """Phase 3, flash attention: the kernel against its plain version on
+    the card at every FA_CHECKS shape (window 1 must return v exactly), and
+    a shape with queries that no key may attend (the kernel must return
+    zeros there). The serving shapes are timed against the plain version,
+    one ``scaled_dot_product_attention`` call (the library yardstick) and
+    the bound. Returns {check: row} of measurements."""
+    import torch
+    import torch.nn.functional as F
+
+    rows = {}
+    for i, (B, H, KV, S, T, D, causal, window, cap, dtype) in enumerate(FA_CHECKS):
+        gen = torch.Generator(device="cuda").manual_seed(i)
+        dt = getattr(torch, dtype)
+        q = torch.randn((B, H, S, D), generator=gen, device="cuda").to(dt)
+        k, v = (torch.randn((B, KV, T, D), generator=gen, device="cuda").to(dt) for _ in range(2))
+        kw = dict(causal=causal, window=window, logit_softcap=cap)
+        out = fa.flash_attention(q, k, v, **kw)
+        want = ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        label = f"flash {(B, H, KV, S, T, D)} causal={causal} window={window} softcap={cap} {dtype}"
+        fail_if(out.shape != want.shape or out.dtype != want.dtype, f"{label}: shape/dtype")
+        tol = FA_TOL[dtype]
+        o, w = out.float(), want.float()
+        excess = ((o - w).abs() - tol * w.abs()).max().item()
+        fail_if(not excess <= tol, f"{label}: outside rtol = atol = {tol}")
+        if window == 1:
+            fail_if(not torch.equal(out, v.repeat_interleave(H // KV, dim=1)),
+                    f"{label}: window 1 does not return v")
+        err = (o - w).abs().max().item()
+        row = {"max_abs_err": err}
+        if (B, H, KV, S, T, D, causal, window, cap, dtype) in FA_SERVING:
+            # each input read once, the output written once; 4 D flops a kept
+            # (query, key) pair: q k^T and p v
+            nbytes = q.element_size() * (2 * B * H * S * D + 2 * B * KV * T * D)
+            flops = 4 * D * B * H * kept_pairs(S, T, causal, window)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / BF16_TC_FLOPS * 1e3
+            if window is None:
+                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    q, k, v, is_causal=True, enable_gqa=True)
+            else:
+                pos = torch.arange(S, device="cuda")
+                mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    q, k, v, attn_mask=mask, enable_gqa=True)
+            lib_out = lib()
+            torch.cuda.synchronize()
+            fail_if(not (lib_out.float() - w).abs().max().item() <= 2 * tol,
+                    f"{label}: the library call computes another function")
+            n = 20 if S <= 512 else 5
+            row.update({
+                "ms": device_ms(lambda: fa.flash_attention(q, k, v, **kw), n, "flash_fwd"),
+                "call_ms": event_ms(lambda: fa.flash_attention(q, k, v, **kw), n),
+                "plain_ms": event_ms(lambda: ref(q, k, v, **kw), 3),
+                "library_ms": event_ms(lib, n),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "fp32_ms": flops / FP32_FLOPS * 1e3,
+            })
+            fail_if(row["ms"] <= 0.0, f"{label}: profiler recorded no device time")
+            print(f"[kernels] flash_attention B={B} H={H} KV={KV} S={S} D={D} window={window} "
+                  f"{dtype}: max_abs_err {err:.3g} | device {row['ms'] * 1e3:.1f} us | wrapper "
+                  f"call {row['call_ms'] * 1e3:.1f} us | plain {row['plain_ms'] * 1e3:.1f} us | "
+                  f"library (scaled_dot_product_attention) {row['library_ms'] * 1e3:.1f} us | "
+                  f"bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}: {nbytes / 1e6:.1f} "
+                  f"MB, {flops / 1e9:.2f} GFLOP; {row['fp32_ms'] * 1e3:.1f} us at the fp32 rate)",
+                  flush=True)
+        rows[(B, H, KV, S, T, D, causal, window, cap, dtype)] = row
+    worst = {dt: max(r["max_abs_err"] for key, r in rows.items() if key[-1] == dt)
+             for dt in FA_TOL}
+    print(f"[kernels] flash_attention: {len(rows)} shapes within rtol = atol = 2e-5 (fp32) / "
+          f"2e-2 (bf16) of the plain version; worst |error| fp32 {worst['float32']:.3g}, bf16 "
+          f"{worst['bfloat16']:.3g}", flush=True)
+    # 16 queries over 4 keys in a window of 2: queries 5.. see no key; the
+    # kernel returns zeros there (the plain version the mean of v)
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    q = torch.randn((1, 2, 16, 32), generator=gen, device="cuda")
+    k, v = (torch.randn((1, 1, 4, 32), generator=gen, device="cuda") for _ in range(2))
+    out = fa.flash_attention(q, k, v, causal=True, window=2)
+    want = ref(q, k, v, causal=True, window=2)
+    torch.cuda.synchronize()
+    fail_if(bool(out[:, :, 5:].any()), "flash: a query that no key may attend is not zero")
+    fail_if(not ((out[:, :, :5] - want[:, :, :5]).abs().max().item() <= 2e-5),
+            "flash: the attended queries differ from the plain version")
+    print("[kernels] flash_attention: queries that no key may attend return zeros", flush=True)
+    return rows
+
+
 def serve_full_width(wk):
     """Phase 7: rwkv6-3b at full width through ``generate``. Returns the
     WKV launch count of the generate run."""
@@ -597,6 +751,40 @@ def profile_window(fn, kernel):
             f"({100 * own / busy:.1f}% of device time); costliest: {top_s}")
 
 
+def to_device(tree, dev):
+    """A tensor, or a dict, list or tuple of them (other leaves kept), on
+    ``dev``."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_device(v, dev) for v in tree)
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
+def forced_run(m, prompt, forced, calls=None):
+    """The prefill of ``prompt`` (B, S) and one teacher-forced decode step
+    for each row of ``forced`` (steps, B) -> [(logits (B, V) fp32, cache)]
+    on the CPU; ``calls`` collects (layer, inputs, outputs) of each block
+    call."""
+    import torch
+
+    s = prompt.shape[1]
+    hooks = [blk.register_forward_hook(
+             lambda mod, args, out, i=i: calls.append((i, args, out)))
+             for i, blk in enumerate(m.layers)] if calls is not None else []
+    with torch.inference_mode():
+        lg, c = m.prefill({"tokens": torch.as_tensor(prompt, device=m.device)},
+                          m.init_cache(prompt.shape[0], s + len(forced)))
+        out = [(lg[:, 0], c)]
+        for i, tok in enumerate(forced):
+            out.append(m.decode_step(torch.as_tensor(tok, device=m.device), out[-1][1], s + i))
+    for h in hooks:
+        h.remove()
+    return [(lg.float().cpu(), to_device(c, "cpu")) for lg, c in out]
+
+
 def card_against_cpu(wk):
     """Phase 8: rwkv6-3b at full width cut to CHECK_LAYERS layers, on the
     card and in the port's CPU run with the same weights.
@@ -626,23 +814,6 @@ def card_against_cpu(wk):
     prompt = rng.randint(0, cfg.vocab_size, (CHECK_B, CHECK_PROMPT))
     forced = rng.randint(0, cfg.vocab_size, (CHECK_STEPS, CHECK_B))
 
-    def run(m, calls=None):
-        """Prefill and the forced decode steps -> [(logits (B, V), cache)] on
-        the CPU; ``calls`` collects (layer, inputs, outputs) of each block."""
-        hooks = [blk.register_forward_hook(
-                 lambda mod, args, out, i=i: calls.append((i, args, out)))
-                 for i, blk in enumerate(m.layers)] if calls is not None else []
-        with torch.inference_mode():
-            lg, c = m.prefill({"tokens": torch.as_tensor(prompt, device=m.device)},
-                              m.init_cache(CHECK_B, CHECK_PROMPT + CHECK_STEPS))
-            out = [(lg[:, 0], c)]
-            for i, tok in enumerate(forced):
-                out.append(m.decode_step(torch.as_tensor(tok, device=m.device), out[-1][1],
-                                         CHECK_PROMPT + i))
-        for h in hooks:
-            h.remove()
-        return [(lg.float().cpu(), {k: v.cpu() for k, v in c.items()}) for lg, c in out]
-
     def drift(a, b):
         """(worst logits difference, worst wkv difference per layer)."""
         lg = max((x[0] - y[0]).abs().max().item() for x, y in zip(a, b))
@@ -652,12 +823,12 @@ def card_against_cpu(wk):
 
     t0 = time.perf_counter()
     wk.rwkv6_scan.launches = 0
-    free = run(gpu)
+    free = forced_run(gpu, prompt, forced)
     calls = []
-    ref = run(cpu, calls)
+    ref = forced_run(cpu, prompt, forced, calls)
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    one_thread = run(cpu)
+    one_thread = forced_run(cpu, prompt, forced)
     torch.set_num_threads(threads)
 
     # every layer of every call, on the CPU run's inputs
@@ -719,30 +890,6 @@ def hybrid_card_against_cpu(rg):
     prompt = rng.randint(0, cfg.vocab_size, (CHECK_B, CHECK_PROMPT))
     forced = rng.randint(0, cfg.vocab_size, (CHECK_STEPS, CHECK_B))
 
-    def to(tree, dev):
-        if isinstance(tree, dict):
-            return {k: to(v, dev) for k, v in tree.items()}
-        if isinstance(tree, (list, tuple)):
-            return type(tree)(to(v, dev) for v in tree)
-        return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
-
-    def run(m, calls=None):
-        """Prefill and the forced decode steps -> [(logits (B, V), cache)] on
-        the CPU; ``calls`` collects (layer, inputs, outputs) of each block."""
-        hooks = [blk.register_forward_hook(
-                 lambda mod, args, out, i=i: calls.append((i, args, out)))
-                 for i, blk in enumerate(m.layers)] if calls is not None else []
-        with torch.inference_mode():
-            lg, c = m.prefill({"tokens": torch.as_tensor(prompt, device=m.device)},
-                              m.init_cache(CHECK_B, CHECK_PROMPT + CHECK_STEPS))
-            out = [(lg[:, 0], c)]
-            for i, tok in enumerate(forced):
-                out.append(m.decode_step(torch.as_tensor(tok, device=m.device), out[-1][1],
-                                         CHECK_PROMPT + i))
-        for h in hooks:
-            h.remove()
-        return [(lg.float().cpu(), to(c, "cpu")) for lg, c in out]
-
     def states(cache):
         """layer -> state, in layer order."""
         return cpu._layer_states(cache)
@@ -757,13 +904,13 @@ def hybrid_card_against_cpu(rg):
 
     t0 = time.perf_counter()
     rg.rglru_scan.launches = 0
-    free = run(gpu)
+    free = forced_run(gpu, prompt, forced)
     calls = []
-    ref = run(cpu, calls)
+    ref = forced_run(cpu, prompt, forced, calls)
     cpu_s = time.perf_counter() - t0
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    one_thread = run(cpu)
+    one_thread = forced_run(cpu, prompt, forced)
     torch.set_num_threads(threads)
     one_s = time.perf_counter() - t0 - cpu_s
 
@@ -772,18 +919,18 @@ def hybrid_card_against_cpu(rg):
     worst = {k: 0.0 for k in (*tol, "out")}
     with torch.inference_mode():
         for i, args, (h_out, st_out) in calls:
-            got_h, st = gpu.layers[i](*to(args, "cuda"))
-            got_h, st = got_h.cpu().float(), to(st, "cpu")
+            got_h, st = gpu.layers[i](*to_device(args, "cuda"))
+            got_h, st = got_h.cpu().float(), to_device(st, "cpu")
             # the block output is the bf16 sum h + mixer + FFN, three
             # roundings of terms that can be larger than the output itself,
             # so it is held normwise: within two bf16 ulps of its largest
             # magnitude (one ulp there is 2^-8 to 2^-7 of it)
             d = (got_h - h_out.float()).abs().max().item()
-            top_ulp = 2.0 ** (math.floor(math.log2(h_out.float().abs().max().item())) - 7)
-            worst["out"] = max(worst["out"], d / top_ulp)
-            fail_if(not d <= 2 * top_ulp,
+            ulp = top_ulp(h_out)
+            worst["out"] = max(worst["out"], d / ulp)
+            fail_if(not d <= 2 * ulp,
                     f"hybrid check: layer {i} output differs by {d:.3g}, more than two bf16 "
-                    f"ulps ({top_ulp:.3g}) of its largest magnitude")
+                    f"ulps ({ulp:.3g}) of its largest magnitude")
             for k, want in st_out.items():
                 got = st[k]
                 if k == "pos":
@@ -821,6 +968,203 @@ def hybrid_card_against_cpu(rg):
           f"{threads} threads worst |logits| {cpu_lg:.3g}, by layer "
           f"{[float(f'{x:.3g}') for x in cpu_st]}", flush=True)
     fail_if(not worst_lg <= 2e-2, f"hybrid check: logits differ by {worst_lg:.3g}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_dense(fa, rg, wk):
+    """Phase 11: gemma3-1b at full width and depth through ``generate``.
+    Returns {run: flash launches of its generate}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.model import build_model
+    from repro_torch.train.serve_step import generate, make_decode_step, make_prefill
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = build_model("gemma3-1b", device="cuda")
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    init_s = time.perf_counter() - t0
+    cfg = model.cfg
+    fail_if(n_params != 999_812_736, f"dense: {n_params:,} parameters")
+    n_local = sum(t == "L" for t in cfg.layer_types())
+    rng = np.random.RandomState(0)
+    generate(model, torch.as_tensor(rng.randint(0, cfg.vocab_size, (2, 16)), device="cuda"), 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"[dense] gemma3-1b full width: {n_params:,} fp32 parameters (init {init_s:.2f}s), "
+          f"{cfg.num_layers} layers ({n_local} local, window {cfg.window_size}; "
+          f"{cfg.num_layers - n_local} global), {cfg.num_heads} heads of {cfg.head_dim}, "
+          f"{cfg.num_kv_heads} KV head", flush=True)
+    prefill, decode = make_prefill(model), make_decode_step(model)
+    by_run = {}
+    for b, s_len, new in DENSE_RUNS:
+        prompt = torch.as_tensor(rng.randint(0, cfg.vocab_size, (b, s_len)), device="cuda")
+        torch.cuda.synchronize()
+        fa.flash_attention.launches = rg.rglru_scan.launches = wk.rwkv6_scan.launches = 0
+        t0 = time.perf_counter()
+        tokens = generate(model, prompt, new)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches = fa.flash_attention.launches
+        other = rg.rglru_scan.launches + wk.rwkv6_scan.launches
+        run = f"serve_{b}x{s_len}"
+        by_run[run] = launches
+        fail_if(tuple(tokens.shape) != (b, new), f"{run}: tokens {tuple(tokens.shape)}")
+        fail_if(not (0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size),
+                f"{run}: tokens out of the vocabulary")
+        fail_if(launches != cfg.num_layers or other != 0,
+                f"{run}: {launches} flash launches (expected {cfg.num_layers}: one a layer in "
+                f"the prefill, none in decode), {other} recurrence launches")
+
+        # prefill and decode timed apart, on the same prompts
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill({"tokens": prompt}, model.init_cache(b, s_len + new))
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        fail_if(not bool(torch.isfinite(logits.float()).all()), f"{run}: non-finite prefill logits")
+        tok = torch.argmax(logits[:, -1, :], dim=-1)
+        fail_if(not torch.equal(tok, tokens[:, 0]), f"{run}: prefill token differs from generate's")
+        t0 = time.perf_counter()
+        for i in range(new - 1):
+            tok, cache = decode(tok, cache, s_len + i)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        fail_if(not torch.equal(tok, tokens[:, -1]), f"{run}: decode tokens differ from generate's")
+        for name, c in cache.items():
+            fail_if(not bool(torch.isfinite(c[:, :, :s_len + new - 1].float()).all()),
+                    f"{run}: non-finite {name} cache")
+            fail_if(bool(c[:, :, s_len + new - 1:].any()), f"{run}: {name} cache written past the last step")
+        steps = new - 1
+        print(f"[dense] {b} requests x {s_len} prompt tokens, {new} new greedy tokens: generate "
+              f"{gen_s:.3f}s, flash launches {launches} (= {cfg.num_layers} layers x 1 prefill; "
+              f"decode attends with the plain attention); prefill {prefill_s * 1e3:.1f} ms "
+              f"({b * s_len / prefill_s:.0f} tokens/s); decode {steps} steps in "
+              f"{decode_s * 1e3:.1f} ms ({decode_s / steps * 1e3:.2f} ms a step, "
+              f"{b * steps / decode_s:.1f} tokens/s)", flush=True)
+        cache0 = model.init_cache(b, s_len + new)
+        print(f"[dense] profiled prefill {b} x {s_len}: "
+              f"{profile_window(lambda: prefill({'tokens': prompt}, cache0), 'flash_fwd')}",
+              flush=True)
+        if (b, s_len, new) == DENSE_RUNS[0]:
+            print(f"[dense] profiled 4 decode steps: "
+                  f"{profile_window(lambda: [decode(tok, cache, s_len) for _ in range(4)], 'flash_fwd')}",
+                  flush=True)
+        del cache, cache0, logits
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[dense] peak device memory {peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB)", flush=True)
+    fail_if(not peak < CARD_BYTES, f"dense: peak device memory {peak / 1e9:.2f} GB")
+    del model
+    torch.cuda.empty_cache()
+    return by_run
+
+
+def top_ulp(x) -> float:
+    """One bf16 ulp at the largest magnitude of ``x`` (8 significant bits)."""
+    top = x.float().abs().max().item()
+    return 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+
+
+def dense_card_against_cpu(fa):
+    """Phase 12: gemma3-1b at full width cut to one period (L, L, L, L, L,
+    G), on the card and in the port's CPU run with the same weights: one
+    request of 640 tokens (the 'L' layers' window of 512 masks), then 4
+    teacher-forced decode steps. As in phases 8 and 10, every block call of
+    the CPU run is replayed on the card's block on the CPU's inputs, and the
+    card's output head is given the CPU's last hidden state. Limits: k / v
+    within one bf16 ulp of their largest magnitude, block outputs within
+    two (both held normwise: rope and the residual sum cancel, so a one-ulp
+    flip of an input can exceed an ulp of a small output), logits atol
+    2e-2. Returns the flash launch count of the phase."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_config("gemma3-1b"), num_layers=DENSE_CHECK_LAYERS)
+    gpu = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(1))
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    rng = np.random.RandomState(2)
+    prompt = rng.randint(0, cfg.vocab_size, (DENSE_CHECK_B, DENSE_CHECK_PROMPT))
+    forced = rng.randint(0, cfg.vocab_size, (CHECK_STEPS, DENSE_CHECK_B))
+
+    def drift(a, b):
+        """(worst logits difference, worst k / v difference per layer)."""
+        lg = max((x[0] - y[0]).abs().max().item() for x, y in zip(a, b))
+        per = [max((x[1][n][i].float() - y[1][n][i].float()).abs().max().item()
+                   for x, y in zip(a, b) for n in ("k", "v"))
+               for i in range(DENSE_CHECK_LAYERS)]
+        return lg, per
+
+    t0 = time.perf_counter()
+    fa.flash_attention.launches = 0
+    free = forced_run(gpu, prompt, forced)
+    card_launches = fa.flash_attention.launches
+    fail_if(card_launches != DENSE_CHECK_LAYERS,
+            f"dense check: {card_launches} flash launches in the card's run, expected "
+            f"{DENSE_CHECK_LAYERS} (one a layer in the prefill, none in decode)")
+    calls = []
+    ref = forced_run(cpu, prompt, forced, calls)
+    cpu_s = time.perf_counter() - t0
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    one_thread = forced_run(cpu, prompt, forced)
+    torch.set_num_threads(threads)
+    one_s = time.perf_counter() - t0 - cpu_s
+
+    # every layer of every call, on the CPU run's inputs
+    worst = {"k": 0.0, "v": 0.0, "out": 0.0}
+    with torch.inference_mode():
+        for i, args, (h_out, st_out) in calls:
+            got_h, st = gpu.layers[i](*to_device(args, "cuda"))
+            got_h, st = got_h.cpu().float(), to_device(st, "cpu")
+            d = (got_h - h_out.float()).abs().max().item()
+            worst["out"] = max(worst["out"], d / top_ulp(h_out))
+            fail_if(not d <= 2 * top_ulp(h_out),
+                    f"dense check: layer {i} output differs by {d:.3g}, more than two bf16 ulps "
+                    f"({top_ulp(h_out):.3g}) of its largest magnitude")
+            for k, want in st_out.items():
+                d = (st[k].float() - want.float()).abs().max().item()
+                worst[k] = max(worst[k], d / top_ulp(want))
+                fail_if(not d <= top_ulp(want),
+                        f"dense check: layer {i} {k} differs by {d:.3g}, more than one bf16 ulp "
+                        f"({top_ulp(want):.3g}) of its largest magnitude")
+        finals = [h_out for i, _, (h_out, _) in calls if i == DENSE_CHECK_LAYERS - 1]
+        worst_lg = 0.0
+        for h_last, (want, _) in zip(finals, ref):
+            got = gpu._logits(h_last[:, -1:, :].cuda())[:, 0].float().cpu()
+            fail_if(not bool(torch.isfinite(got).all()), "dense check: non-finite logits on the card")
+            worst_lg = max(worst_lg, (got - want).abs().max().item())
+    secs = time.perf_counter() - t0
+    launches = fa.flash_attention.launches
+    fail_if(launches != 2 * DENSE_CHECK_LAYERS,
+            f"dense check: {launches} flash launches, expected {2 * DENSE_CHECK_LAYERS} (the "
+            "card's prefill and the replay of its layers)")
+    free_lg, free_kv = drift(free, ref)
+    cpu_lg, cpu_kv = drift(one_thread, ref)
+    print(f"[dense-check] gemma3-1b full width cut to {DENSE_CHECK_LAYERS} layers "
+          f"({''.join(cfg.layer_types())}), card vs the port's CPU run ({secs:.1f}s; card and CPU "
+          f"runs {cpu_s:.1f}s, 1-thread CPU run {one_s:.1f}s): {DENSE_CHECK_B} x "
+          f"{DENSE_CHECK_PROMPT} prefill + {CHECK_STEPS} forced decode steps; each layer on the "
+          f"CPU run's inputs: worst differences k {worst['k']:.3g}, v {worst['v']:.3g} bf16 ulps "
+          f"of their largest magnitude (limit 1), block output {worst['out']:.3g} (limit 2); "
+          f"output head worst |logits| difference {worst_lg:.3g} (limit 2e-2); flash launches "
+          f"{launches} ({card_launches} in the card's prefill, none in its decode steps, "
+          f"{DENSE_CHECK_LAYERS} in the replay)", flush=True)
+    print(f"[dense-check] free-running drift: card vs CPU worst |logits| {free_lg:.3g}, worst k / v "
+          f"difference by layer {[float(f'{x:.3g}') for x in free_kv]}; CPU 1 thread vs "
+          f"{threads} threads worst |logits| {cpu_lg:.3g}, by layer "
+          f"{[float(f'{x:.3g}') for x in cpu_kv]}", flush=True)
+    fail_if(not worst_lg <= 2e-2, f"dense check: logits differ by {worst_lg:.3g}")
     del gpu, cpu
     torch.cuda.empty_cache()
     return launches
@@ -885,9 +1229,10 @@ def main(argv) -> int:
     from repro_torch import _cuda_build as _build
     from repro_torch.eval.fabric.kernels import fused_step as fs
     from repro_torch.eval.fabric.kernels import waterfill_bisect as wf
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import rwkv6_scan as wk
-    from repro_torch.kernels.ref import rglru_scan_ref, rwkv6_scan_ref
+    from repro_torch.kernels.ref import flash_attention_ref, rglru_scan_ref, rwkv6_scan_ref
     from repro_torch.eval.runner import compare_golden, load_golden, metrics_snapshot
     from repro_torch.eval.scenarios import default_matrix, full_matrix
 
@@ -909,7 +1254,7 @@ def main(argv) -> int:
 
     # ---- 2. build ----
     t0 = time.perf_counter()
-    sources = [wf.SOURCE, fs.SOURCE, wk.SOURCE, rg.SOURCE]
+    sources = [wf.SOURCE, fs.SOURCE, wk.SOURCE, rg.SOURCE, fa.SOURCE]
     _build.build(sources)
     print(f"[build] {len(sources)} kernels in {time.perf_counter() - t0:.2f}s", flush=True)
     for name, (secs, report) in _build.BUILD_LOG.items():
@@ -919,9 +1264,10 @@ def main(argv) -> int:
     rows = kernel_checks(wf, fs, None if quick else live_default_state())
     rows["rwkv6_scan"] = wkv_checks(wk, rwkv6_scan_ref)
     rows["rglru_scan"] = rglru_checks(rg, rglru_scan_ref)
+    rows["flash_attention"] = flash_checks(fa, flash_attention_ref)
 
-    launches = {"waterfill": 0, "fused_step": 0, "rwkv6_scan": 0, "rglru_scan": 0}
-    by_path = {"waterfill": {}, "fused_step": {}, "rwkv6_scan": {}, "rglru_scan": {}}
+    launches = {k: 0 for k in rows}
+    by_path = {k: {} for k in rows}
     if not quick:
         # ---- 4. the default grid on both routes ----
         golden = load_golden(str(GOLDEN))
@@ -1009,7 +1355,14 @@ def main(argv) -> int:
         # ---- 10. the card against the port's CPU run, one period ----
         by_path["rglru_scan"]["card_vs_cpu"] = hybrid_card_against_cpu(rg)
 
-    # ---- 11. summary lines ----
+        # ---- 11. the dense serving path: gemma3-1b at full width ----
+        by_path["flash_attention"].update(serve_dense(fa, rg, wk))
+        launches["flash_attention"] = sum(by_path["flash_attention"].values())
+
+        # ---- 12. the card against the port's CPU run, one period ----
+        by_path["flash_attention"]["card_vs_cpu"] = dense_card_against_cpu(fa)
+
+    # ---- 13. summary lines ----
     kernels = []
     for name, src, replaces, pick, shape in (
         ("waterfill", "src/repro_torch/eval/fabric/csrc/waterfill.cu",
@@ -1020,16 +1373,21 @@ def main(argv) -> int:
          "src/repro/kernels/rwkv6_scan.py:26", WKV_SHAPES[0], "BHTD"),
         ("rglru_scan", "src/repro_torch/kernels/csrc/rglru_scan.cu",
          "src/repro/kernels/rglru_scan.py:23", RG_SHAPES[0], "BTW"),
+        ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention.py:33", FA_SERVING[0], "BHKSTD"),
     ):
         row = rows[name][pick]
+        dims = pick[0] if name == "rglru_scan" else pick
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name], "launches_by_path": by_path[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows[name].values()),
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": None,
-            "shape": dict(zip(shape, pick[0] if name == "rglru_scan" else pick)),
+            "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
+            "shape": dict(zip(shape, dims)),
         })
+        if name == "flash_attention":
+            kernels[-1]["shape"].update(window=pick[7], dtype=pick[9])
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -3,12 +3,24 @@ adapt them to the kernel layouts. Each wrapper launches its CUDA kernel for
 CUDA tensors and runs the plain version for CPU tensors."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import rwkv6_scan as _wk
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = True, window: Optional[int] = None, logit_softcap: float = 0.0,
+) -> torch.Tensor:
+    """Model layout: q (B, S, H, Dh); k, v (B, T, KV, Dh) -> (B, S, H, Dh)
+    in q's dtype."""
+    out = _fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                              causal=causal, window=window, logit_softcap=logit_softcap)
+    return out.transpose(1, 2)
 
 
 def rwkv6_scan(

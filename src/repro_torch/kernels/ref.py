@@ -6,9 +6,45 @@ kernel to.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
+
+
+def flash_attention_ref(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = True, window: Optional[int] = None, logit_softcap: float = 0.0,
+) -> torch.Tensor:
+    """Grouped-query attention in one pass, the function the flash kernel
+    computes.
+
+    q: (B, H, S, D); k, v: (B, KV, T, D), H % KV == 0; query i and key j sit
+    at positions i and j. A key attends when it is <= the query (causal) and
+    > the query minus ``window``. Logits and softmax in fp32, masked logits
+    at -1e30; returns (B, H, S, D) in q's dtype. A query that no key may
+    attend gets the mean of v (a softmax over equal logits), where the
+    kernel returns zeros.
+    """
+    b, h, s, d = q.shape
+    kv, t = k.shape[1], k.shape[2]
+    f4 = torch.float32
+    qg = q.reshape(b, kv, h // kv, s, d).to(f4)
+    logits = torch.einsum("bkgsd,bktd->bkgst", qg, k.to(f4))
+    logits = logits / float(np.sqrt(np.float32(d)))  # an fp32 divisor
+    if logit_softcap:
+        logits = torch.tanh(logits / logit_softcap) * logit_softcap
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    logits = logits.masked_fill(~mask, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,bktd->bkgsd", p, v.to(f4))
+    return out.reshape(b, h, s, d).to(q.dtype)
 
 
 def rwkv6_scan_ref(

@@ -13,7 +13,8 @@ from repro_torch.models.model import BaseLM, is_param_leaf, tree_leaves
 def params_from_jax(model: BaseLM, tree: Mapping) -> BaseLM:
     """Load the reference's ``init`` tree of the same model, given as numpy
     arrays, into ``model``: ``{"embed": {...}, "layers": {name: stacked on
-    axis 0}}`` for ``RwkvLM``; ``{"embed": {...}, "periods": {"l<j>": {name:
+    axis 0}}`` for ``LM`` and ``RwkvLM`` (entry i of a stacked leaf goes to
+    ``model.layers[i]``); ``{"embed": {...}, "periods": {"l<j>": {name:
     stacked on axis 0}}, "tail": [{name: array}, ...]}`` for ``HybridLM``.
     Every name and shape must match the model's; a missing, extra or
     misshapen leaf raises ``ValueError``. Returns the model."""

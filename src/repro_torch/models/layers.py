@@ -1,5 +1,6 @@
 """Shared neural-net layers on torch tensors (the part of the reference's
-``models/layers.py`` that the RWKV-6 and recurrentgemma paths need).
+``models/layers.py`` that the RWKV-6, recurrentgemma and dense decoder
+paths need).
 
 Conventions, as in the reference: activations are bf16, parameters fp32
 (cast at use), norms, softmax and attention logits compute in fp32;
@@ -49,13 +50,20 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.T
 
 def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "silu":
-        return F.silu(x)
+        return silu(x)
     if kind == "gelu":
         return gelu_tanh(x)
     if kind == "relu2":
         r = F.relu(x)
         return r * r
     raise ValueError(f"unknown activation {kind!r}")
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * (1 / (1 + exp(-x)))``, op by op in ``x``'s dtype, as the
+    reference's ``jax.nn.silu`` computes it (``F.silu`` rounds a bf16 input
+    once, at the end)."""
+    return x * (1 / (1 + torch.exp(-x)))
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -95,10 +103,11 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 def attention_scores(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q_positions: torch.Tensor, k_positions: torch.Tensor, *,
-    causal: bool = True, window: Optional[int] = None,
+    causal: bool = True, window: Optional[int] = None, logit_softcap: float = 0.0,
 ) -> torch.Tensor:
-    """Grouped-query attention with causal / sliding-window masking; fp32
-    logits and softmax, output in ``q``'s dtype.
+    """Grouped-query attention with causal / sliding-window masking and an
+    optional tanh logit softcap; fp32 logits and softmax, output in ``q``'s
+    dtype.
 
     q: (B, S, H, Dh); k, v: (B, T, KV, Dh), H % KV == 0; positions (S,) /
     (T,) or (B, S) / (B, T). A key attends when its position is >= 0
@@ -110,6 +119,8 @@ def attention_scores(
     qg = q.reshape(b, s, kv, h // kv, dh).to(f4)
     scale = float(np.float32(1.0) / np.sqrt(np.float32(dh)))  # in fp32
     logits = torch.einsum("bskgd,btkd->bkgst", qg, k.to(f4)) * scale
+    if logit_softcap:
+        logits = torch.tanh(logits / logit_softcap) * logit_softcap
     qp = q_positions if q_positions.dim() == 2 else q_positions[None, :]
     kp = k_positions if k_positions.dim() == 2 else k_positions[None, :]
     mask = (kp[:, None, :] >= 0).expand(max(qp.shape[0], kp.shape[0]), s, t)
@@ -125,32 +136,33 @@ def attention_scores(
 
 def attention_chunked(
     q, k, v, q_positions, k_positions, *,
-    causal: bool = True, window: Optional[int] = None, q_chunk: int = 1024,
+    causal: bool = True, window: Optional[int] = None, logit_softcap: float = 0.0,
+    q_chunk: int = 1024,
 ) -> torch.Tensor:
     """:func:`attention_scores` one query chunk at a time, so that only a
     (chunk, T) block of logits exists at once; falls back to the dense form
     when ``q_chunk`` does not divide S. q_positions must be (S,)."""
     s = q.shape[1]
+    kw = dict(causal=causal, window=window, logit_softcap=logit_softcap)
     if s % q_chunk != 0:
-        return attention_scores(q, k, v, q_positions, k_positions, causal=causal,
-                                window=window)
+        return attention_scores(q, k, v, q_positions, k_positions, **kw)
     outs = [
         attention_scores(q[:, i:i + q_chunk], k, v, q_positions[i:i + q_chunk],
-                         k_positions, causal=causal, window=window)
+                         k_positions, **kw)
         for i in range(0, s, q_chunk)
     ]
     return torch.cat(outs, dim=1)
 
 
 def attend(q, k, v, q_positions, k_positions, *, causal: bool = True,
-           window: Optional[int] = None, chunk_threshold: int = 2048) -> torch.Tensor:
+           window: Optional[int] = None, logit_softcap: float = 0.0,
+           chunk_threshold: int = 2048) -> torch.Tensor:
     """Dense attention, or query-chunked above ``chunk_threshold`` queries
     (with (S,) query positions)."""
+    kw = dict(causal=causal, window=window, logit_softcap=logit_softcap)
     if q.shape[1] > chunk_threshold and q_positions.dim() == 1:
-        return attention_chunked(q, k, v, q_positions, k_positions, causal=causal,
-                                 window=window)
-    return attention_scores(q, k, v, q_positions, k_positions, causal=causal,
-                            window=window)
+        return attention_chunked(q, k, v, q_positions, k_positions, **kw)
+    return attention_scores(q, k, v, q_positions, k_positions, **kw)
 
 
 @dataclasses.dataclass(frozen=True)

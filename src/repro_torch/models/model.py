@@ -1,9 +1,11 @@
 """Model assembly: ``build_model(config)`` -> an ``nn.Module`` with ``init``,
 ``forward``, ``init_cache``, ``prefill`` and ``decode_step``.
 
-Ported so far: ``RwkvLM``, the uniform RWKV-6 stack (attention-free), and
-``HybridLM``, the Griffin-style periodic stack of RG-LRU and local-attention
-blocks (recurrentgemma). Other families raise ``NotImplementedError``.
+Ported so far: ``LM``, the uniform decoder of attention + FFN blocks (the
+dense family, gemma3's local / global pattern included), ``RwkvLM``, the
+uniform RWKV-6 stack (attention-free), and ``HybridLM``, the Griffin-style
+periodic stack of RG-LRU and local-attention blocks (recurrentgemma). MoE,
+VLM and encoder-decoder models raise ``NotImplementedError``.
 
 The residual stream is bf16, as in the reference: the embedding is cast to
 bf16, each block returns its input's dtype and the residual adds run in
@@ -24,6 +26,7 @@ from torch import nn
 
 from repro_torch.configs import get_config
 from repro_torch.core.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import rwkv6 as rwkv_lib
@@ -77,8 +80,11 @@ class BaseLM(nn.Module):
     def param_tree(self) -> dict:
         """The parameters in the reference's init-tree layout. A leaf is a
         parameter, or a list of parameters that the reference stacks on a
-        leading axis."""
-        raise NotImplementedError
+        leading axis. For a uniform stack (``LM``, ``RwkvLM``): ``{"embed":
+        {...}, "layers": {name: [one per layer]}}``."""
+        names = [n for n, _ in self.layers[0].named_parameters()]
+        return {"embed": dict(self.embed.items()),
+                "layers": {n: [getattr(b, n) for b in self.layers] for n in names}}
 
     def param_shapes(self) -> dict:
         """Shapes in the reference's init-tree layout (stacked leaves with
@@ -90,6 +96,18 @@ class BaseLM(nn.Module):
                 return {k: shape(v) for k, v in node.items()}
             return [shape(v) for v in node]
         return shape(self.param_tree())
+
+    @torch.no_grad()
+    def init(self, generator: Optional[torch.Generator] = None) -> "BaseLM":
+        """Fill every parameter with seeded draws from ``generator`` (default:
+        seed 0 on the model's device): each block of ``self.layers`` in
+        order, then the embedding. Returns the model."""
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        for block in self.layers:
+            block.reset_parameters(generator)
+        self._init_embed(generator)
+        return self
 
     def _init_embed(self, generator: torch.Generator) -> None:
         values = {"tok": L.dense_init(self.embed["tok"].shape, generator, 0.02)}
@@ -112,6 +130,119 @@ class BaseLM(nn.Module):
         table = self.embed["head"] if "head" in self.embed else self.embed["tok"]
         logits = torch.matmul(h.float(), L.cast(table).float().T)
         return logits.to(torch.bfloat16)
+
+
+class DenseBlock(nn.Module):
+    """One layer of the uniform decoder: ``attn_norm``, attention, residual
+    add, ``ffn_norm``, the (GLU) FFN, residual add. An ``"L"`` layer attends
+    within ``cfg.window_size`` keys with rope theta ``rope_theta``; a ``"G"``
+    layer attends to every earlier key with ``rope_theta_global`` (or
+    ``rope_theta``)."""
+
+    def __init__(self, cfg: ModelConfig, ltype: str, device):
+        super().__init__()
+        self.cfg = cfg
+        self.dims = L.AttnDims(cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+        self.window = cfg.window_size if ltype == "L" else None
+        self.theta = cfg.rope_theta if ltype == "L" else (cfg.rope_theta_global or cfg.rope_theta)
+        shapes = {"attn_norm": (cfg.d_model,), "ffn_norm": (cfg.d_model,)}
+        shapes.update(L.attn_param_shapes(self.dims))
+        shapes.update(L.ffn_param_shapes(cfg.d_model, cfg.d_ff, cfg.glu))
+        for name, param in _params(shapes, device).items():
+            self.register_parameter(name, param)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        cfg = self.cfg
+        values = L.attn_param_init(generator, self.dims)
+        values.update(L.ffn_param_init(generator, cfg.d_model, cfg.d_ff, cfg.glu))
+        values["attn_norm"] = torch.zeros(cfg.d_model)
+        values["ffn_norm"] = torch.zeros(cfg.d_model)
+        for name, value in values.items():
+            getattr(self, name).copy_(value)
+
+    def forward(self, h: torch.Tensor, positions: torch.Tensor,
+                state: Optional[Cache] = None, pos: int = 0) -> Tuple[torch.Tensor, Cache]:
+        """h (B, S, D) bf16 at ``positions`` -> (h, {"k", "v"}).
+
+        Without a state (forward, prefill) the S queries at positions
+        0..S-1 attend through the flash kernel, and the new ``k``, ``v`` are
+        this call's keys and values (B, S, KV, Dh) bf16. With a state (a
+        decode step, S = 1 at position ``pos``) the key and value go into
+        slot ``pos`` of a copy of the layer's cache (B, max_len, KV, Dh),
+        and the query attends over every slot, masked by slot position."""
+        cfg = self.cfg
+        x = L.rms_norm(h, self.attn_norm, cfg.norm_eps)
+        q, k, v = L.attn_qkv(self, x, self.dims)
+        q = L.rope(q, positions, self.theta)
+        k = L.rope(k, positions, self.theta)
+        if state is None:
+            o = ops.flash_attention(q, k, v, causal=True, window=self.window,
+                                    logit_softcap=cfg.logit_softcap)
+            new = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+        else:
+            new = {name: state[name].clone() for name in ("k", "v")}
+            new["k"][:, pos] = k[:, 0].to(torch.bfloat16)
+            new["v"][:, pos] = v[:, 0].to(torch.bfloat16)
+            kv_pos = torch.arange(new["k"].shape[1], device=h.device)
+            o = L.attention_scores(q, new["k"], new["v"], positions, kv_pos, causal=True,
+                                   window=self.window, logit_softcap=cfg.logit_softcap)
+        h = h + L.attn_out(self, o)
+        x = L.rms_norm(h, self.ffn_norm, cfg.norm_eps)
+        return h + L.ffn_apply(self, x, cfg.act, cfg.glu), new
+
+
+class LM(BaseLM):
+    """Uniform decoder: ``num_layers`` attention + FFN blocks, the layer
+    pattern ("G", or gemma3's "LLLLLG") tiled over them. The serving cache
+    is ``{"k", "v"}``, each (L, B, max_len, KV, Dh) bf16, the reference's
+    layout."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__(cfg, device)
+        self.layers = nn.ModuleList(DenseBlock(cfg, t, device) for t in cfg.layer_types())
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """-> (logits (B, S, V) bf16, aux loss 0)."""
+        h = self._embed(batch["tokens"])
+        positions = torch.arange(h.shape[1], device=h.device)
+        for block in self.layers:
+            h, _ = block(h, positions)
+        return self._logits(h), torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def init_cache(self, batch_size: int, max_len: int) -> Cache:
+        """Zero ``k``, ``v`` caches (L, B, max_len, KV, Dh) bf16."""
+        cfg = self.cfg
+        shape = (cfg.num_layers, batch_size, max_len, cfg.num_kv_heads, cfg.head_dim)
+        return {name: torch.zeros(shape, dtype=torch.bfloat16, device=self.device)
+                for name in ("k", "v")}
+
+    def prefill(self, batch: Dict[str, torch.Tensor], cache: Cache) -> Tuple[torch.Tensor, Cache]:
+        """-> (logits of the last position (B, 1, V) bf16, new cache): every
+        layer's keys and values in slots 0..S-1 of a fresh cache of the given
+        cache's shape, zeros after."""
+        h = self._embed(batch["tokens"])
+        s = h.shape[1]
+        positions = torch.arange(s, device=h.device)
+        new = {name: torch.zeros_like(c) for name, c in cache.items()}
+        for i, block in enumerate(self.layers):
+            h, st = block(h, positions)
+            for name in new:
+                new[name][i, :, :s] = st[name]
+        return self._logits(h[:, -1:, :]), new
+
+    def decode_step(self, token: torch.Tensor, cache: Cache, pos) -> Tuple[torch.Tensor, Cache]:
+        """token (B,) at position ``pos`` (a Python int or a 0-d tensor) ->
+        (logits (B, V) bf16, new cache). The given cache is not changed:
+        each layer writes its slot in a copy."""
+        pos = int(pos)
+        h = self._embed(token[:, None])
+        positions = torch.tensor([pos], device=h.device)
+        new = {name: [] for name in cache}
+        for i, block in enumerate(self.layers):
+            h, st = block(h, positions, {name: c[i] for name, c in cache.items()}, pos)
+            for name in new:
+                new[name].append(st[name])
+        return self._logits(h)[:, 0, :], {name: torch.stack(v) for name, v in new.items()}
 
 
 class RwkvBlock(nn.Module):
@@ -152,23 +283,6 @@ class RwkvLM(BaseLM):
     def __init__(self, cfg: ModelConfig, device):
         super().__init__(cfg, device)
         self.layers = nn.ModuleList(RwkvBlock(cfg, device) for _ in range(cfg.num_layers))
-
-    @torch.no_grad()
-    def init(self, generator: Optional[torch.Generator] = None) -> "RwkvLM":
-        """Fill every parameter with seeded draws from ``generator`` (default:
-        seed 0 on the model's device). Returns the model."""
-        if generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(0)
-        for block in self.layers:
-            block.reset_parameters(generator)
-        self._init_embed(generator)
-        return self
-
-    def param_tree(self) -> dict:
-        """``{"embed": {...}, "layers": {name: [one per layer]}}``."""
-        names = [n for n, _ in self.layers[0].named_parameters()]
-        return {"embed": dict(self.embed.items()),
-                "layers": {n: [getattr(b, n) for b in self.layers] for n in names}}
 
     def forward(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (logits (B, T, V) bf16, aux loss 0)."""
@@ -319,17 +433,6 @@ class HybridLM(BaseLM):
         period = len(self.cfg.layer_pattern)
         return period, self.cfg.num_layers // period
 
-    @torch.no_grad()
-    def init(self, generator: Optional[torch.Generator] = None) -> "HybridLM":
-        """Fill every parameter with seeded draws from ``generator`` (default:
-        seed 0 on the model's device). Returns the model."""
-        if generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(0)
-        for block in self.layers:
-            block.reset_parameters(generator)
-        self._init_embed(generator)
-        return self
-
     def _to_tree(self, per_layer: List[dict]) -> dict:
         """Per-layer dicts (leaves: tensors) -> ``{"periods": {"l<j>": {name:
         [one per period]}}, "tail": [...]}``."""
@@ -423,9 +526,12 @@ def build_model(cfg: Union[str, ModelConfig], device=None) -> BaseLM:
         return RwkvLM(cfg, resolve_device(device))
     if not cfg.is_encdec and "R" in types:
         return HybridLM(cfg, resolve_device(device))
+    if cfg.family == "dense":
+        return LM(cfg, resolve_device(device))
     raise NotImplementedError(
-        f"{cfg.name} ({cfg.family}, layers {cfg.layer_pattern!r}): not ported yet; "
-        "the port has the RWKV-6 and RG-LRU hybrid families only")
+        f"{cfg.name} ({cfg.family}, layers {cfg.layer_pattern!r}): not ported yet; the "
+        "port has the dense, RWKV-6 and RG-LRU hybrid families; MoE, VLM and "
+        "encoder-decoder models come in a later slice")
 
 
 def param_shapes(cfg: Union[str, ModelConfig]) -> dict:

@@ -1,6 +1,7 @@
 """The CUDA kernels on the card: each against its plain PyTorch version,
 the smoke matrix through both routes against the golden snapshot, and the
-RWKV-6 and recurrentgemma models on the card against their CPU runs.
+RWKV-6, recurrentgemma and gemma3 models on the card against their CPU
+runs.
 
 These need an NVIDIA GPU and ``nvcc``; without a card they skip. On the
 card: ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py``.
@@ -18,9 +19,10 @@ from repro_torch.eval.fabric.kernels import fused_step as fs
 from repro_torch.eval.fabric.kernels import waterfill_bisect as wf
 from repro_torch.eval.runner import compare_golden, load_golden, metrics_snapshot, run_matrix
 from repro_torch.eval.scenarios import smoke_matrix
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import rwkv6_scan as wk
-from repro_torch.kernels.ref import rglru_scan_ref, rwkv6_scan_ref
+from repro_torch.kernels.ref import flash_attention_ref, rglru_scan_ref, rwkv6_scan_ref
 from repro_torch.models.config import reduce_for_smoke
 from repro_torch.models.model import build_model
 
@@ -214,3 +216,105 @@ def test_hybrid_model_on_the_card_matches_its_cpu_run(cuda):
             else:
                 tol = 1e-3 if want.dtype == torch.float32 else 1e-2
                 torch.testing.assert_close(got[name].cpu(), want, rtol=tol, atol=tol)
+
+
+#: (B, H, KV, S, T, D, causal, window, softcap): the reference's FA_CASES
+#: (tests/test_kernels.py) and ragged and edge shapes
+FA_CASES = [
+    (1, 4, 4, 128, 128, 64, True, None, 0.0),
+    (2, 8, 2, 256, 256, 64, True, None, 0.0),
+    (1, 4, 1, 256, 256, 128, True, None, 0.0),
+    (1, 4, 4, 256, 256, 64, False, None, 0.0),
+    (1, 4, 2, 512, 512, 64, True, 128, 0.0),
+    (1, 2, 1, 384, 384, 64, True, 64, 0.0),
+    (1, 4, 4, 256, 256, 64, True, None, 50.0),
+    (2, 2, 2, 1024, 1024, 32, True, 256, 0.0),
+    (3, 6, 3, 333, 333, 96, True, 77, 30.0),
+    (2, 4, 1, 700, 700, 256, True, 512, 0.0),
+    (2, 8, 2, 1, 1, 128, True, None, 0.0),
+    (2, 8, 2, 1, 300, 128, False, None, 0.0),
+    (1, 3, 1, 50, 70, 40, False, 9, 0.0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FA_CASES, ids=str)
+def test_flash_kernel_matches_its_plain_version_on_the_card(cuda, case, dtype):
+    """Within rtol = atol = 2e-5 (fp32) / 2e-2 (bf16), the reference's
+    limits for its kernel against its oracle; each call launches once."""
+    b, h, kv, s, t, d, causal, window, cap = case
+    gen = torch.Generator(device=cuda).manual_seed(s * d + t)
+    q = torch.randn((b, h, s, d), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, kv, t, d), generator=gen, device=cuda).to(dtype) for _ in range(2))
+    kw = dict(causal=causal, window=window, logit_softcap=cap)
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert out.dtype == dtype and tuple(out.shape) == (b, h, s, d)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out, flash_attention_ref(q, k, v, **kw), rtol=tol, atol=tol)
+
+
+def test_flash_kernel_window_one_and_unattended_queries(cuda):
+    """Window 1 returns v exactly; a query that no key may attend (S > T
+    with a window) gets zeros, where the plain version gives the mean of
+    v."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn((2, 4, 90, 64), generator=gen, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn((2, 2, 90, 64), generator=gen, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    assert torch.equal(fa.flash_attention(q, k, v, window=1), v.repeat_interleave(2, dim=1))
+    q = torch.randn((1, 2, 16, 32), generator=gen, device=cuda)
+    k, v = (torch.randn((1, 1, 4, 32), generator=gen, device=cuda) for _ in range(2))
+    out = fa.flash_attention(q, k, v, causal=True, window=2)
+    assert not out[:, :, 5:].any()
+    want = flash_attention_ref(q, k, v, causal=True, window=2)
+    torch.testing.assert_close(out[:, :, :5], want[:, :, :5], rtol=2e-5, atol=2e-5)
+
+
+def _to(x, device):
+    """A block argument (tensor, state dict or int) on ``device``."""
+    if isinstance(x, dict):
+        return {name: v.to(device) for name, v in x.items()}
+    return x.to(device) if isinstance(x, torch.Tensor) else x
+
+
+def test_dense_model_on_the_card_matches_its_cpu_run(cuda):
+    """Prefill of 16 tokens (twice the window of 8) and two decode steps of
+    the 6-layer gemma3 smoke model: free-running logits within atol 2e-2;
+    every block call of the CPU run replayed on the card on the CPU's inputs,
+    block output and k / v within rtol = atol = 1e-2; every prefill layer
+    launches the flash kernel once, decode steps never."""
+    cfg = reduce_for_smoke(get_config("gemma3-1b"))
+    gpu = build_model(cfg, device=cuda).init(torch.Generator(device=cuda).manual_seed(0))
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    tokens = np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 16))
+    calls = []
+    hooks = [blk.register_forward_hook(lambda mod, args, out, i=i: calls.append((i, args, out)))
+             for i, blk in enumerate(cpu.layers)]
+    logits = []
+    before = fa.flash_attention.launches
+    for m in (gpu, cpu):
+        with torch.inference_mode():
+            lg, c = m.prefill({"tokens": torch.as_tensor(tokens, device=m.device)},
+                              m.init_cache(2, 18))
+            out = [lg[:, 0]]
+            for i in range(2):
+                tok = torch.as_tensor(tokens[:, i], device=m.device)
+                lg, c = m.decode_step(tok, c, 16 + i)
+                out.append(lg)
+        logits.append(out)
+    for h in hooks:
+        h.remove()
+    assert fa.flash_attention.launches == before + cfg.num_layers
+    for lg_g, lg_c in zip(*logits):
+        torch.testing.assert_close(lg_g.float().cpu(), lg_c.float(), rtol=0, atol=2e-2)
+    assert len(calls) == 3 * cfg.num_layers
+    for i, args, (h_out, st_out) in calls:
+        with torch.inference_mode():
+            got_h, got = gpu.layers[i](*(_to(a, cuda) for a in args))
+        torch.testing.assert_close(got_h.cpu(), h_out, rtol=1e-2, atol=1e-2)
+        for name, want in st_out.items():
+            torch.testing.assert_close(got[name].cpu(), want, rtol=1e-2, atol=1e-2)

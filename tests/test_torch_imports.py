@@ -125,3 +125,30 @@ def test_hybrid_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch)
     assert isinstance(model, HybridLM)
     out = generate(model, torch.zeros((2, 3), dtype=torch.int64), 4)
     assert out.shape == (2, 4) and out.device.type == "cpu"
+
+
+def test_dense_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """The dense ``build_model`` raises without a card unless given the CPU;
+    the flash wrapper takes its plain version only for CPU tensors and
+    raises for any other device but CUDA."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.config import reduce_for_smoke
+    from repro_torch.models.model import LM, build_model
+    from repro_torch.train.serve_step import generate
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduce_for_smoke(get_config("gemma3-1b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model("gemma3-1b")
+    model = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    assert isinstance(model, LM)
+    before = fa.flash_attention.launches
+    out = generate(model, torch.zeros((2, 3), dtype=torch.int64), 4)
+    assert out.shape == (2, 4) and out.device.type == "cpu"
+    assert fa.flash_attention.launches == before
+    q = torch.zeros((1, 2, 4, 8), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_attention(q, q, q)

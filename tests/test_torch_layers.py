@@ -9,6 +9,9 @@ Tolerances:
 - gelu on bf16: at most 0.5% of the values differ, each by at most one
   bf16 ulp (the port's ``tanh`` and XLA's round a few values the other
   way); on fp32: within 1e-6 (two ``tanh`` implementations).
+- silu on bf16: bit for bit (``F.silu``, which rounds once, differs in
+  over a third of the values); on fp32: within 1e-6 (two ``exp``
+  implementations).
 - rope: within one bf16 ulp of the output (sin / cos / pow in fp32 from two
   libraries).
 - attention outputs (bf16): atol 2e-2.
@@ -57,6 +60,21 @@ def test_gelu_follows_the_reference_op_by_op(dtype):
         np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_silu_follows_the_reference_op_by_op(dtype):
+    x = (4.0 * np.random.RandomState(2).standard_normal(200_000)).astype(np.float32)
+    ref = _f32(_strict_jit(jax.nn.silu)(jnp.asarray(x, getattr(jnp, dtype))))
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    out = L.activation(xt, "silu")
+    assert out.dtype == xt.dtype
+    if dtype == "bfloat16":
+        np.testing.assert_array_equal(_f32(out), ref)
+        # the fused silu rounds once and lies far outside that limit
+        assert (_f32(torch.nn.functional.silu(xt)) != ref).mean() > 0.3
+    else:
+        np.testing.assert_allclose(_f32(out), ref, rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("theta", [10_000.0, 1_000_000.0])
 def test_rope_matches_the_reference(theta):
     rng = np.random.RandomState(1)
@@ -101,6 +119,27 @@ def test_attention_scores_matches_the_reference(name):
                              causal=True, window=window)
     assert out.dtype == torch.bfloat16 and tuple(out.shape) == (b, s, h, dh)
     np.testing.assert_allclose(_f32(out), _f32(ref), rtol=0, atol=ATTN_ATOL)
+
+
+@pytest.mark.parametrize("name", sorted(ATTN_CASES))
+def test_attention_scores_with_a_logit_softcap_matches_the_reference(name):
+    """A softcap of 50 on logits of up to ~80 (q scaled by 8), so that the
+    tanh bends them; the same cases as above."""
+    b, s, t, h, kv, dh, window, qp, kp = ATTN_CASES[name]
+    q, k, v = _qkv(b, s, t, h, kv, dh, seed=3 + len(name))
+    q = 8.0 * q
+    win = None if window is None else jnp.int32(window)
+    ref = _strict_jit(lambda q, k, v, qp, kp: ref_layers.attention_scores(
+        q, k, v, qp, kp, causal=True, window=win, logit_softcap=50.0))(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+        jnp.asarray(qp, jnp.int32), jnp.asarray(kp, jnp.int32))
+    args = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    out = L.attention_scores(*args, torch.from_numpy(qp), torch.from_numpy(kp),
+                             causal=True, window=window, logit_softcap=50.0)
+    np.testing.assert_allclose(_f32(out), _f32(ref), rtol=0, atol=ATTN_ATOL)
+    uncapped = L.attention_scores(*args, torch.from_numpy(qp), torch.from_numpy(kp),
+                                  causal=True, window=window)
+    assert not torch.equal(out, uncapped)  # the cap bends the logits
 
 
 @pytest.mark.parametrize("s, threshold, window", [(24, 8, 5), (24, 8, None), (20, 8, 5)],

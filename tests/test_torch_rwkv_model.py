@@ -210,6 +210,11 @@ def test_registry_matches_the_reference():
 
 @pytest.mark.parametrize("arch", sorted(set(ARCHS) - {"rwkv6-3b", "recurrentgemma-9b"}))
 def test_other_families_are_not_ported_yet(arch):
+    """Of the other families the dense one is ported (``LM``); MoE, VLM and
+    encoder-decoder models still raise."""
+    if get_config(arch).family == "dense":
+        assert type(build_model(arch, device="meta")).__name__ == "LM"
+        return
     with pytest.raises(NotImplementedError, match="not ported yet"):
         build_model(arch, device="meta")
 
