@@ -7,19 +7,23 @@ Phases, each printing its own lines:
   1. environment: the card's name and power limit, torch and CUDA versions
      (fp32 matrix products must not run in TF32);
   2. build of every CUDA kernel (one nvcc per source, all started
-     together), timed;
+     together), timed; the tensor-core flash kernel's SASS must hold
+     HGMMA (warpgroup MMA) instructions;
   3. each kernel against its plain PyTorch version on the card at the
      shapes its path gives it: the sweep's kernels also on a live
      default-grid state (limit 1e-12 relative; bool and int64 outputs
      exact), the WKV-6 kernel at the serving run's prefill and decode
      shapes and a long prompt (rtol = atol = 1e-4, fp32), the RG-LRU
      kernel at recurrentgemma-9b's prefill, decode and long-prompt shapes,
-     an odd width and bf16 inputs (rtol = atol = 1e-6), the flash-attention
-     kernel at gemma3-1b's serving prefill shapes, the reference's FA cases
-     in fp32 and bf16 and ragged and edge shapes (rtol = atol = 2e-5 fp32,
-     2e-2 bf16; window 1 returns v exactly; a query no key may attend gets
-     zeros); max error, device time, the plain version's time, one
-     scaled_dot_product_attention call's time for the flash kernel, and the
+     an odd width and bf16 inputs (rtol = atol = 1e-6), the two
+     flash-attention kernels (bf16 with D % 8 == 0 on the tensor-core
+     kernel, the rest on the CUDA-core kernel) at gemma3-1b's and
+     recurrentgemma-9b's serving prefill shapes, the reference's FA cases in
+     fp32 and bf16 and ragged and edge shapes (rtol = atol = 2e-5 fp32, 2e-2
+     bf16, and bf16 also normwise within 2^-10 of the plain version's norm;
+     window 1 returns v exactly; a query no key may attend gets zeros,
+     on each kernel); max error, device time, the plain version's time, one
+     scaled_dot_product_attention call's time for each flash kernel, and the
      bound (bytes moved at 3.35 TB/s, or operations at 34 TFLOP/s float64 /
      67 TFLOP/s float32 / 989 TFLOP/s bf16 on the tensor cores, whichever
      is longer);
@@ -45,26 +49,31 @@ Phases, each printing its own lines:
      (38 layers, 9,396,408,320 fp32 parameters from a seeded generator)
      serves 8 prompts of 512 tokens with 32 new greedy tokens (RG-LRU
      launches exactly 26 x 32) and 1 prompt of 3,072 tokens with 8 new
-     tokens (the 2,048-token window wraps the rolling cache and the
-     query-chunked attention runs; 26 x 8 launches); prefill and decode
-     timed, one prefill and 4 decode steps profiled, peak device memory
-     under 80 GB;
+     tokens (the 2,048-token window wraps the rolling cache; 26 x 8
+     launches); each prefill attends through the tensor-core flash kernel
+     (exactly 12 launches a run, one a local-attention layer, decode none)
+     and is timed also with the plain attention it took before; prefill and
+     decode timed, each prefill and 4 decode steps profiled, peak device
+     memory under 80 GB;
  10. recurrentgemma-9b cut to one period (R, R, L) at full width on the
      card against the port's CPU run, as phase 8: h / conv states within
      rtol = atol = 1e-3, bf16 k / v caches within 1e-2, positions exact,
      block outputs within two bf16 ulps of their largest magnitude, logits
-     within atol 2e-2;
+     within atol 2e-2; exactly 1 flash launch in the card's prefill (kept
+     out of the kernels line's main-path count);
  11. the dense serving path: gemma3-1b at full width and depth (26 layers
      "LLLLLG", 999,812,736 fp32 parameters from a seeded generator) serves
      8 prompts of 512 tokens with 32 new greedy tokens and 1 prompt of
      8,192 tokens with 8 new tokens; every prefill layer attends through
-     the flash kernel (exactly 26 launches a run, decode none); prefill and
-     decode timed, each prefill profiled, peak device memory;
+     the tensor-core flash kernel (exactly 26 launches a run, decode none);
+     prefill and decode timed, each prefill profiled, peak device memory;
  12. gemma3-1b cut to one period (L x 5, G) at full width on the card
      against the port's CPU run: 1 x 640 prompt tokens (past the window),
      4 forced decode steps, each layer on the CPU's inputs (k / v within
      one bf16 ulp of their largest magnitude, block outputs two, logits
-     atol 2e-2), exactly 6 flash launches in the card's prefill;
+     atol 2e-2), exactly 6 flash launches in the card's prefill; the
+     free-running drift printed beside that of a second card run with the
+     plain attention in place of the kernel;
  13. a {"kernels": [...]} JSON line, then the nvidia-smi name/power line,
      then the result line {"ok": true, "device": {...}}.
 
@@ -73,6 +82,7 @@ only the port (src/repro_torch) and needs the repository around it.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -125,16 +135,20 @@ HYB_CHECK_LAYERS = 3
 #: one card's device memory
 CARD_BYTES = 80e9
 
-#: bf16 dense tensor-core rate of the data sheet (the flash kernel's bound)
+#: bf16 dense tensor-core rate of the data sheet (the bf16 flash bound)
 BF16_TC_FLOPS = 989e12
 #: flash-attention checks, (B, H, KV, S, T, D, causal, window, softcap,
 #: dtype): gemma3-1b's serving prefill shapes (8 x 512 and 1 x 8,192, 4
 #: query heads and 1 KV head of 256, window 512 on 'L' layers, none on 'G'),
 #: the reference's FA_CASES (tests/test_kernels.py) in fp32 and bf16, and
-#: ragged and edge shapes; the serving shapes are timed, the first goes into
-#: the kernels JSON line
+#: ragged and edge shapes. The serving shapes (bf16: the tensor-core kernel)
+#: are timed, the first goes into the kernels JSON line; so is FA_FP32 for
+#: the CUDA-core kernel, the first serving shape in fp32
 FA_SERVING = [(8, 4, 1, 512, 512, 256, True, w, 0.0, "bfloat16") for w in (512, None)] + \
              [(1, 4, 1, 8192, 8192, 256, True, w, 0.0, "bfloat16") for w in (512, None)]
+FA_FP32 = FA_SERVING[0][:-1] + ("float32",)
+#: each route's kernel, as the profiler names it
+FA_KERNEL = {"tensor_cores": "flash_fwd_sm90_kernel", "cuda_cores": "flash_fwd_kernel"}
 FA_CASES = [
     (1, 4, 4, 128, 64, True, None, 0.0),
     (2, 8, 2, 256, 64, True, None, 0.0),
@@ -145,7 +159,7 @@ FA_CASES = [
     (1, 4, 4, 256, 64, True, None, 50.0),
     (2, 2, 2, 1024, 32, True, 256, 0.0),
 ]
-FA_CHECKS = FA_SERVING + [
+FA_CHECKS = FA_SERVING + [FA_FP32] + [
     (b, h, kv, s, s, d, c, w, cap, dt) for b, h, kv, s, d, c, w, cap in FA_CASES
     for dt in ("float32", "bfloat16")
 ] + [
@@ -155,8 +169,22 @@ FA_CHECKS = FA_SERVING + [
     (2, 8, 2, 1, 300, 128, False, None, 0.0, "float32"),   # one query over 300 keys
     (2, 4, 2, 100, 100, 64, True, 1, 0.0, "float32"),      # window 1: the output is v
     (2, 4, 2, 100, 100, 256, True, 1, 0.0, "bfloat16"),
+    (1, 3, 1, 50, 70, 20, False, 9, 0.0, "bfloat16"),      # bf16 that TMA cannot describe
+] + [
+    # recurrentgemma-9b's serving prefills: 16 query heads, 1 KV head of 256,
+    # window 2048
+    (b, 16, 1, s, s, 256, True, 2048, 0.0, "bfloat16") for b, s, _ in HYB_RUNS
 ]
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: bf16 checks are also held normwise: ||out - plain|| <= FA_BF16_NORMWISE
+#: ||plain|| over the whole output. At long shapes an output is about as
+#: small as the 2e-2 limit (query i attends i keys of randn values: ~sqrt(e /
+#: i)), which alone would let a dropped key tile through. The tensor-core
+#: kernel keeps p to ~2^-18, so it and the plain version differ only where
+#: their roundings to bf16 of nearly equal fp32 values fall apart (one ulp
+#: of a few elements); rounding p once to bf16, as its first design did,
+#: comes to ~2e-3
+FA_BF16_NORMWISE = 2.0 ** -10
 #: gemma3-1b serving runs: (requests, prompt tokens, new tokens); the second
 #: prompt is 16 windows long
 DENSE_RUNS = [(8, 512, 32), (1, 8192, 8)]
@@ -250,17 +278,21 @@ def device_ms(fn, n, kernel=None):
     """Device time of one launch of the single-kernel ``fn`` (or of the
     kernel named ``kernel`` among what ``fn`` launches): the kernel time the
     profiler records over ``n`` calls, averaged over the launches it
-    recorded (it may drop some), 0.0 when it records none."""
+    recorded (it may drop some). A window whose records it dropped entirely
+    is profiled again, up to three times; 0.0 when it records none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in _device_events(prof) if kernel is None or kernel in e.key]
-    launches = sum(e.count for e in events)
-    return sum(_self_device_us(e) for e in events) / 1e3 / max(launches, 1)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in _device_events(prof) if kernel is None or kernel in e.key]
+        launches = sum(e.count for e in events)
+        if launches:
+            return sum(_self_device_us(e) for e in events) / 1e3 / launches
+    return 0.0
 
 
 def _device_events(prof):
@@ -470,43 +502,59 @@ def kept_pairs(S, T, causal, window) -> int:
 
 
 def flash_checks(fa, ref):
-    """Phase 3, flash attention: the kernel against its plain version on
-    the card at every FA_CHECKS shape (window 1 must return v exactly), and
-    a shape with queries that no key may attend (the kernel must return
-    zeros there). The serving shapes are timed against the plain version,
-    one ``scaled_dot_product_attention`` call (the library yardstick) and
-    the bound. Returns {check: row} of measurements."""
+    """Phase 3, flash attention: each check of FA_CHECKS on the kernel its
+    dtype and head dim route it to (bf16 with D % 8 == 0: the tensor-core
+    kernel; the rest: the CUDA-core kernel), held to the plain version on
+    the card (bf16 also normwise, FA_BF16_NORMWISE; window 1 must return v
+    exactly), and a shape with queries that
+    no key may attend on each route (the kernel must return zeros there).
+    The timed shapes (FA_SERVING on the tensor-core kernel, FA_FP32 on the
+    CUDA-core kernel) are timed against the plain version, one
+    ``scaled_dot_product_attention`` call (the library yardstick) and the
+    bound. Returns {route: {check: row}} of measurements."""
     import torch
     import torch.nn.functional as F
 
-    rows = {}
-    for i, (B, H, KV, S, T, D, causal, window, cap, dtype) in enumerate(FA_CHECKS):
+    rows = {fa.TENSOR_CORES: {}, fa.CUDA_CORES: {}}
+    for i, check in enumerate(FA_CHECKS):
+        B, H, KV, S, T, D, causal, window, cap, dtype = check
         gen = torch.Generator(device="cuda").manual_seed(i)
         dt = getattr(torch, dtype)
         q = torch.randn((B, H, S, D), generator=gen, device="cuda").to(dt)
         k, v = (torch.randn((B, KV, T, D), generator=gen, device="cuda").to(dt) for _ in range(2))
         kw = dict(causal=causal, window=window, logit_softcap=cap)
+        route = fa._route(dt, D)
+        before = (fa.flash_attention.launches, fa.flash_attention.tc_launches)
         out = fa.flash_attention(q, k, v, **kw)
         want = ref(q, k, v, **kw)
         torch.cuda.synchronize()
-        label = f"flash {(B, H, KV, S, T, D)} causal={causal} window={window} softcap={cap} {dtype}"
+        label = (f"flash {(B, H, KV, S, T, D)} causal={causal} window={window} softcap={cap} "
+                 f"{dtype} ({route})")
+        fail_if((fa.flash_attention.launches - before[0], fa.flash_attention.tc_launches - before[1])
+                != (1, int(route == fa.TENSOR_CORES)), f"{label}: launch counts")
         fail_if(out.shape != want.shape or out.dtype != want.dtype, f"{label}: shape/dtype")
         tol = FA_TOL[dtype]
         o, w = out.float(), want.float()
         excess = ((o - w).abs() - tol * w.abs()).max().item()
         fail_if(not excess <= tol, f"{label}: outside rtol = atol = {tol}")
+        row = {"max_abs_err": (o - w).abs().max().item()}
+        if dt == torch.bfloat16:
+            row["normwise_err"] = ((o - w).norm() / w.norm()).item()
+            fail_if(not row["normwise_err"] <= FA_BF16_NORMWISE,
+                    f"{label}: within rtol = atol = {tol} (excess {excess:.3g}), but "
+                    f"||out - plain|| / ||plain|| = {row['normwise_err']:.3g} > "
+                    f"{FA_BF16_NORMWISE:.3g}")
         if window == 1:
             fail_if(not torch.equal(out, v.repeat_interleave(H // KV, dim=1)),
                     f"{label}: window 1 does not return v")
-        err = (o - w).abs().max().item()
-        row = {"max_abs_err": err}
-        if (B, H, KV, S, T, D, causal, window, cap, dtype) in FA_SERVING:
+        err = row["max_abs_err"]
+        if check in FA_SERVING or check == FA_FP32:
             # each input read once, the output written once; 4 D flops a kept
             # (query, key) pair: q k^T and p v
             nbytes = q.element_size() * (2 * B * H * S * D + 2 * B * KV * T * D)
             flops = 4 * D * B * H * kept_pairs(S, T, causal, window)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / BF16_TC_FLOPS * 1e3
+            t_ops = flops / (BF16_TC_FLOPS if dt == torch.bfloat16 else FP32_FLOPS) * 1e3
             if window is None:
                 lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                     q, k, v, is_causal=True, enable_gqa=True)
@@ -520,41 +568,50 @@ def flash_checks(fa, ref):
             fail_if(not (lib_out.float() - w).abs().max().item() <= 2 * tol,
                     f"{label}: the library call computes another function")
             n = 20 if S <= 512 else 5
+            name = FA_KERNEL[route]
             row.update({
-                "ms": device_ms(lambda: fa.flash_attention(q, k, v, **kw), n, "flash_fwd"),
+                "ms": device_ms(lambda: fa.flash_attention(q, k, v, **kw), n, name),
                 "call_ms": event_ms(lambda: fa.flash_attention(q, k, v, **kw), n),
                 "plain_ms": event_ms(lambda: ref(q, k, v, **kw), 3),
                 "library_ms": event_ms(lib, n),
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "fp32_ms": flops / FP32_FLOPS * 1e3,
             })
             fail_if(row["ms"] <= 0.0, f"{label}: profiler recorded no device time")
-            print(f"[kernels] flash_attention B={B} H={H} KV={KV} S={S} D={D} window={window} "
-                  f"{dtype}: max_abs_err {err:.3g} | device {row['ms'] * 1e3:.1f} us | wrapper "
-                  f"call {row['call_ms'] * 1e3:.1f} us | plain {row['plain_ms'] * 1e3:.1f} us | "
+            print(f"[kernels] {name} B={B} H={H} KV={KV} S={S} D={D} window={window} {dtype}: "
+                  f"max_abs_err {err:.3g} | device {row['ms'] * 1e3:.2f} us "
+                  f"({flops / row['ms'] / 1e9:.1f} TFLOP/s of kept work) | wrapper call "
+                  f"{row['call_ms'] * 1e3:.1f} us | plain {row['plain_ms'] * 1e3:.1f} us | "
                   f"library (scaled_dot_product_attention) {row['library_ms'] * 1e3:.1f} us | "
                   f"bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}: {nbytes / 1e6:.1f} "
-                  f"MB, {flops / 1e9:.2f} GFLOP; {row['fp32_ms'] * 1e3:.1f} us at the fp32 rate)",
-                  flush=True)
-        rows[(B, H, KV, S, T, D, causal, window, cap, dtype)] = row
-    worst = {dt: max(r["max_abs_err"] for key, r in rows.items() if key[-1] == dt)
-             for dt in FA_TOL}
-    print(f"[kernels] flash_attention: {len(rows)} shapes within rtol = atol = 2e-5 (fp32) / "
-          f"2e-2 (bf16) of the plain version; worst |error| fp32 {worst['float32']:.3g}, bf16 "
-          f"{worst['bfloat16']:.3g}", flush=True)
-    # 16 queries over 4 keys in a window of 2: queries 5.. see no key; the
+                  f"MB, {flops / 1e9:.2f} GFLOP)", flush=True)
+        rows[route][check] = row
+    for route, by_check in rows.items():
+        worst = {dt: max((r["max_abs_err"] for key, r in by_check.items() if key[-1] == dt),
+                         default=None) for dt in FA_TOL}
+        normwise = max((r["normwise_err"] for r in by_check.values() if "normwise_err" in r),
+                       default=None)
+        print(f"[kernels] flash_attention ({route}): {len(by_check)} shapes within rtol = atol = "
+              f"2e-5 (fp32) / 2e-2 (bf16) of the plain version; worst |error| {worst}; bf16 "
+              f"worst ||out - plain|| / ||plain|| {normwise} (limit {FA_BF16_NORMWISE:.3g})",
+              flush=True)
+    # 16 queries over 4 keys in a window of 2: queries 5.. see no key; each
     # kernel returns zeros there (the plain version the mean of v)
-    gen = torch.Generator(device="cuda").manual_seed(99)
-    q = torch.randn((1, 2, 16, 32), generator=gen, device="cuda")
-    k, v = (torch.randn((1, 1, 4, 32), generator=gen, device="cuda") for _ in range(2))
-    out = fa.flash_attention(q, k, v, causal=True, window=2)
-    want = ref(q, k, v, causal=True, window=2)
-    torch.cuda.synchronize()
-    fail_if(bool(out[:, :, 5:].any()), "flash: a query that no key may attend is not zero")
-    fail_if(not ((out[:, :, :5] - want[:, :, :5]).abs().max().item() <= 2e-5),
-            "flash: the attended queries differ from the plain version")
-    print("[kernels] flash_attention: queries that no key may attend return zeros", flush=True)
+    for dtype in ("float32", "bfloat16"):
+        gen = torch.Generator(device="cuda").manual_seed(99)
+        dt = getattr(torch, dtype)
+        q = torch.randn((1, 2, 16, 32), generator=gen, device="cuda").to(dt)
+        k, v = (torch.randn((1, 1, 4, 32), generator=gen, device="cuda").to(dt) for _ in range(2))
+        out = fa.flash_attention(q, k, v, causal=True, window=2)
+        want = ref(q, k, v, causal=True, window=2)
+        torch.cuda.synchronize()
+        route, tol = fa._route(dt, 32), FA_TOL[dtype]
+        fail_if(bool(out[:, :, 5:].any()),
+                f"flash ({route}): a query that no key may attend is not zero")
+        fail_if(not ((out[:, :, :5].float() - want[:, :, :5].float()).abs().max().item() <= tol),
+                f"flash ({route}): the attended queries differ from the plain version")
+        print(f"[kernels] flash_attention ({route}): queries that no key may attend return zeros",
+              flush=True)
     return rows
 
 
@@ -637,9 +694,38 @@ def serve_full_width(wk):
     return launches
 
 
-def serve_hybrid(rg, wk):
+def plain_attention(q, k, v, *, causal=True, window=None, logit_softcap=0.0):
+    """The model-layout attention the port's prefills took before they went
+    through the flash kernel: ``L.attend`` with queries and keys at
+    positions 0..S-1 (one dense pass, query-chunked above 2,048 queries)."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    pos = torch.arange(q.shape[1], device=q.device)
+    return L.attend(q, k, v, pos, pos, causal=causal, window=window,
+                    logit_softcap=logit_softcap)
+
+
+@contextlib.contextmanager
+def attention_swapped(fn):
+    """Within the block, every model attends with ``fn`` in place of the
+    flash kernel's wrapper ``ops.flash_attention`` (a diagnostic, not a route
+    of the port)."""
+    from repro_torch.kernels import ops
+
+    kernel = ops.flash_attention
+    ops.flash_attention = fn
+    try:
+        yield
+    finally:
+        ops.flash_attention = kernel
+
+
+def serve_hybrid(rg, wk, fa):
     """Phase 9: recurrentgemma-9b at full width and depth through
-    ``generate``. Returns {run: RG-LRU launches of its generate}."""
+    ``generate``. Returns ({run: RG-LRU launches of its generate}, {run:
+    flash launches of its generate})."""
     import numpy as np
     import torch
 
@@ -655,30 +741,39 @@ def serve_hybrid(rg, wk):
     init_s = time.perf_counter() - t0
     cfg = model.cfg
     n_rec = sum(t == "R" for t in cfg.layer_types())
+    n_att = cfg.num_layers - n_rec
     rng = np.random.RandomState(0)
     generate(model, torch.as_tensor(rng.randint(0, cfg.vocab_size, (2, 16)), device="cuda"), 2)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     print(f"[hybrid] recurrentgemma-9b full width: {n_params:,} fp32 parameters (init "
-          f"{init_s:.2f}s), {cfg.num_layers} layers of which {n_rec} RG-LRU", flush=True)
+          f"{init_s:.2f}s), {cfg.num_layers} layers of which {n_rec} RG-LRU and {n_att} local "
+          f"attention", flush=True)
     prefill, decode = make_prefill(model), make_decode_step(model)
-    by_run = {}
+    by_run, flash_by_run = {}, {}
     for b, s_len, new in HYB_RUNS:
         prompt = torch.as_tensor(rng.randint(0, cfg.vocab_size, (b, s_len)), device="cuda")
         torch.cuda.synchronize()
         rg.rglru_scan.launches = wk.rwkv6_scan.launches = 0
+        fa.flash_attention.launches = fa.flash_attention.tc_launches = 0
         t0 = time.perf_counter()
         tokens = generate(model, prompt, new)
         torch.cuda.synchronize()
         gen_s = time.perf_counter() - t0
         launches, other = rg.rglru_scan.launches, wk.rwkv6_scan.launches
+        flash, flash_tc = fa.flash_attention.launches, fa.flash_attention.tc_launches
         run = f"serve_{b}x{s_len}"
         by_run[run] = launches
+        flash_by_run[f"hybrid_{run}"] = flash
         fail_if(tuple(tokens.shape) != (b, new), f"{run}: tokens {tuple(tokens.shape)}")
         fail_if(not (0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size),
                 f"{run}: tokens out of the vocabulary")
         fail_if(launches != n_rec * new or other != 0,
                 f"{run}: {launches} RG-LRU launches (expected {n_rec * new}), {other} WKV")
+        fail_if(flash != n_att or flash_tc != n_att,
+                f"{run}: {flash} flash launches, {flash_tc} on the tensor cores (expected "
+                f"{n_att}, all on the tensor cores: one a local-attention layer in the "
+                f"prefill, none in decode)")
 
         # prefill and decode timed apart, on the same prompts
         torch.cuda.synchronize()
@@ -699,36 +794,59 @@ def serve_hybrid(rg, wk):
             for key, v in state.items():
                 fail_if(key != "pos" and not bool(torch.isfinite(v.float()).all()),
                         f"{run}: non-finite {name}.{key} state")
+        # the prefill as it was before it went through the flash kernel (the
+        # plain attention), between two more runs through the kernel
+        timed = {"kernel": [prefill_s], "plain": []}
+        for how in ("plain", "kernel"):
+            with contextlib.ExitStack() as stack:
+                if how == "plain":
+                    stack.enter_context(attention_swapped(plain_attention))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, _ = prefill({"tokens": prompt}, model.init_cache(b, s_len + new))
+                torch.cuda.synchronize()
+                timed[how].append(time.perf_counter() - t0)
+            if how == "plain":
+                plain_diff = (lg.float() - logits.float()).abs().max().item()
+            del lg
         written = cache["periods"]["l2"]["pos"]
         want_pos = min(s_len + new - 1, cfg.window_size)
         fail_if(int((written >= 0).sum(dim=-1).min()) != want_pos,
                 f"{run}: {int((written >= 0).sum(dim=-1).min())} written window slots, expected {want_pos}")
         steps = new - 1
         print(f"[hybrid] {b} requests x {s_len} prompt tokens, {new} new greedy tokens: generate "
-              f"{gen_s:.3f}s, RG-LRU launches {launches} (= {n_rec} layers x {new} model calls); "
-              f"prefill {prefill_s * 1e3:.1f} ms ({b * s_len / prefill_s:.0f} tokens/s); decode "
-              f"{steps} steps in {decode_s * 1e3:.1f} ms ({decode_s / steps * 1e3:.2f} ms a step, "
-              f"{b * steps / decode_s:.1f} tokens/s)", flush=True)
+              f"{gen_s:.3f}s, RG-LRU launches {launches} (= {n_rec} layers x {new} model calls), "
+              f"flash launches {flash} ({flash_tc} on the tensor cores; = {n_att} layers x 1 "
+              f"prefill); prefill {prefill_s * 1e3:.1f} ms ({b * s_len / prefill_s:.0f} "
+              f"tokens/s); decode {steps} steps in {decode_s * 1e3:.1f} ms "
+              f"({decode_s / steps * 1e3:.2f} ms a step, {b * steps / decode_s:.1f} tokens/s)",
+              flush=True)
+        print(f"[hybrid] {b} x {s_len} prefill, attention through the flash kernel: "
+              f"{', '.join(f'{x * 1e3:.1f}' for x in timed['kernel'])} ms; through the plain "
+              f"attention (the path before the kernel): {timed['plain'][0] * 1e3:.1f} ms; "
+              f"worst |logits| difference between the two {plain_diff:.3g}", flush=True)
+        # where the time goes: one prefill (and 4 decode steps) under the profiler
+        cache0 = model.init_cache(b, s_len + new)
+        print(f"[hybrid] profiled prefill {b} x {s_len}: "
+              f"{profile_window(lambda: prefill({'tokens': prompt}, cache0), 'flash_fwd_sm90', 'rglru_kernel')}",
+              flush=True)
         if (b, s_len, new) == HYB_RUNS[0]:
-            # where the time goes: one prefill and 4 decode steps under the profiler
-            cache0 = model.init_cache(b, s_len + new)
-            for label, fn in (
-                ("prefill", lambda: prefill({"tokens": prompt}, cache0)),
-                ("4 decode steps", lambda: [decode(tok, cache, s_len) for _ in range(4)]),
-            ):
-                print(f"[hybrid] profiled {label}: {profile_window(fn, 'rglru_kernel')}", flush=True)
+            print(f"[hybrid] profiled 4 decode steps: "
+                  f"{profile_window(lambda: [decode(tok, cache, s_len) for _ in range(4)], 'rglru_kernel')}",
+                  flush=True)
         del cache, logits
     peak = torch.cuda.max_memory_allocated()
     print(f"[hybrid] peak device memory {peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB)", flush=True)
     fail_if(not peak < CARD_BYTES, f"hybrid: peak device memory {peak / 1e9:.2f} GB")
     del model
     torch.cuda.empty_cache()
-    return by_run
+    return by_run, flash_by_run
 
 
-def profile_window(fn, kernel):
+def profile_window(fn, *kernels):
     """One call of ``fn`` under the profiler: wall time, device busy share,
-    the device time of ``kernel`` and the three costliest device rows."""
+    the device time of each kernel named in ``kernels`` (a part of its
+    name) and the three costliest device rows."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -742,13 +860,17 @@ def profile_window(fn, kernel):
     busy = sum(_self_device_us(e) for e in rows) / 1e6
     if busy <= 0:
         return f"wall {wall * 1e3:.1f} ms; device time not measured (no device rows)"
-    own = sum(_self_device_us(e) for e in rows if kernel in e.key) / 1e6
+    own = []
+    for kernel in kernels:
+        t = sum(_self_device_us(e) for e in rows if kernel in e.key) / 1e6
+        n = sum(e.count for e in rows if kernel in e.key)
+        own.append(f"{kernel} {t * 1e3:.2f} ms x{n} ({100 * t / busy:.1f}% of device time)")
     top = sorted(rows, key=_self_device_us, reverse=True)[:3]
     top_s = "; ".join(f"{e.key[:60]} {_self_device_us(e) / 1e3:.2f} ms x{e.count}" for e in top)
     return (f"wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
             f"({100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%), "
-            f"{sum(e.count for e in rows)} device operations, {kernel} {own * 1e3:.2f} ms "
-            f"({100 * own / busy:.1f}% of device time); costliest: {top_s}")
+            f"{sum(e.count for e in rows)} device operations, {', '.join(own)}; costliest: "
+            f"{top_s}")
 
 
 def to_device(tree, dev):
@@ -865,15 +987,17 @@ def card_against_cpu(wk):
     return launches
 
 
-def hybrid_card_against_cpu(rg):
+def hybrid_card_against_cpu(rg, fa):
     """Phase 10: recurrentgemma-9b at full width cut to one period (R, R,
     L), on the card and in the port's CPU run with the same weights. As in
     phase 8, every block call of the CPU's prefill and forced decode steps
     is replayed on the card's block on the CPU's inputs (state, caches and
     block output held to the CPU's), and the card's output head is given
     the CPU's last hidden state; the free-running drift is printed beside
-    the CPU run's own drift between one thread and all of them. Returns the
-    RG-LRU launch count of the phase."""
+    the CPU run's own drift between one thread and all of them. The card's
+    run makes exactly one flash launch (the L layer's prefill, on the
+    tensor cores). Returns the RG-LRU and the flash launch counts of the
+    phase."""
     import dataclasses
 
     import numpy as np
@@ -904,7 +1028,14 @@ def hybrid_card_against_cpu(rg):
 
     t0 = time.perf_counter()
     rg.rglru_scan.launches = 0
+    fa.flash_attention.launches = fa.flash_attention.tc_launches = 0
     free = forced_run(gpu, prompt, forced)
+    n_att = HYB_CHECK_LAYERS - sum(t == "R" for t in cfg.layer_types())
+    card_flash = (fa.flash_attention.launches, fa.flash_attention.tc_launches)
+    fail_if(card_flash != (n_att, n_att),
+            f"hybrid check: {card_flash[0]} flash launches in the card's run ({card_flash[1]} on "
+            f"the tensor cores), expected {n_att} (the prefill of each L layer), all on the "
+            "tensor cores")
     calls = []
     ref = forced_run(cpu, prompt, forced, calls)
     cpu_s = time.perf_counter() - t0
@@ -952,6 +1083,9 @@ def hybrid_card_against_cpu(rg):
     n_rec = sum(t == "R" for t in cfg.layer_types())
     want_launches = 2 * n_rec * (1 + CHECK_STEPS)
     fail_if(launches != want_launches, f"hybrid check: {launches} RG-LRU launches, expected {want_launches}")
+    flash = fa.flash_attention.launches
+    fail_if(flash != 2 * n_att, f"hybrid check: {flash} flash launches, expected {2 * n_att} (the "
+            "card's prefill and the replay of its layers)")
     free_lg, free_st = drift(free, ref)
     cpu_lg, cpu_st = drift(one_thread, ref)
     print(f"[hybrid-check] recurrentgemma-9b full width cut to {HYB_CHECK_LAYERS} layers "
@@ -962,7 +1096,9 @@ def hybrid_card_against_cpu(rg):
           f"1e-3 + 1e-3 |x|), k {worst['k']:.3g}, v {worst['v']:.3g} (limit 1e-2 + 1e-2 |x|), "
           f"block output {worst['out']:.3g} bf16 ulps of its largest magnitude (limit 2), "
           f"positions equal; output head worst "
-          f"|logits| difference {worst_lg:.3g} (limit 2e-2); RG-LRU launches {launches}", flush=True)
+          f"|logits| difference {worst_lg:.3g} (limit 2e-2); RG-LRU launches {launches}, flash "
+          f"launches {flash} ({card_flash[0]} in the card's prefill, none in its decode steps)",
+          flush=True)
     print(f"[hybrid-check] free-running drift: card vs CPU worst |logits| {free_lg:.3g}, worst "
           f"state difference by layer {[float(f'{x:.3g}') for x in free_st]}; CPU 1 thread vs "
           f"{threads} threads worst |logits| {cpu_lg:.3g}, by layer "
@@ -970,7 +1106,7 @@ def hybrid_card_against_cpu(rg):
     fail_if(not worst_lg <= 2e-2, f"hybrid check: logits differ by {worst_lg:.3g}")
     del gpu, cpu
     torch.cuda.empty_cache()
-    return launches
+    return launches, flash
 
 
 def serve_dense(fa, rg, wk):
@@ -1006,20 +1142,22 @@ def serve_dense(fa, rg, wk):
         prompt = torch.as_tensor(rng.randint(0, cfg.vocab_size, (b, s_len)), device="cuda")
         torch.cuda.synchronize()
         fa.flash_attention.launches = rg.rglru_scan.launches = wk.rwkv6_scan.launches = 0
+        fa.flash_attention.tc_launches = 0
         t0 = time.perf_counter()
         tokens = generate(model, prompt, new)
         torch.cuda.synchronize()
         gen_s = time.perf_counter() - t0
-        launches = fa.flash_attention.launches
+        launches, tc = fa.flash_attention.launches, fa.flash_attention.tc_launches
         other = rg.rglru_scan.launches + wk.rwkv6_scan.launches
         run = f"serve_{b}x{s_len}"
-        by_run[run] = launches
+        by_run[f"dense_{run}"] = launches
         fail_if(tuple(tokens.shape) != (b, new), f"{run}: tokens {tuple(tokens.shape)}")
         fail_if(not (0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size),
                 f"{run}: tokens out of the vocabulary")
-        fail_if(launches != cfg.num_layers or other != 0,
-                f"{run}: {launches} flash launches (expected {cfg.num_layers}: one a layer in "
-                f"the prefill, none in decode), {other} recurrence launches")
+        fail_if(launches != cfg.num_layers or tc != launches or other != 0,
+                f"{run}: {launches} flash launches, {tc} on the tensor cores (expected "
+                f"{cfg.num_layers}: one a layer in the prefill, none in decode, all on the "
+                f"tensor cores), {other} recurrence launches")
 
         # prefill and decode timed apart, on the same prompts
         torch.cuda.synchronize()
@@ -1042,18 +1180,19 @@ def serve_dense(fa, rg, wk):
             fail_if(bool(c[:, :, s_len + new - 1:].any()), f"{run}: {name} cache written past the last step")
         steps = new - 1
         print(f"[dense] {b} requests x {s_len} prompt tokens, {new} new greedy tokens: generate "
-              f"{gen_s:.3f}s, flash launches {launches} (= {cfg.num_layers} layers x 1 prefill; "
-              f"decode attends with the plain attention); prefill {prefill_s * 1e3:.1f} ms "
+              f"{gen_s:.3f}s, flash launches {launches} ({tc} on the tensor cores; = "
+              f"{cfg.num_layers} layers x 1 prefill; decode attends with the plain attention); "
+              f"prefill {prefill_s * 1e3:.1f} ms "
               f"({b * s_len / prefill_s:.0f} tokens/s); decode {steps} steps in "
               f"{decode_s * 1e3:.1f} ms ({decode_s / steps * 1e3:.2f} ms a step, "
               f"{b * steps / decode_s:.1f} tokens/s)", flush=True)
         cache0 = model.init_cache(b, s_len + new)
         print(f"[dense] profiled prefill {b} x {s_len}: "
-              f"{profile_window(lambda: prefill({'tokens': prompt}, cache0), 'flash_fwd')}",
+              f"{profile_window(lambda: prefill({'tokens': prompt}, cache0), 'flash_fwd_sm90')}",
               flush=True)
         if (b, s_len, new) == DENSE_RUNS[0]:
             print(f"[dense] profiled 4 decode steps: "
-                  f"{profile_window(lambda: [decode(tok, cache, s_len) for _ in range(4)], 'flash_fwd')}",
+                  f"{profile_window(lambda: [decode(tok, cache, s_len) for _ in range(4)], 'flash_fwd_sm90')}",
                   flush=True)
         del cache, cache0, logits
     peak = torch.cuda.max_memory_allocated()
@@ -1080,13 +1219,17 @@ def dense_card_against_cpu(fa):
     within one bf16 ulp of their largest magnitude, block outputs within
     two (both held normwise: rope and the residual sum cancel, so a one-ulp
     flip of an input can exceed an ulp of a small output), logits atol
-    2e-2. Returns the flash launch count of the phase."""
+    2e-2. The free-running card run is made a second time with the plain
+    attention in place of the kernel (a diagnostic: which of the two
+    carries the card's drift from the CPU). Returns the flash launch count
+    of the phase."""
     import dataclasses
 
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels.ref import flash_attention_ref
     from repro_torch.models.model import build_model
 
     cfg = dataclasses.replace(get_config("gemma3-1b"), num_layers=DENSE_CHECK_LAYERS)
@@ -1106,12 +1249,19 @@ def dense_card_against_cpu(fa):
         return lg, per
 
     t0 = time.perf_counter()
-    fa.flash_attention.launches = 0
+    fa.flash_attention.launches = fa.flash_attention.tc_launches = 0
     free = forced_run(gpu, prompt, forced)
     card_launches = fa.flash_attention.launches
-    fail_if(card_launches != DENSE_CHECK_LAYERS,
-            f"dense check: {card_launches} flash launches in the card's run, expected "
-            f"{DENSE_CHECK_LAYERS} (one a layer in the prefill, none in decode)")
+    fail_if(card_launches != DENSE_CHECK_LAYERS or fa.flash_attention.tc_launches != card_launches,
+            f"dense check: {card_launches} flash launches in the card's run "
+            f"({fa.flash_attention.tc_launches} on the tensor cores), expected "
+            f"{DENSE_CHECK_LAYERS} (one a layer in the prefill, none in decode), all on the "
+            "tensor cores")
+    with attention_swapped(lambda q, k, v, **kw: flash_attention_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kw).transpose(1, 2)):
+        free_plain = forced_run(gpu, prompt, forced)
+    fail_if(fa.flash_attention.launches != card_launches,
+            "dense check: the run with the plain attention launched the kernel")
     calls = []
     ref = forced_run(cpu, prompt, forced, calls)
     cpu_s = time.perf_counter() - t0
@@ -1150,6 +1300,7 @@ def dense_card_against_cpu(fa):
             f"dense check: {launches} flash launches, expected {2 * DENSE_CHECK_LAYERS} (the "
             "card's prefill and the replay of its layers)")
     free_lg, free_kv = drift(free, ref)
+    plain_lg, plain_kv = drift(free_plain, ref)
     cpu_lg, cpu_kv = drift(one_thread, ref)
     print(f"[dense-check] gemma3-1b full width cut to {DENSE_CHECK_LAYERS} layers "
           f"({''.join(cfg.layer_types())}), card vs the port's CPU run ({secs:.1f}s; card and CPU "
@@ -1161,7 +1312,9 @@ def dense_card_against_cpu(fa):
           f"{launches} ({card_launches} in the card's prefill, none in its decode steps, "
           f"{DENSE_CHECK_LAYERS} in the replay)", flush=True)
     print(f"[dense-check] free-running drift: card vs CPU worst |logits| {free_lg:.3g}, worst k / v "
-          f"difference by layer {[float(f'{x:.3g}') for x in free_kv]}; CPU 1 thread vs "
+          f"difference by layer {[float(f'{x:.3g}') for x in free_kv]}; card with the plain "
+          f"attention in place of the kernel vs CPU worst |logits| {plain_lg:.3g}, by layer "
+          f"{[float(f'{x:.3g}') for x in plain_kv]}; CPU 1 thread vs "
           f"{threads} threads worst |logits| {cpu_lg:.3g}, by layer "
           f"{[float(f'{x:.3g}') for x in cpu_kv]}", flush=True)
     fail_if(not worst_lg <= 2e-2, f"dense check: logits differ by {worst_lg:.3g}")
@@ -1254,17 +1407,26 @@ def main(argv) -> int:
 
     # ---- 2. build ----
     t0 = time.perf_counter()
-    sources = [wf.SOURCE, fs.SOURCE, wk.SOURCE, rg.SOURCE, fa.SOURCE]
+    sources = [wf.SOURCE, fs.SOURCE, wk.SOURCE, rg.SOURCE, fa.SOURCE, fa.SOURCE_SM90]
     _build.build(sources)
     print(f"[build] {len(sources)} kernels in {time.perf_counter() - t0:.2f}s", flush=True)
     for name, (secs, report) in _build.BUILD_LOG.items():
         print(f"[build] {name}: {secs:.2f}s; {report}", flush=True)
+    # the tensor-core flash kernel must compile to Hopper's warpgroup MMA
+    sass = subprocess.run([str(Path(_build._nvcc()).resolve().with_name("cuobjdump")), "-sass",
+                           str(_build._target(fa.SOURCE_SM90))],
+                          capture_output=True, text=True, check=True).stdout
+    n_hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    print(f"[build] flash_attention_sm90: {n_hgmma} HGMMA instructions in its SASS", flush=True)
+    fail_if(n_hgmma == 0, "flash_attention_sm90: no HGMMA instruction in the SASS")
 
     # ---- 3. kernels against their plain versions ----
     rows = kernel_checks(wf, fs, None if quick else live_default_state())
     rows["rwkv6_scan"] = wkv_checks(wk, rwkv6_scan_ref)
     rows["rglru_scan"] = rglru_checks(rg, rglru_scan_ref)
-    rows["flash_attention"] = flash_checks(fa, flash_attention_ref)
+    fa_rows = flash_checks(fa, flash_attention_ref)
+    rows["flash_attention_sm90"] = fa_rows[fa.TENSOR_CORES]
+    rows["flash_attention"] = fa_rows[fa.CUDA_CORES]
 
     launches = {k: 0 for k in rows}
     by_path = {k: {} for k in rows}
@@ -1349,18 +1511,25 @@ def main(argv) -> int:
         by_path["rwkv6_scan"]["card_vs_cpu"] = card_against_cpu(wk)
 
         # ---- 9. the hybrid serving path: recurrentgemma-9b at full width ----
-        by_path["rglru_scan"].update(serve_hybrid(rg, wk))
+        rg_runs, flash_runs = serve_hybrid(rg, wk, fa)
+        by_path["rglru_scan"].update(rg_runs)
+        by_path["flash_attention_sm90"].update(flash_runs)
         launches["rglru_scan"] = sum(by_path["rglru_scan"].values())
 
         # ---- 10. the card against the port's CPU run, one period ----
-        by_path["rglru_scan"]["card_vs_cpu"] = hybrid_card_against_cpu(rg)
+        by_path["rglru_scan"]["card_vs_cpu"], hybrid_check = hybrid_card_against_cpu(rg, fa)
 
         # ---- 11. the dense serving path: gemma3-1b at full width ----
-        by_path["flash_attention"].update(serve_dense(fa, rg, wk))
+        by_path["flash_attention_sm90"].update(serve_dense(fa, rg, wk))
+        # the main path's count: the serving runs, not the phase-10 check
+        launches["flash_attention_sm90"] = sum(by_path["flash_attention_sm90"].values())
+        by_path["flash_attention_sm90"]["hybrid_card_vs_cpu"] = hybrid_check
+        # every model path attends in bf16 with D % 8 == 0: none reaches the
+        # CUDA-core kernel
         launches["flash_attention"] = sum(by_path["flash_attention"].values())
 
         # ---- 12. the card against the port's CPU run, one period ----
-        by_path["flash_attention"]["card_vs_cpu"] = dense_card_against_cpu(fa)
+        by_path["flash_attention_sm90"]["card_vs_cpu"] = dense_card_against_cpu(fa)
 
     # ---- 13. summary lines ----
     kernels = []
@@ -1373,8 +1542,10 @@ def main(argv) -> int:
          "src/repro/kernels/rwkv6_scan.py:26", WKV_SHAPES[0], "BHTD"),
         ("rglru_scan", "src/repro_torch/kernels/csrc/rglru_scan.cu",
          "src/repro/kernels/rglru_scan.py:23", RG_SHAPES[0], "BTW"),
-        ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+        ("flash_attention_sm90", "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
          "src/repro/kernels/flash_attention.py:33", FA_SERVING[0], "BHKSTD"),
+        ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention.py:33", FA_FP32, "BHKSTD"),
     ):
         row = rows[name][pick]
         dims = pick[0] if name == "rglru_scan" else pick
@@ -1386,7 +1557,7 @@ def main(argv) -> int:
             "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
             "shape": dict(zip(shape, dims)),
         })
-        if name == "flash_attention":
+        if name.startswith("flash_attention"):
             kernels[-1]["shape"].update(window=pick[7], dtype=pick[9])
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))

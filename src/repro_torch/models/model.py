@@ -371,19 +371,19 @@ class HybridBlock(nn.Module):
         return h + L.ffn_apply(self, x, cfg.act, cfg.glu), new_state
 
     def _attention(self, x, positions, state, pos):
-        """Local attention. Without a state, or in a prefill (S > 1), it
-        attends over the whole sequence with the window mask; a prefill then
-        writes the last ``window`` keys into a fresh rolling cache. A decode
-        step (S = 1) writes its key into slot ``pos % window`` of a copy of
-        the cache and attends over the cache, masked by the slots'
-        positions."""
+        """Local attention. Without a state, or in a prefill (S > 1), the S
+        queries at positions 0..S-1 attend through the flash kernel with the
+        window mask; a prefill then writes the last ``window`` keys into a
+        fresh rolling cache. A decode step (S = 1) writes its key into slot
+        ``pos % window`` of a copy of the cache and attends over the cache,
+        masked by the slots' positions."""
         cfg = self.cfg
         q, k, v = L.attn_qkv(self, x, self.dims)
         q = L.rope(q, positions, cfg.rope_theta)
         k = L.rope(k, positions, cfg.rope_theta)
         window = cfg.window_size or L.GLOBAL_WINDOW
         if state is None or q.shape[1] > 1:
-            o = L.attend(q, k, v, positions, positions, causal=True, window=window)
+            o = ops.flash_attention(q, k, v, causal=True, window=window)
             new = None if state is None else _roll_window_cache(k, v, positions,
                                                                 state["k"].shape[1])
         else:

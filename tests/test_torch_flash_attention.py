@@ -130,10 +130,57 @@ def test_the_wrapper_refuses_what_the_kernel_does_not_take():
     assert fa.flash_attention.launches == before  # the plain version launches nothing
 
 
+@pytest.mark.parametrize("D", [32, 64, 96, 128, 256])
+def test_bf16_heads_that_tma_can_describe_take_the_tensor_core_kernel(D):
+    assert fa._route(torch.bfloat16, D) == fa.TENSOR_CORES
+
+
+@pytest.mark.parametrize("dtype, D", [(torch.float32, d) for d in (32, 64, 96, 128, 256)]
+                         + [(torch.bfloat16, 20), (torch.bfloat16, 4)])
+def test_fp32_and_other_bf16_heads_take_the_cuda_core_kernel(dtype, D):
+    """fp32 stays on the CUDA-core kernel at the reference's 2e-5 limit;
+    a bf16 head of D % 8 != 0 has rows TMA cannot stride over."""
+    assert fa._route(dtype, D) == fa.CUDA_CORES
+
+
+def test_tma_operands_keep_the_model_layout_and_copy_what_tma_cannot_read():
+    """The model layout's (B, S, H, D) -> (B, H, S, D) view is read as it is;
+    a head dim that is not a multiple of 8, or data 16-byte misaligned,
+    gets a contiguous copy."""
+    x = torch.zeros((2, 24, 4, 64), dtype=torch.bfloat16)
+    view = x.transpose(1, 2)
+    assert fa._tma_operand(view) is view
+    odd = torch.zeros((2, 24, 4, 20), dtype=torch.bfloat16).transpose(1, 2)
+    got = fa._tma_operand(odd)
+    assert got.is_contiguous() and torch.equal(got, odd)
+    flat = torch.zeros(2 * 4 * 24 * 64 + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(2, 4, 24, 64)  # 2 bytes past an aligned start
+    got = fa._tma_operand(shifted)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, shifted)
+
+
+@pytest.mark.parametrize("shapes, match", [
+    (((1, 4, 8, 16), (1, 2, 8, 16), (1, 2, 9, 16)), "expected q"),
+    (((4, 8, 16), (1, 2, 8, 16), (1, 2, 8, 16)), "expected q"),
+    (((1, 4, 8, 16), (2, 2, 8, 16), (2, 2, 8, 16)), "does not match"),
+    (((1, 4, 8, 16), (1, 3, 8, 16), (1, 3, 8, 16)), "not divisible"),
+], ids=["v-shape", "q-rank", "batch", "groups"])
+def test_the_wrapper_refuses_inconsistent_shapes_on_any_device(shapes, match):
+    """Shapes are checked before the route is chosen, so the CPU path
+    refuses what the kernels would."""
+    q, k, v = (torch.zeros(s, dtype=torch.bfloat16) for s in shapes)
+    with pytest.raises(ValueError, match=match):
+        fa.flash_attention(q, k, v)
+
+
 @pytest.mark.gpu
 def test_the_kernel_refuses_head_dims_above_256():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel runs only on the card)")
-    q = torch.zeros((1, 2, 4, 288), device="cuda")
-    with pytest.raises(ValueError, match="head dims up to 256"):
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros((1, 2, 4, 288), device="cuda", dtype=dtype)
+        with pytest.raises(ValueError, match="head dims up to 256"):
+            fa.flash_attention(q, q[:, :1], q[:, :1])
+    q = torch.zeros((1, 2, 4, 64), device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError, match="fp32 or bf16"):
         fa.flash_attention(q, q[:, :1], q[:, :1])
