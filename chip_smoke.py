@@ -12,7 +12,13 @@ Phases, each printing its own lines:
   3. each kernel against its plain PyTorch version on the card at the
      shapes its path gives it: the sweep's kernels also on a live
      default-grid state (limit 1e-12 relative; bool and int64 outputs
-     exact), the WKV-6 kernel at the serving run's prefill and decode
+     exact), the one-step fused kernel, the loop kernel (fused_rounds) on
+     live default-grid states at caps of 1, 16 and 256 steps, on states
+     pushed to each stop reason, on the default grid with 32 and 64
+     channel columns (the wide rows' one-halving-at-a-time water level)
+     and on a live full-grid chunk, then on that chunk at the main path's
+     cap of 2,048 steps, timed (per launch and per step of the longest
+     row), the WKV-6 kernel at the serving run's prefill and decode
      shapes and a long prompt (rtol = atol = 1e-4, fp32), the RG-LRU
      kernel at recurrentgemma-9b's prefill, decode and long-prompt shapes,
      an odd width and bf16 inputs (rtol = atol = 1e-6), the two
@@ -27,13 +33,20 @@ Phases, each printing its own lines:
      bound (bytes moved at 3.35 TB/s, or operations at 34 TFLOP/s float64 /
      67 TFLOP/s float32 / 989 TFLOP/s bf16 on the tensor cores, whichever
      is longer);
-  4. the 276-row default grid on the fused route and on the split route,
-     each held to tests/golden/eval_matrix.json at rtol 1e-6;
-  5. the main path: the 1116-row full grid on the default (fused) route,
-     with every launch count set to 0 just before and read just after; a
+  4. the 276-row default grid on the loop kernel's route ("rounds", the
+     default), the one-step fused route ("kernel") and the split route
+     ("none"), each held to tests/golden/eval_matrix.json at rtol 1e-6;
+     host rounds, device row steps and host syncs of each;
+  5. the main path: the 1116-row full grid on the "rounds" route, then on
+     the "kernel" route, each with every launch count set to 0 just before
+     and read just after; rows/s of each; the two held to each other over
+     every row (total_time, throughput, per-chunk bytes within 1e-6
+     relative; rows whose event counts differ are counted and listed); a
      sample of 64 rows must match the port's own CPU run (plain kernel
      versions) within 1e-6 relative;
-  6. one profiled run of the default grid: device busy and idle share;
+  6. profiled runs of the sweep: the default grid on the "rounds" and
+     "kernel" routes and the full grid on "rounds": device busy and idle
+     share, device operations per host round;
   7. the serving path: rwkv6-3b at full width (32 layers, fp32 weights
      from a seeded generator) serves 8 prompts of 512 tokens and 32 new
      greedy tokens through ``train.serve_step.generate``, with the WKV
@@ -353,8 +366,8 @@ def kernel_checks(wf, fs, live_state):
         torch.cuda.synchronize()
         err_w = compare([out], [ref], f"waterfill {shape}")
         # fused step: kernel vs plain
-        outs = fs.fused_step(*args)
         refs = fs.fused_step_plain(*args)
+        outs = fs.fused_step(*args)
         torch.cuda.synchronize()
         err_f = compare(outs, refs, f"fused_step {shape}")
         if shape == "live":
@@ -1323,6 +1336,161 @@ def dense_card_against_cpu(fa):
     return launches
 
 
+#: step caps of phase 3's loop-kernel checks on the live default-grid state
+ROUND_CHECK_STEPS = (1, 16, 256)
+
+
+def live_round_state(scenarios, sweeps, widen=0):
+    """The loop kernel's operands (cloned) of a driver on the card,
+    ``sweeps`` one-step sweeps into its run, its channel axis doubled
+    ``widen`` times (empty columns)."""
+    from repro_torch.eval.fabric.driver import TorchFabricSimulation
+    from repro_torch.eval.fabric.plan import build_plan
+
+    drv = TorchFabricSimulation(build_plan(scenarios), device="cuda", fused_step="kernel")
+    drv.start()
+    for _ in range(sweeps):
+        drv.step()
+    for _ in range(widen):
+        drv._grow()
+    return {k: v.clone() for k, v in drv.round_operands(~drv.done).items()}
+
+
+def full_chunk():
+    """The full grid's first execution chunk as the runner cuts it (the
+    1,024 cheapest rows by the plan's cost proxy; it holds the
+    time-varying steppy-backbone rows)."""
+    from repro_torch.eval.fabric.plan import build_plan
+    from repro_torch.eval.runner import CHUNK_SIZE
+    from repro_torch.eval.scenarios import full_matrix
+
+    full = full_matrix()
+    costs = build_plan(full).cost_proxy()
+    order = sorted(range(len(full)), key=lambda i: costs[i])
+    return [full[i] for i in order[:CHUNK_SIZE]]
+
+
+def round_events(s, out, max_steps):
+    """What the rows of one loop-kernel launch met, from its operands ``s``
+    and the plain version's results ``out``: each stop reason of their
+    last step, rows that took a tick's bookkeeping inside the loop, rows
+    that stepped past a bandwidth-profile step."""
+    import torch
+
+    from repro_torch.eval.fabric.kernels import fused_step as fs
+    from repro_torch.eval.fabric.shim import TorchOps
+
+    act = s["act"]
+    busy_k = TorchOps.count_by_chunk(s["chunk_of"], out["busy"], s["qptr"].shape[1])
+    tick = out["t"] >= out["next_tick"] - 1e-12
+    crossed = (s["prof_t"] > s["t"].unsqueeze(-1)) & (s["prof_t"] < out["t"].unsqueeze(-1))
+    masks = {
+        "completion": (~s["chunk_done"] & (s["qlen"] - out["qptr"] == 0) & (busy_k == 0)).any(-1),
+        "promc_tick": tick & (s["kind"] == fs.KIND_PROMC),
+        "no_busy": ~out["busy"].any(-1),
+        "timeline": s["record_timeline"],
+        "max_time": out["t"] > s["max_time"],
+        "cap": out["steps"] >= max_steps,
+        "tick_in_loop": out["next_tick"] > s["next_tick"],
+        "profile_step": crossed.any(-1),
+    }
+    return {k: int(torch.sum(act & m)) for k, m in masks.items()}
+
+
+def pushed(s, reason):
+    """A copy of the loop operands ``s`` with some rows pushed to
+    ``reason``."""
+    s = {k: v.clone() for k, v in s.items()}
+    if reason == "no_busy":  # idle rows whose queues ran dry
+        s["busy"][::7] = False
+        s["qptr"][::7] = s["qlen"][::7]
+    elif reason == "max_time":
+        s["max_time"].copy_(s["t"] + 1.0)
+    elif reason == "timeline":
+        s["record_timeline"][::3] = True
+    return s
+
+
+def rounds_checks(fs, default_state, chunk_state):
+    """Phase 3, the loop kernel: against the plain version on the card, on
+    the live default-grid state at each cap of ROUND_CHECK_STEPS, on states
+    pushed to the stop reasons the live state meets rarely, on the default
+    grid with 32 and 64 channel columns, on the live full-grid chunk, and
+    on that chunk at the main path's cap (limit 1e-12 relative; bool and
+    int64 exact); timed on the last, with the plain version and the bound.
+    Returns the timing row (the kernels JSON line's)."""
+    import torch
+
+    cases = [(f"live default grid, cap {n}", default_state, n, None) for n in ROUND_CHECK_STEPS]
+    cases += [(f"default grid pushed to {r}, cap 64", pushed(default_state, r), 64, r)
+              for r in ("no_busy", "max_time", "timeline")]
+    # wider channel axes: one tile of 32, two tiles
+    from repro_torch.eval.scenarios import default_matrix
+
+    cases += [(f"live default grid widened {w}x, cap 64",
+               live_round_state(default_matrix(), 20, widen=w), 64, None) for w in (1, 2)]
+    cases.append(("live full-grid chunk, cap 256", chunk_state, 256, "profile_step"))
+    seen, worst = {}, 0.0
+    for label, s0, max_steps, must in cases:
+        want = fs.fused_rounds_plain(s0, max_steps)
+        got = {k: v.clone() for k, v in s0.items()}
+        before = fs.fused_rounds.launches
+        fs.fused_rounds(got, max_steps)
+        torch.cuda.synchronize()
+        fail_if(fs.fused_rounds.launches != before + 1, f"fused_rounds {label}: no launch")
+        worst = max(worst, compare([got[k] for k in want], list(want.values()),
+                                   f"fused_rounds {label}"))
+        ev = round_events(s0, want, max_steps)
+        for k, n in ev.items():
+            seen[k] = seen.get(k, 0) + n
+        fail_if(must is not None and ev[must] == 0, f"fused_rounds {label}: no row met {must}")
+        print(f"[kernels] fused_rounds {label}: S={s0['act'].shape[0]} C={s0['busy'].shape[1]} "
+              f"K={s0['qptr'].shape[1]} B={s0['prof_t'].shape[1]}; {int(want['steps'].sum())} row "
+              f"steps (longest {int(want['steps'].max())}); rows stopping by reason {ev}; equal "
+              "to the plain version", flush=True)
+    missing = [k for k, n in seen.items() if n == 0]
+    fail_if(bool(missing), f"fused_rounds: no check met {missing}")
+
+    # timing on the full-grid chunk at the main path's cap
+    s0, cap = chunk_state, fs.ROUND_CAP
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = fs.fused_rounds_plain(s0, cap)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = {k: v.clone() for k, v in s0.items()}
+    fs.fused_rounds(got, cap)
+    torch.cuda.synchronize()
+    err = compare([got[k] for k in want], list(want.values()), f"fused_rounds chunk, cap {cap}")
+    rel = max(rel_err(got[k], want[k]) for k in want if want[k].dtype == torch.float64)
+    steps = int(want["steps"].sum())
+    longest = int(want["steps"].max())
+    S, C = s0["busy"].shape
+    fed = int((want["qptr"] - s0["qptr"]).sum())
+    # each operand read once, the state and outputs written once, each fed
+    # file size read once (not the whole buffer); 2 flops (min, add) a
+    # channel a halving, 80 halvings a row step
+    nbytes = sum(v.numel() * v.element_size() for k, v in s0.items() if k != "qsizes")
+    nbytes += sum(v.numel() * v.element_size() for v in want.values()) + 8 * fed
+    ops = 2 * 80 * C * steps
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP64_FLOPS * 1e3
+    ms = device_ms(lambda: fs.fused_rounds({k: v.clone() for k, v in s0.items()}, cap), 5,
+                   "fused_rounds_kernel")
+    fail_if(ms <= 0.0, "fused_rounds: profiler recorded no device time")
+    row = {
+        "max_abs_err": max(worst, err), "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "row_steps": steps, "longest": longest,
+    }
+    print(f"[kernels] fused_rounds full-grid chunk S={S} C={C} cap {cap}: {steps} row steps, "
+          f"longest row {longest}; against the plain version: worst relative {rel:.3g}, |error| "
+          f"{err:.3g}, bool / int64 equal | device {ms:.4f} ms a launch, {ms / longest * 1e3:.3f} "
+          f"us a step of the longest row | plain {plain_ms:.1f} ms | bound "
+          f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}: {nbytes / 1e6:.2f} MB, "
+          f"{ops / 1e9:.3f} GFLOP)", flush=True)
+    return row
+
+
 def live_default_state():
     """A default-grid driver state a few sweeps in, as fused-step operands."""
     import torch
@@ -1353,15 +1521,131 @@ def run_grid(scenarios, device, fused_step, wf, fs):
     from repro_torch.eval.runner import run_matrix
 
     stats = SweepStats()
-    wf.waterfill_bisect.launches = 0
-    fs.fused_step.launches = 0
+    counters = {"waterfill": wf.waterfill_bisect, "fused_step": fs.fused_step,
+                "fused_rounds": fs.fused_rounds}
+    for c in counters.values():
+        c.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results = run_matrix(scenarios, device=device, fused_step=fused_step, stats=stats)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"waterfill": wf.waterfill_bisect.launches, "fused_step": fs.fused_step.launches}
-    return results, stats, launches, seconds
+    return results, stats, {k: c.launches for k, c in counters.items()}, seconds
+
+
+def sweep_paths(wf, fs, by_path):
+    """Phases 4-6: the default grid on the three routes against the
+    golden, the full grid (the main path) on the "rounds" and "kernel"
+    routes, and profiled sweeps. Fills ``by_path`` and returns each sweep
+    kernel's launches on its path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.eval.runner import (
+        compare_golden, load_golden, metrics_snapshot, run_matrix,
+    )
+    from repro_torch.eval.scenarios import default_matrix, full_matrix
+
+    # ---- 4. the default grid on the three routes ----
+    golden = load_golden(str(GOLDEN))
+    scs = default_matrix()
+    for route, must in (("rounds", "fused_rounds"), ("kernel", "fused_step"),
+                        ("none", "waterfill")):
+        res, st, lc, secs = run_grid(scs, "cuda", route, wf, fs)
+        devs = compare_golden(golden, metrics_snapshot(scs, res))
+        path = f"default_{route}"
+        for k in lc:
+            by_path[k][path] = lc[k]
+        print(f"[default] fused_step={route}: {len(scs)} rows in {secs:.3f}s "
+              f"({len(scs) / secs:.1f} rows/s), {st.sweeps} host rounds ({st.fused} fused, "
+              f"{st.split} split), {st.steps} device row steps, {st.host_syncs} host syncs, "
+              f"launches {lc}, {len(devs)} golden deviations", flush=True)
+        for d in devs[:10]:
+            print(f"[default] DEVIATION {d.scenario} {d.field}: golden={d.golden} "
+                  f"observed={d.observed}", flush=True)
+        fail_if(bool(devs), f"default grid ({route}): {len(devs)} golden deviations")
+        fail_if(lc[must] == 0, f"default grid ({route}): {must} never launched")
+
+    # ---- 5. the main path: the full grid, "rounds" route, then "kernel" ----
+    full = full_matrix()
+    res, st, launches, secs = run_grid(full, "cuda", "rounds", wf, fs)
+    res_k, st_k, launches_k, secs_k = run_grid(full, "cuda", "kernel", wf, fs)
+    for k in launches:
+        by_path[k]["full"] = launches[k]
+        by_path[k]["full_kernel_route"] = launches_k[k]
+    # the one-step kernel's own path is the "kernel" route
+    launches["fused_step"] = launches_k["fused_step"]
+    worst_route, differ = 0.0, []
+    for i, (a, b) in enumerate(zip(res, res_k)):
+        fail_if(a.total_bytes != b.total_bytes, f"full grid row {i}: total_bytes by route")
+        pairs = [(a.total_time, b.total_time), (a.throughput, b.throughput)]
+        pairs += [(a.per_chunk_bytes[c], b.per_chunk_bytes[c]) for c in b.per_chunk_bytes]
+        worst_route = max([worst_route] + [abs(x - y) / max(abs(y), 1e-300) for x, y in pairs])
+        if a.n_events != b.n_events:
+            differ.append((full[i].name, a.n_events, b.n_events))
+    for rt, stt, sec in (("rounds", st, secs), ("kernel", st_k, secs_k)):
+        print(f"[full] fused_step={rt}: {len(full)} rows in {sec:.3f}s ({len(full) / sec:.1f} "
+              f"rows/s), {stt.sweeps} host rounds ({stt.fused} fused, {stt.split} split), "
+              f"{stt.steps} device row steps, {stt.host_syncs} host syncs", flush=True)
+    print(f"[full] rounds vs kernel over all {len(full)} rows: worst relative difference "
+          f"{worst_route:.3g} (total_time, throughput, per-chunk bytes; limit 1e-6); "
+          f"{len(differ)} rows count other events: {differ[:12]}", flush=True)
+    fail_if(not worst_route <= 1e-6, f"full grid: the routes differ ({worst_route:.3g})")
+    finite = all(np.isfinite(r.total_time) and r.total_time > 0
+                 and np.isfinite(r.throughput) for r in res)
+    fail_if(not finite, "full grid: non-finite results")
+    moved_ok = max(abs(sum(r.per_chunk_bytes.values()) - r.total_bytes) / r.total_bytes
+                   for r in res if r.n_moves == 0)
+    sample = sorted(np.random.RandomState(0).choice(len(full), 64, replace=False).tolist())
+    t0 = time.perf_counter()
+    cpu = run_matrix([full[i] for i in sample], device="cpu")
+    cpu_secs = time.perf_counter() - t0
+    worst = 0.0
+    for i, c in zip(sample, cpu):
+        g = res[i]
+        fail_if(g.total_bytes != c.total_bytes, f"full grid row {i}: total_bytes")
+        for a, b in ((g.total_time, c.total_time), (g.throughput, c.throughput)):
+            worst = max(worst, abs(a - b) / abs(b))
+    print(f"[full] main path (rounds): {len(full)} rows in {secs:.3f}s ({len(full) / secs:.1f} "
+          f"rows/s), launches {launches}; worst byte-conservation error of rows "
+          f"without moves {moved_ok:.3g}; {len(sample)} sampled rows vs the CPU run "
+          f"({cpu_secs:.1f}s): worst relative difference {worst:.3g}", flush=True)
+    fail_if(not moved_ok <= 1e-9, f"full grid: bytes not conserved ({moved_ok:.3g})")
+    fail_if(not worst <= 1e-6, f"full grid: sample differs from the CPU run ({worst:.3g})")
+    for k, n in launches.items():
+        fail_if(n == 0, f"full grid: {k} was never launched on its path")
+
+    # ---- 6. profiled sweeps ----
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.eval.fabric.driver import SweepStats
+
+    for label, grid, route in (("default grid", scs, "rounds"), ("default grid", scs, "kernel"),
+                               ("full grid", full, "rounds")):
+        stp = SweepStats()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run_matrix(grid, device="cuda", fused_step=route, stats=stp)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        avgs = _device_events(prof)
+        busy_s = sum(_self_device_us(e) for e in avgs) / 1e6
+        kern = {k: (sum(_self_device_us(e) for e in avgs if k in e.key) / 1e6,
+                    sum(e.count for e in avgs if k in e.key))
+                for k in ("fused_rounds_kernel", "fused_step_kernel")}
+        n_ops = sum(e.count for e in avgs)
+        if busy_s > 0:
+            print(f"[profile] {label}, fused_step={route}, under the profiler: wall {wall:.3f}s, "
+                  f"device busy {busy_s:.4f}s ({100 * busy_s / wall:.2f}%), idle "
+                  f"{100 * (1 - busy_s / wall):.2f}%, {n_ops} device operations in "
+                  f"{stp.sweeps} host rounds ({n_ops / stp.sweeps:.1f} a round); device "
+                  + ", ".join(f"{k} {t:.4f}s x{n}" + (f" ({t / n * 1e3:.4f} ms each)" if n else "")
+                              for k, (t, n) in kern.items())
+                  + f", other {busy_s - sum(t for t, _ in kern.values()):.4f}s", flush=True)
+        else:
+            print(f"[profile] {label}, fused_step={route}: wall {wall:.3f}s; device time not "
+                  "measured (the profiler recorded no device activity)", flush=True)
+    return launches
 
 
 def main(argv) -> int:
@@ -1377,8 +1661,6 @@ def main(argv) -> int:
               file=sys.stderr)
         return 3
     sys.path.insert(0, str(SRC))
-    import numpy as np
-
     from repro_torch import _cuda_build as _build
     from repro_torch.eval.fabric.kernels import fused_step as fs
     from repro_torch.eval.fabric.kernels import waterfill_bisect as wf
@@ -1386,8 +1668,7 @@ def main(argv) -> int:
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import rwkv6_scan as wk
     from repro_torch.kernels.ref import flash_attention_ref, rglru_scan_ref, rwkv6_scan_ref
-    from repro_torch.eval.runner import compare_golden, load_golden, metrics_snapshot
-    from repro_torch.eval.scenarios import default_matrix, full_matrix
+    from repro_torch.eval.scenarios import default_matrix
 
     # ---- 1. environment ----
     smi = nvidia_smi_line()
@@ -1422,6 +1703,11 @@ def main(argv) -> int:
 
     # ---- 3. kernels against their plain versions ----
     rows = kernel_checks(wf, fs, None if quick else live_default_state())
+    chunk_state = live_round_state(full_chunk(), 8)
+    rows["fused_rounds"] = {"chunk": None}
+    rows["fused_rounds"]["chunk"] = rounds_checks(
+        fs, live_round_state(default_matrix(), 20), chunk_state)
+    del chunk_state
     rows["rwkv6_scan"] = wkv_checks(wk, rwkv6_scan_ref)
     rows["rglru_scan"] = rglru_checks(rg, rglru_scan_ref)
     fa_rows = flash_checks(fa, flash_attention_ref)
@@ -1431,77 +1717,7 @@ def main(argv) -> int:
     launches = {k: 0 for k in rows}
     by_path = {k: {} for k in rows}
     if not quick:
-        # ---- 4. the default grid on both routes ----
-        golden = load_golden(str(GOLDEN))
-        scs = default_matrix()
-        for route, must in (("kernel", "fused_step"), ("none", "waterfill")):
-            res, st, lc, secs = run_grid(scs, "cuda", route, wf, fs)
-            devs = compare_golden(golden, metrics_snapshot(scs, res))
-            path = f"default_{'fused' if route == 'kernel' else 'split'}"
-            for k in lc:
-                by_path[k][path] = lc[k]
-            print(f"[default] fused_step={route}: {len(scs)} rows in {secs:.3f}s "
-                  f"({len(scs) / secs:.1f} rows/s), {st.sweeps} sweeps ({st.fused} fused, "
-                  f"{st.split} split), {st.host_syncs} host syncs, launches {lc}, "
-                  f"{len(devs)} golden deviations", flush=True)
-            for d in devs[:10]:
-                print(f"[default] DEVIATION {d.scenario} {d.field}: golden={d.golden} "
-                      f"observed={d.observed}", flush=True)
-            fail_if(bool(devs), f"default grid ({route}): {len(devs)} golden deviations")
-            fail_if(lc[must] == 0, f"default grid ({route}): {must} never launched")
-
-        # ---- 5. the main path: the full grid, default route ----
-        full = full_matrix()
-        res, st, launches, secs = run_grid(full, "cuda", "kernel", wf, fs)
-        for k in launches:
-            by_path[k]["full"] = launches[k]
-        finite = all(np.isfinite(r.total_time) and r.total_time > 0
-                     and np.isfinite(r.throughput) for r in res)
-        fail_if(not finite, "full grid: non-finite results")
-        moved_ok = max(abs(sum(r.per_chunk_bytes.values()) - r.total_bytes) / r.total_bytes
-                       for r in res if r.n_moves == 0)
-        sample = sorted(np.random.RandomState(0).choice(len(full), 64, replace=False).tolist())
-        from repro_torch.eval.runner import run_matrix
-
-        t0 = time.perf_counter()
-        cpu = run_matrix([full[i] for i in sample], device="cpu")
-        cpu_secs = time.perf_counter() - t0
-        worst = 0.0
-        for i, c in zip(sample, cpu):
-            g = res[i]
-            fail_if(g.total_bytes != c.total_bytes, f"full grid row {i}: total_bytes")
-            for a, b in ((g.total_time, c.total_time), (g.throughput, c.throughput)):
-                worst = max(worst, abs(a - b) / abs(b))
-        print(f"[full] {len(full)} rows in {secs:.3f}s ({len(full) / secs:.1f} rows/s), "
-              f"{st.sweeps} sweeps ({st.fused} fused, {st.split} split), {st.host_syncs} "
-              f"host syncs, launches {launches}; worst byte-conservation error of rows "
-              f"without moves {moved_ok:.3g}; {len(sample)} sampled rows vs the CPU run "
-              f"({cpu_secs:.1f}s): worst relative difference {worst:.3g}", flush=True)
-        fail_if(not moved_ok <= 1e-9, f"full grid: bytes not conserved ({moved_ok:.3g})")
-        fail_if(not worst <= 1e-6, f"full grid: sample differs from the CPU run ({worst:.3g})")
-        for k, n in launches.items():
-            fail_if(n == 0, f"full grid: {k} was never launched on the main path")
-
-        # ---- 6. profiled default grid ----
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run_matrix(scs, device="cuda")
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        avgs = _device_events(prof)
-        busy_s = sum(_self_device_us(e) for e in avgs) / 1e6
-        fused_s = sum(_self_device_us(e) for e in avgs if "fused_step_kernel" in e.key) / 1e6
-        n_ops = sum(e.count for e in avgs)
-        if busy_s > 0:
-            print(f"[profile] default grid, fused route, under the profiler: wall {wall:.3f}s, "
-                  f"device busy {busy_s:.4f}s ({100 * busy_s / wall:.2f}%), idle "
-                  f"{100 * (1 - busy_s / wall):.2f}%, {n_ops} device operations; device "
-                  f"seconds fused_step {fused_s:.4f}, other {busy_s - fused_s:.4f}", flush=True)
-        else:
-            print(f"[profile] wall {wall:.3f}s; device time not measured (the profiler "
-                  "recorded no device activity)", flush=True)
+        launches.update(sweep_paths(wf, fs, by_path))
 
         # ---- 7. the serving path: rwkv6-3b at full width ----
         launches["rwkv6_scan"] = serve_full_width(wk)
@@ -1538,6 +1754,8 @@ def main(argv) -> int:
          "src/repro/eval/fabric/kernels/waterfill_pallas.py:40", JSON_SHAPE, "SCKQ"),
         ("fused_step", "src/repro_torch/eval/fabric/csrc/fused_step.cu",
          "src/repro/eval/fabric/kernels/fused_step_pallas.py:37", JSON_SHAPE, "SCKQ"),
+        ("fused_rounds", "src/repro_torch/eval/fabric/csrc/fused_step.cu",
+         "src/repro/eval/fabric/kernels/fused_step_pallas.py:37", "chunk", None),
         ("rwkv6_scan", "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
          "src/repro/kernels/rwkv6_scan.py:26", WKV_SHAPES[0], "BHTD"),
         ("rglru_scan", "src/repro_torch/kernels/csrc/rglru_scan.cu",
@@ -1555,7 +1773,9 @@ def main(argv) -> int:
             "max_abs_err": max(r["max_abs_err"] for r in rows[name].values()),
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row.get("library_ms"),
-            "shape": dict(zip(shape, dims)),
+            "shape": dict(zip(shape, dims)) if shape else {
+                "full_grid_chunk_rows": 1024, "max_steps": fs.ROUND_CAP,
+                "row_steps": row["row_steps"], "longest_row_steps": row["longest"]},
         })
         if name.startswith("flash_attention"):
             kernels[-1]["shape"].update(window=pick[7], dtype=pick[9])

@@ -15,13 +15,25 @@ simultaneously open channels.
 
 A sweep is :meth:`_advance` (rates, horizon, fluid byte movement) then
 :meth:`_post` (feed, chunk completions, controller tick, scenario done).
-Resume-free sweeps run rates + horizon + advance + feed as one launch of
-the fused-step CUDA kernel (``fused_step="kernel"``); the others take the
-split path, whose water-fill is the bisected CUDA kernel
+While no resume file exists in the batch, sweeps take a fused route:
+
+* ``fused_step="rounds"`` (the default): one launch of the fused-rounds
+  CUDA kernel per host round. Each row takes steps on the card (rates +
+  horizon + advance + feed, the profile lookup, the clock, the event
+  count, the ``delivered`` scatter and the tick EMA) until the host has
+  something to decide, a chunk completion, a ProMC tick, no busy channel,
+  a timeline sample, ``max_time`` or :data:`ROUND_CAP` steps; then
+  :meth:`_post` runs once for every row's last step. Every row's event
+  sequence is the one-step route's: scenarios are independent.
+* ``fused_step="kernel"``: one launch of the one-step fused kernel per
+  sweep, then :meth:`_post`.
+
+Sweeps with resume files, and every sweep under ``fused_step="none"``,
+take the split path, whose water-fill is the bisected CUDA kernel
 (``waterfill_impl="kernel"``) or the sort-based closed form
 (``"closed"``). On the CPU the same routes run the kernels' plain PyTorch
 versions. The SC / MC / ProMC controllers run as masked tensor code
-batched over S; the host reads back a few flags per sweep (which paths
+batched over S; the host reads back a few flags per round (which paths
 to take, whether a row broke its limits) and nothing per row.
 
 Only the built-in controllers of a plan are supported; custom scheduler
@@ -41,7 +53,7 @@ from repro_torch.core.simulator import SimResult
 
 from . import controllers, kernels
 from .bucketing import COMPACT_FLOOR, PROFILE_PAD_FLOOR, bucket, qsizes_pad
-from .kernels.fused_step import fused_step
+from .kernels.fused_step import ROUND_CAP, ROUND_OPERANDS, fused_rounds, fused_step
 from .kernels.waterfill_bisect import waterfill_bisect
 from .plan import PLAN_C_FLOOR, PLAN_PROFILED_C_FLOOR
 from .shim import NO_CHUNK, TorchOps
@@ -58,7 +70,7 @@ _DEFAULT_MAX_TIME = 48 * 3600.0
 #: decimation past it)
 TIMELINE_BUDGET = 512
 
-FUSED_STEP_OPTIONS = ("none", "kernel")
+FUSED_STEP_OPTIONS = ("none", "kernel", "rounds")
 WATERFILL_OPTIONS = ("closed", "kernel")
 
 #: every per-scenario row tensor, for compaction
@@ -72,7 +84,8 @@ _ROW_ARRAYS = (
     "pair_fast", "pair_slow", "promc_ratio", "promc_patience", "sc_cursor",
     "sc_order", "conc", "par", "cap_k", "avg_fs_k", "nfiles", "setup_cost",
     "n_moves", "prof_t", "prof_mult", "tl_t", "tl_rate", "tl_len",
-    "tl_stride", "tl_seen", "tl_last_t", "tl_last_rate",
+    "tl_stride", "tl_seen", "tl_last_t", "tl_last_rate", "steps", "rate_sum",
+    "t0",
 )
 
 #: per-row results read back when a row retires
@@ -84,13 +97,16 @@ _RESULT_ARRAYS = (
 
 @dataclasses.dataclass
 class SweepStats:
-    """What one driver did: sweeps by route and host reads of device
-    values (each one waits for the device)."""
+    """What one driver did: host rounds (``sweeps``) by route, host reads
+    of device values (each one waits for the device), and row steps taken
+    on the device (``steps``, the sum of the rows' event counts; on the
+    ``"rounds"`` route a round takes many)."""
 
     sweeps: int = 0
     fused: int = 0
     split: int = 0
     host_syncs: int = 0
+    steps: int = 0
 
 
 class _PlanRuntime:
@@ -117,9 +133,10 @@ class TorchFabricSimulation:
     through the fluid transfer model simultaneously.
 
     ``device`` defaults to the card (and raises without one);
-    ``fused_step`` is ``"kernel"`` (resume-free sweeps through the fused
-    step) or ``"none"`` (every sweep split); ``waterfill_impl`` picks the
-    split path's water-fill, ``"kernel"`` (bisected) or ``"closed"``
+    ``fused_step`` is ``"rounds"`` (resume-free sweeps through the loop
+    kernel, many steps a launch), ``"kernel"`` (through the one-step
+    kernel) or ``"none"`` (every sweep split); ``waterfill_impl`` picks
+    the split path's water-fill, ``"kernel"`` (bisected) or ``"closed"``
     (sort-based closed form, the NumPy reference's default).
     """
 
@@ -128,7 +145,7 @@ class TorchFabricSimulation:
         plan,
         *,
         device=None,
-        fused_step: str = "kernel",
+        fused_step: str = "rounds",
         waterfill_impl: str = "kernel",
     ):
         if fused_step not in FUSED_STEP_OPTIONS:
@@ -272,12 +289,18 @@ class TorchFabricSimulation:
             "tl_seen": (np.zeros(S, dtype=np.int64), i8),
             "tl_last_t": (np.zeros(S), f8),
             "tl_last_rate": (np.zeros(S), f8),
+            # the last fused-rounds launch: steps, last rate sum and start
+            "steps": (np.zeros(S, dtype=np.int64), i8),
+            "rate_sum": (np.zeros(S), f8),
+            "t0": (np.zeros(S), f8),
         }
         for name, (arr, dtype) in host.items():
             setattr(self, name, self._up(arr, dtype))
 
     def _up(self, arr, dtype) -> torch.Tensor:
-        return torch.as_tensor(np.ascontiguousarray(arr), dtype=dtype, device=self.device)
+        """A new device tensor (never a view of the plan's arrays: the
+        fused-rounds kernel updates state in place)."""
+        return torch.tensor(np.ascontiguousarray(arr), dtype=dtype, device=self.device)
 
     # ------------------------------------------------------------------ #
     # host reads
@@ -328,9 +351,11 @@ class TorchFabricSimulation:
         self._feed(torch.ones(self.S, dtype=torch.bool, device=self.device))
 
     def step(self) -> bool:
-        """One synchronized sweep over the live rows; returns False once
-        every row is done. One host read decides the route, compaction and
-        whether any row exceeded ``max_time`` or stranded a chunk."""
+        """One host round over the live rows: a synchronized sweep, or on
+        the ``"rounds"`` route each row's steps up to its next host
+        decision. Returns False once every row is done. One host read
+        decides the route, compaction and whether any row exceeded
+        ``max_time`` or stranded a chunk."""
         act = ~self.done
         over = act & (self.t > self.max_time)
         stranded = self._stranded(act)
@@ -358,6 +383,11 @@ class TorchFabricSimulation:
             self._compact(act)
             act = ~self.done
         self.stats.sweeps += 1
+        if self.fused_step == "rounds" and n_pre == 0:
+            self.stats.fused += 1
+            self._advance_rounds(act)  # counts the rows' events itself
+            self._post(act, skip_feed=True)
+            return True
         self.n_events = self.n_events + act.to(torch.int64)
         if self.fused_step == "kernel" and n_pre == 0:
             self.stats.fused += 1
@@ -379,25 +409,21 @@ class TorchFabricSimulation:
     def _bandwidth_now(self):
         """Effective per-row bandwidth under the profile at time ``t`` and
         the time of each row's next profile step (inf when static)."""
-        if self.prof_t.shape[1] == 1:
-            return self.bw, torch.full_like(self.t, math.inf)
-        at = (self.prof_t <= self.t.unsqueeze(-1)).sum(dim=-1) - 1
-        mult = torch.gather(self.prof_mult, -1, torch.clamp(at, min=0).unsqueeze(-1)).squeeze(-1)
-        eff_bw = self.bw * torch.where(at >= 0, mult, 1.0)
-        nxt = torch.where(self.prof_t > self.t.unsqueeze(-1), self.prof_t, math.inf).amin(dim=-1)
-        return eff_bw, nxt
+        return kernels.bandwidth_now(self.bw, self.prof_t, self.prof_mult, self.t)
 
     def _waterfill(self, caps, pool):
         if self.waterfill_impl == "kernel":
             return waterfill_bisect(caps.contiguous(), pool.contiguous())
         return kernels.waterfill(caps, pool)
 
-    def _record(self, act, rate_sum) -> None:
+    def _record(self, act, rate_sum, t=None) -> None:
+        """Push a timeline sample ``(t, rate_sum)`` (``t`` defaults to the
+        rows' clocks) on the recording rows of ``act``."""
         (
             self.tl_t, self.tl_rate, self.tl_len, self.tl_stride,
             self.tl_seen, self.tl_last_t, self.tl_last_rate,
         ) = kernels.timeline_push(
-            act & self.record_timeline, self.t, rate_sum, self.tl_t,
+            act & self.record_timeline, self.t if t is None else t, rate_sum, self.tl_t,
             self.tl_rate, self.tl_len, self.tl_stride, self.tl_seen,
             self.tl_last_t, self.tl_last_rate,
         )
@@ -449,6 +475,21 @@ class TorchFabricSimulation:
             self.delivered, self.chunk_of, moved, moved != 0.0
         )
         self.fin_any = torch.where(act, fin, self.fin_any)
+
+    def round_operands(self, act) -> dict:
+        """The fused-rounds kernel's operands: the driver's own state
+        tensors by name (updated in place by a launch), with ``act``."""
+        s = {name: getattr(self, name) for name in ROUND_OPERANDS if name != "act"}
+        s["act"] = act
+        return s
+
+    def _advance_rounds(self, act) -> None:
+        """Each row of ``act`` steps on the card up to its next host
+        decision (resume-free batches only); the timeline sample of a
+        recording row's single step is pushed here."""
+        fused_rounds(self.round_operands(act), ROUND_CAP)
+        if self._any_record:
+            self._record(act, self.rate_sum, self.t0)
 
     def _feed(self, enabled) -> None:
         """Idle channels of ``enabled`` rows pull their next file (resume
@@ -690,6 +731,7 @@ class TorchFabricSimulation:
         final = self._download()
         for r in self.rt:
             r.archive = {k: v[r.index] for k, v in final.items()}
+        self.stats.steps += sum(int(r.archive["n_events"]) for r in all_rt)
         return [self._result(r) for r in all_rt]
 
     @staticmethod

@@ -8,9 +8,9 @@ bit for bit wherever the reference does no summation (and to the last
 bits where the order of a sum differs).
 
 The two CUDA kernels of the sweep live in :mod:`.waterfill_bisect` (the
-bisected water level) and :mod:`.fused_step` (a whole resume-free sweep
-step); the functions here are what the split sweep and the controllers
-run around them.
+bisected water level) and :mod:`.fused_step` (whole resume-free sweep
+steps, one a launch or a row's steps in a loop); the functions here are
+what the split sweep and the controllers run around them.
 """
 from __future__ import annotations
 
@@ -86,6 +86,20 @@ def disk_pool(n_transferring, bandwidth, disk_rate, saturation_cc, contention):
     return torch.where(
         n_transferring > 0, torch.minimum(bandwidth, agg_disk), 0.0
     )
+
+
+def bandwidth_now(bw, prof_t, prof_mult, t):
+    """Effective bandwidth (S,) under the piecewise-constant profile
+    ``prof_t`` / ``prof_mult`` (S, B) at time ``t`` (S,), and the time of
+    each row's next profile step (inf past the last; always inf for a
+    width-1, static profile)."""
+    if prof_t.shape[1] == 1:
+        return bw, torch.full_like(t, _INF)
+    at = (prof_t <= t.unsqueeze(-1)).sum(dim=-1) - 1
+    mult = torch.gather(prof_mult, -1, torch.clamp(at, min=0).unsqueeze(-1)).squeeze(-1)
+    eff_bw = bw * torch.where(at >= 0, mult, 1.0)
+    nxt = torch.where(prof_t > t.unsqueeze(-1), prof_t, _INF).amin(dim=-1)
+    return eff_bw, nxt
 
 
 def file_dead_time(control_rtt, pipelining, unhidden_overhead, per_file_overhead):

@@ -35,7 +35,7 @@ MATRIX_NAMES = ("default", "smoke", "full")
 def run_plan(
     plan,
     device=None,
-    fused_step: str = "kernel",
+    fused_step: str = "rounds",
     waterfill_impl: str = "kernel",
     stats: Optional[SweepStats] = None,
 ) -> List[SimResult]:
@@ -63,7 +63,7 @@ def run_plan(
 def run_matrix(
     scenarios: Sequence[Scenario],
     device=None,
-    fused_step: str = "kernel",
+    fused_step: str = "rounds",
     waterfill_impl: str = "kernel",
     stats: Optional[SweepStats] = None,
 ) -> List[SimResult]:
@@ -162,8 +162,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"DEVIATION {d.scenario} {d.field}: golden={d.golden} observed={d.observed}")
     print(
         f"{len(scenarios)} scenarios, {len(devs)} deviations "
-        f"({stats.sweeps} sweeps: {stats.fused} fused, {stats.split} split; "
-        f"{stats.host_syncs} host syncs)"
+        f"({stats.sweeps} host rounds: {stats.fused} fused, {stats.split} split; "
+        f"{stats.steps} row steps; {stats.host_syncs} host syncs)"
     )
     return 1 if devs else 0
 

@@ -1,7 +1,7 @@
 """The CUDA kernels on the card: each against its plain PyTorch version,
-the smoke matrix through both routes against the golden snapshot, and the
-RWKV-6, recurrentgemma and gemma3 models on the card against their CPU
-runs.
+the smoke matrix through the three sweep routes against the golden
+snapshot, and the RWKV-6, recurrentgemma and gemma3 models on the card
+against their CPU runs.
 
 These need an NVIDIA GPU and ``nvcc``; without a card they skip. On the
 card: ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py``.
@@ -16,7 +16,9 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.device import resolve_device
+from repro_torch.eval.fabric.driver import TorchFabricSimulation
 from repro_torch.eval.fabric.kernels import fused_step as fs
+from repro_torch.eval.fabric.plan import build_plan
 from repro_torch.eval.fabric.kernels import waterfill_bisect as wf
 from repro_torch.eval.runner import compare_golden, load_golden, metrics_snapshot, run_matrix
 from repro_torch.eval.scenarios import smoke_matrix
@@ -63,10 +65,11 @@ def test_kernels_match_their_plain_versions_on_the_card(cuda, C):
         t(np.zeros((S, K)), i8), t(np.floor(rng.uniform(0, 1e11, (S, K))), f8),
         t(rng.uniform(0.005, 0.1, (S, K)), f8), t(np.floor(rng.uniform(1e5, 1e10, Q)), f8),
     )
+    want = fs.fused_step_plain(*args)
     before = fs.fused_step.launches
     out = fs.fused_step(*args)
     assert fs.fused_step.launches == before + 1
-    for o, r in zip(out, fs.fused_step_plain(*args)):
+    for o, r in zip(out, want):
         if r.dtype == f8:
             torch.testing.assert_close(o, r, rtol=1e-12, atol=0)
         else:
@@ -79,14 +82,60 @@ def test_kernels_match_their_plain_versions_on_the_card(cuda, C):
     )
 
 
-@pytest.mark.parametrize("fused", ["kernel", "none"])
+@pytest.mark.parametrize("widen", [0, 1, 2])
+@pytest.mark.parametrize("max_steps", [1, 7, fs.ROUND_CAP])
+def test_fused_rounds_matches_its_plain_version_on_the_card(cuda, max_steps, widen):
+    """The loop kernel on a live smoke-matrix state (every fifth row
+    recording a timeline; its 16 channel columns doubled ``widen`` times)
+    against its plain version on the card: float64 within 1e-12
+    relative, bool and int64 exact."""
+    drv = TorchFabricSimulation(build_plan(smoke_matrix()), device=cuda, fused_step="kernel")
+    drv.start()
+    for _ in range(5):
+        drv.step()
+    for _ in range(widen):
+        drv._grow()
+    s = {k: v.clone() for k, v in drv.round_operands(~drv.done).items()}
+    s["record_timeline"][::5] = True
+    want = fs.fused_rounds_plain(s, max_steps)
+    before = fs.fused_rounds.launches
+    fs.fused_rounds(s, max_steps)
+    torch.cuda.synchronize()
+    assert fs.fused_rounds.launches == before + 1
+    for name, v in want.items():
+        if v.dtype == torch.float64:
+            torch.testing.assert_close(s[name], v, rtol=1e-12, atol=0, msg=name)
+        else:
+            assert torch.equal(s[name], v), name
+
+
+def test_fused_kernels_launch_nothing_for_zero_rows(cuda):
+    """A batch of no rows returns its (empty) outputs without a launch or a
+    count on either fused kernel."""
+    drv = TorchFabricSimulation(build_plan(smoke_matrix()), device=cuda, fused_step="kernel")
+    drv.start()
+    s = {k: v[:0].clone() if v.dim() and k != "qsizes" else v
+         for k, v in drv.round_operands(~drv.done).items()}
+    before = fs.fused_rounds.launches, fs.fused_step.launches
+    assert fs.fused_rounds(s).shape == (0,)
+    args = (
+        s["act"], s["busy"], s["dead"], s["rem"], s["cap"], s["chunk_of"], s["t"],
+        s["bw"], s["disk_rate"], s["sat_cc"], s["contention"], s["qoff"], s["qlen"],
+        s["qptr"], s["queue_bytes"], s["fsdt"], s["qsizes"],
+    )
+    out = fs.fused_step(*args)
+    assert [o.shape[0] for o in out] == [0] * 9
+    assert (fs.fused_rounds.launches, fs.fused_step.launches) == before
+
+
+@pytest.mark.parametrize("fused", ["rounds", "kernel", "none"])
 def test_smoke_matrix_on_the_card_matches_golden(cuda, fused):
     scs = smoke_matrix()
-    launches = (wf.waterfill_bisect.launches, fs.fused_step.launches)
+    counters = {"rounds": fs.fused_rounds, "kernel": fs.fused_step, "none": wf.waterfill_bisect}
+    before = counters[fused].launches
     out = run_matrix(scs, device=cuda, fused_step=fused)
     assert compare_golden(load_golden(str(GOLDEN)), metrics_snapshot(scs, out)) == []
-    used = fs.fused_step.launches if fused == "kernel" else wf.waterfill_bisect.launches
-    assert used > launches[fused == "kernel"]
+    assert counters[fused].launches > before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

@@ -14,6 +14,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from repro.eval.fabric.plan import build_plan as ref_build_plan
 from repro.eval.runner import run_matrix as ref_run_matrix
@@ -30,9 +31,10 @@ from repro_torch.eval.scenarios import smoke_matrix
 
 GOLDEN = Path(__file__).resolve().parent / "golden" / "eval_smoke.json"
 
-#: (fused_step, waterfill_impl): fused kernel route, split route through
-#: the bisected water-fill kernel, split route through the closed form
-ROUTES = [("kernel", "kernel"), ("none", "kernel"), ("none", "closed")]
+#: (fused_step, waterfill_impl): the loop kernel's route (the default),
+#: the one-step fused kernel's route, split route through the bisected
+#: water-fill kernel, split route through the closed form
+ROUTES = [("rounds", "kernel"), ("kernel", "kernel"), ("none", "kernel"), ("none", "closed")]
 
 
 @pytest.fixture(scope="module")
@@ -53,7 +55,7 @@ def test_smoke_matrix_matches_golden_and_reference(fused, waterfill, reference):
     devs = compare_golden(load_golden(str(GOLDEN)), metrics_snapshot(scs, out))
     assert devs == []
     assert [r.total_bytes for r in out] == [r.total_bytes for r in reference]
-    if fused == "kernel":
+    if fused != "none":
         assert stats.fused > 0
     else:
         assert stats.fused == 0 and stats.split == stats.sweeps > 0
@@ -94,7 +96,9 @@ def test_driver_raises_on_a_row_past_max_time():
     drv = TorchFabricSimulation(build_plan(smoke_matrix()[:3]), device="cpu")
     drv.start()
     drv.step()
-    drv.max_time[1] = 0.0
+    # the default route runs rows 0 and 1 to their end in its first round
+    live = int(torch.nonzero(~drv.done)[0])
+    drv.max_time[live] = 0.0
     with pytest.raises(RuntimeError, match="exceeded max_time"):
         drv.step()
 
