@@ -124,7 +124,9 @@ REL_TOL = 1e-12
 
 #: (B, H, T, D) WKV-6 check shapes: the serving run's prefill (8 prompts
 #: of 512 tokens) and decode (T = 1) at rwkv6-3b's 40 heads of 64, and
-#: one long prompt; the first goes into the kernels JSON line
+#: one long prompt; the first goes into the kernels JSON line, and is also
+#: checked through ops.rwkv6_scan on (B, T, H, D) tensors, as the model
+#: calls it
 WKV_SHAPES = [(8, 40, 512, 64), (8, 40, 1, 64), (1, 40, 2048, 64)]
 WKV_TOL = 1e-4
 #: the serving run: requests, prompt tokens, new tokens
@@ -308,6 +310,26 @@ def device_ms(fn, n, kernel=None):
     return 0.0
 
 
+def call_device_ms(fn, n):
+    """Device time of one call of ``fn`` with every kernel, copy and fill it
+    runs summed (the profiler's device rows over ``n`` calls, over ``n``),
+    and {row name: launches a call}. Profiled again, up to three times, if
+    the profiler recorded nothing."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = _device_events(prof)
+        if events:
+            return (sum(_self_device_us(e) for e in events) / 1e3 / n,
+                    {e.key: e.count / n for e in events})
+    return 0.0, {}
+
+
 def _device_events(prof):
     """The profiler's device-side rows (kernels, copies, fills). Host
     operator rows also carry the device time of what they launched, so
@@ -406,10 +428,22 @@ def kernel_checks(wf, fs, live_state):
 
 
 def wkv_checks(wk, ref):
-    """Phase 3, WKV-6: the kernel against its plain version on the card.
-    Returns {shape: row} of measurements."""
+    """Phase 3, WKV-6: the kernel against its plain version on the card,
+    and the model's call (``ops.rwkv6_scan`` on (B, T, H, D) tensors) at the
+    first shape. Returns {shape: row} of measurements."""
     import numpy as np
     import torch
+
+    from repro_torch.kernels import ops as kops
+
+    def held(out, want, label):
+        err = 0.0
+        for o, x in zip(out, want):
+            fail_if(o.shape != x.shape or o.dtype != x.dtype, f"wkv {label}: shape/dtype")
+            excess = ((o - x).abs() - WKV_TOL * x.abs()).max().item()
+            fail_if(not excess <= WKV_TOL, f"wkv {label}: outside rtol = atol = {WKV_TOL}")
+            err = max(err, (o - x).abs().max().item())
+        return err
 
     rows = {}
     for B, H, T, D in WKV_SHAPES:
@@ -423,13 +457,7 @@ def wkv_checks(wk, ref):
         out = wk.rwkv6_scan(*args)
         want = ref(*args)
         torch.cuda.synchronize()
-        err = 0.0
-        for o, x in zip(out, want):
-            fail_if(o.shape != x.shape or o.dtype != x.dtype, f"wkv {B, H, T, D}: shape/dtype")
-            excess = ((o - x).abs() - WKV_TOL * x.abs()).max().item()
-            fail_if(not excess <= WKV_TOL,
-                    f"wkv {B, H, T, D}: outside rtol = atol = {WKV_TOL}")
-            err = max(err, (o - x).abs().max().item())
+        err = held(out, want, (B, H, T, D))
         # each input read once, each output written once; 5 D^2 flops a
         # step of a (b, h): the k v^T outer product, w S + k v^T, r^T S
         nbytes = 4 * (5 * B * H * T * D + H * D + 2 * B * H * D * D)
@@ -451,6 +479,23 @@ def wkv_checks(wk, ref):
               f"plain {row['plain_ms'] * 1e3:.1f} us | bound {row['bound_ms'] * 1e3:.3f} us "
               f"({row['bound_by']}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP) | "
               "library: none", flush=True)
+        if (B, H, T, D) != WKV_SHAPES[0]:
+            continue
+        # the model's call: (B, T, H, D) products through ops.rwkv6_scan,
+        # which must launch the kernel and nothing else (no copy in or out)
+        seq = [x.transpose(1, 2).contiguous() for x in (r, k, v, w)]
+        model_out = kops.rwkv6_scan(*seq, u, s0)
+        torch.cuda.synchronize()
+        row["model_max_abs_err"] = held(
+            (model_out[0].transpose(1, 2), model_out[1]), want, f"model layout {B, T, H, D}")
+        row["model_call_ms"], per_call = call_device_ms(lambda: kops.rwkv6_scan(*seq, u, s0), 20)
+        others = {k: n for k, n in per_call.items() if "wkv6_kernel" not in k}
+        fail_if(bool(others), f"wkv model layout: the call runs more than the kernel: {others}")
+        fail_if(not per_call, "wkv model layout: profiler recorded no device time")
+        print(f"[kernels] rwkv6_scan model layout (B, T, H, D) = {B, T, H, D} through "
+              f"ops.rwkv6_scan: max_abs_err {row['model_max_abs_err']:.3g} | device time of "
+              f"the whole call {row['model_call_ms'] * 1e3:.2f} us (kernel alone "
+              f"{row['ms'] * 1e3:.2f} us) | device rows a call: {per_call}", flush=True)
     return rows
 
 
@@ -1779,6 +1824,8 @@ def main(argv) -> int:
         })
         if name.startswith("flash_attention"):
             kernels[-1]["shape"].update(window=pick[7], dtype=pick[9])
+        if name == "rwkv6_scan":  # the model's call, (B, T, H, D) in place
+            kernels[-1]["model_layout_call_ms"] = row["model_call_ms"]
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

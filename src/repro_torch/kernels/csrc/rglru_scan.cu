@@ -1,4 +1,5 @@
-// RG-LRU diagonal linear recurrence, float32, one thread per (batch, column).
+// RG-LRU diagonal linear recurrence, float32: a warp per 32 columns walks
+// time step by step, with the steps ahead streamed into shared memory.
 //
 // Replaces the Pallas kernel _rglru_kernel of src/repro/kernels/rglru_scan.py.
 // Per (b, w):
@@ -7,33 +8,74 @@
 //
 // The Pallas kernel tiles width into VPU lanes and walks time in chunks on a
 // sequential grid axis, with h in VMEM scratch between chunks (so a chunk
-// must divide T). Here each thread owns one column and walks the whole time
-// axis with h in a register: no state leaves the SM, no barrier is needed,
-// and any T >= 1 and any W work. Consecutive threads take consecutive w, so
-// every load of a_t, x_t and store of h_t is coalesced.
+// must divide T). Here a lane owns one column and walks the whole time axis
+// with h in a register, in the plain version's order: no state leaves the
+// SM, and any T >= 1 and any W work.
 //
-// What bounds it on an H100: bytes (a, x read once, h written once, h0 and
-// h_T: 201.6 MB, 60.2 us at (8, 512, 4096)); the arithmetic is one multiply
-// and one add per element. a and x do not depend on h, so each thread loads
-// STEPS time steps into registers before it runs their dependent chain,
-// keeping 2 * STEPS loads in flight per thread. With few columns (B = 1:
-// 4096 threads) that is too little memory parallelism to reach the bound; a
-// chunked two-pass scan (chunk products, then a carry pass) is later work.
+// What bounds it on an H100: bytes. a and x are read once and h written once
+// (h0 and h_T beside them): 151.0 MB, 45.1 us at 3.35 TB/s at (1, 3072,
+// 4096); 201.6 MB, 60.2 us at (8, 512, 4096). The arithmetic is one multiply
+// and one add an element, and the walk's dependent chain is two operations a
+// step (~15 us for 3,072 steps), under the bound. To stream at 3.35 TB/s the
+// card needs about 2 MB of loads in flight; a thread per column that loads a
+// few steps ahead into registers keeps ~0.26 MB in flight at B = 1, and runs
+// at a seventh of the rate. So each warp streams its 32 columns' a and x for
+// the steps ahead into a ring of STAGES stages of SPAN steps in shared
+// memory with cp.async, and walks one stage while the next STAGES - 1 are in
+// flight (40 KB an SM at B = 1, W = 4096, where a warp has an SM to itself).
+// Where W % 32 == 0 a row of the warp's columns is copied as 8 pieces of 16
+// bytes by 8 lanes, and a __syncwarp on each side of a stage's copy orders
+// the lanes; otherwise each lane copies its own column 4 bytes at a time and
+// reads only what it copied.
 //
-// Built with -fmad=false: a * h + x rounds the product and then the sum,
-// as the plain PyTorch version computes it, so the two agree bit for bit.
+// A parallel scan over chunks of time (chunk maps A h + X folded into each
+// chunk's carry) would need no long walk, but its carries do not round as
+// the walk does: with decays near 1 nothing contracts, and such a scan
+// strays from the plain version by more than 1e-6 at T = 64 already. This
+// walk keeps the plain version's order and equals it bit for bit. At T <=
+// DIRECT (decode) a thread per column loads STEPS steps at a time straight
+// into registers: no ring.
+//
+// Built with -fmad=false: a * h + x rounds the product and then the sum, as
+// the plain PyTorch version computes it.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 64;
-constexpr int STEPS = 8;
+constexpr int LANES = 32;   // columns of a block: one warp
+constexpr int SPAN = 32;    // time steps of a stage of the ring
+constexpr int DIRECT = 16;  // T up to which a launch needs no ring
+constexpr int DIRECT_THREADS = 64;  // threads of a block without a ring
+constexpr int STEPS = 8;    // steps a thread without a ring loads ahead
+constexpr int STAGES = 6;   // stages of the ring (48 KB)
+constexpr int STAGE_BYTES = SPAN * 2 * LANES * 4;
 
-__global__ void __launch_bounds__(THREADS)
-    rglru_kernel(const float* __restrict__ a, const float* __restrict__ x,
-                 const float* __restrict__ h0, float* __restrict__ h_out,
-                 float* __restrict__ h_fin, long long T, long long W) {
-  const long long w = (long long)blockIdx.x * THREADS + threadIdx.x;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A few steps (decode): a thread per column, STEPS steps at a time loaded
+// into registers before their dependent chain runs, no ring.
+__global__ void __launch_bounds__(DIRECT_THREADS)
+    rglru_kernel_direct(const float* __restrict__ a, const float* __restrict__ x,
+                        const float* __restrict__ h0, float* __restrict__ h_out,
+                        float* __restrict__ h_fin, long long T, long long W) {
+  const long long w = (long long)blockIdx.x * DIRECT_THREADS + threadIdx.x;
   if (w >= W) return;
   const long long b = blockIdx.y;
   const long long base = b * T * W + w;
@@ -59,6 +101,88 @@ __global__ void __launch_bounds__(THREADS)
   h_fin[b * W + w] = h;
 }
 
+// A warp per 32 columns of one batch row (a block: `unit`) with its ring.
+// VEC: W % 32 == 0 and a, x 16-byte aligned, so a warp copies its rows in
+// 16-byte pieces.
+template <bool VEC>
+__global__ void __launch_bounds__(LANES)
+    rglru_kernel(const float* __restrict__ a, const float* __restrict__ x,
+                 const float* __restrict__ h0, float* __restrict__ h_out,
+                 float* __restrict__ h_fin, long long T, long long W,
+                 long long groups) {
+  extern __shared__ float ring[];  // [stage][step][a or x][lane]
+  const int lane = threadIdx.x;
+  const long long unit = blockIdx.x;
+  const long long b = unit / groups;
+  const long long col = (unit % groups) * LANES + lane;
+  if (col >= W) return;  // only where W % 32 != 0: never with VEC
+  const long long base = b * T * W + col;
+  const long long row0 = base - lane;  // the warp's first column
+  const long long stages = (T + SPAN - 1) / SPAN;
+  float h = h0[b * W + col];
+  auto fetch = [&](long long s) {  // copy stage s into its slot
+    if (s < stages) {
+      float* slot = ring + (s % STAGES) * (SPAN * 2 * LANES);
+      const long long t0 = s * SPAN;
+      if constexpr (VEC) {  // 16 bytes a copy: 8 copies a row of the warp
+#pragma unroll
+        for (int m = 0; m < SPAN * 2 * 8 / LANES; ++m) {
+          const int e = lane + LANES * m;
+          const int i = e / 16, arr = (e / 8) % 2, q = e % 8;
+          if (t0 + i < T)
+            cp_async16(slot + (2 * i + arr) * LANES + 4 * q,
+                       (arr ? x : a) + row0 + (t0 + i) * W + 4 * q);
+        }
+      } else {  // 4 bytes a copy: a lane copies its own column
+#pragma unroll
+        for (int i = 0; i < SPAN; ++i) {
+          if (t0 + i < T) {
+            cp_async4(slot + (2 * i) * LANES + lane, a + base + (t0 + i) * W);
+            cp_async4(slot + (2 * i + 1) * LANES + lane, x + base + (t0 + i) * W);
+          }
+        }
+      }
+    }
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+  for (int s = 0; s < STAGES - 1; ++s) fetch(s);
+  for (long long s = 0; s < stages; ++s) {
+    if constexpr (VEC) __syncwarp();  // every lane is done with the slot refilled next
+    fetch(s + STAGES - 1);
+    cp_async_wait<STAGES - 1>();  // stage s has landed
+    if constexpr (VEC) __syncwarp();  // and the other lanes' copies with it
+    const float* slot = ring + (s % STAGES) * (SPAN * 2 * LANES) + lane;
+    const long long t0 = s * SPAN;
+    if (t0 + SPAN <= T) {
+#pragma unroll
+      for (int i = 0; i < SPAN; ++i) {
+        h = slot[(2 * i) * LANES] * h + slot[(2 * i + 1) * LANES];
+        h_out[base + (t0 + i) * W] = h;
+      }
+    } else {
+      for (int i = 0; t0 + i < T; ++i) {
+        h = slot[(2 * i) * LANES] * h + slot[(2 * i + 1) * LANES];
+        h_out[base + (t0 + i) * W] = h;
+      }
+    }
+  }
+  h_fin[b * W + col] = h;
+}
+
+template <bool VEC>
+cudaError_t launch(const float* a, const float* x, const float* h0, float* h_out,
+                   float* h_fin, long long T, long long W, long long groups,
+                   long long units, cudaStream_t stream) {
+  // several blocks' rings share an SM
+  static const cudaError_t carveout = cudaFuncSetAttribute(
+      rglru_kernel<VEC>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (carveout != cudaSuccess) return carveout;
+  rglru_kernel<VEC><<<(unsigned)units, LANES, STAGES * STAGE_BYTES, stream>>>(
+      a, x, h0, h_out, h_fin, T, W, groups);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // a, x, h_out (B, T, W); h0, h_fin (B, W); all float32, contiguous, on the
@@ -67,13 +191,23 @@ extern "C" int rglru_f32(const void* a, const void* x, const void* h0,
                          void* h_out, void* h_fin, long long B, long long T,
                          long long W, void* stream) {
   if (B * W == 0) return (int)cudaSuccess;
-  const long long blocks_w = (W + THREADS - 1) / THREADS;
-  if (T < 1 || B > 65535 || blocks_w > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)blocks_w, (unsigned)B);
-  rglru_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(x),
-      static_cast<const float*>(h0), static_cast<float*>(h_out),
-      static_cast<float*>(h_fin), T, W);
-  return (int)cudaGetLastError();
+  const long long groups = (W + LANES - 1) / LANES;
+  const long long units = B * groups;
+  if (T < 1 || units > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const float* ap = static_cast<const float*>(a);
+  const float* xp = static_cast<const float*>(x);
+  const float* hp = static_cast<const float*>(h0);
+  float* op = static_cast<float*>(h_out);
+  float* fp = static_cast<float*>(h_fin);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long blocks_w = (W + DIRECT_THREADS - 1) / DIRECT_THREADS;
+  if (T <= DIRECT && B <= 65535 && blocks_w <= 0x7fffffffLL) {
+    rglru_kernel_direct<<<dim3((unsigned)blocks_w, (unsigned)B), DIRECT_THREADS, 0, st>>>(
+        ap, xp, hp, op, fp, T, W);
+    return (int)cudaGetLastError();
+  }
+  const bool vec = W % LANES == 0 && reinterpret_cast<unsigned long long>(a) % 16 == 0 &&
+                   reinterpret_cast<unsigned long long>(x) % 16 == 0;
+  if (vec) return (int)launch<true>(ap, xp, hp, op, fp, T, W, groups, units, st);
+  return (int)launch<false>(ap, xp, hp, op, fp, T, W, groups, units, st);
 }

@@ -28,7 +28,9 @@ def rwkv6_scan(
     u: torch.Tensor, s0: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Model layout: r/k/v/w (B, T, H, D); u (H, D); s0 (B, H, D, D).
-    Returns y (B, T, H, D) fp32 and the final state (B, H, D, D) fp32."""
+    Returns y (B, T, H, D) fp32 and the final state (B, H, D, D) fp32.
+    The kernel reads the (B, H, T, D) views of fp32 r, k, v, w in place and
+    writes y in r's layout, so no operand is copied."""
     args = [x.movedim(1, 2) for x in (r, k, v, w)]
     y, s_fin = _wk.rwkv6_scan(*args, u, s0)
     return y.movedim(2, 1), s_fin

@@ -39,7 +39,9 @@ def rglru_scan(a: torch.Tensor, x: torch.Tensor,
 
     CPU tensors take the plain version. CUDA tensors launch the kernel on
     the current stream; bf16 or fp16 inputs are upcast to fp32 first, as the
-    Pallas kernel upcasts on load. Any T >= 1 and any W; B up to 65,535."""
+    Pallas kernel upcasts on load. Any T >= 1 and any W. The kernel walks
+    time in the plain version's order and rounds as it does: the two agree
+    bit for bit."""
     if a.dim() != 3:
         raise ValueError(f"a must be (B, T, W), got {tuple(a.shape)}")
     B, T, W = a.shape
@@ -49,8 +51,6 @@ def rglru_scan(a: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"unsupported device {a.device}")
     if T < 1:
         raise ValueError(f"the RG-LRU kernel takes T >= 1, got {T}")
-    if B > 65535:
-        raise ValueError(f"the RG-LRU kernel takes B <= 65535, got {B}")
     dev = a.device
     f4 = torch.float32
     ins = [t.to(f4).contiguous() for t in (a, x, h0)]

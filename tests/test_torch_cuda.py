@@ -23,6 +23,7 @@ from repro_torch.eval.fabric.kernels import waterfill_bisect as wf
 from repro_torch.eval.runner import compare_golden, load_golden, metrics_snapshot, run_matrix
 from repro_torch.eval.scenarios import smoke_matrix
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
 from repro_torch.kernels import rglru_scan as rg
 from repro_torch.kernels import rwkv6_scan as wk
 from repro_torch.kernels.ref import flash_attention_ref, rglru_scan_ref, rwkv6_scan_ref
@@ -162,6 +163,69 @@ def test_wkv_kernel_matches_its_plain_version_on_the_card(cuda, case, dtype):
     torch.testing.assert_close(s, s_ref, rtol=1e-4, atol=1e-4)
 
 
+def _wkv_inputs(b, h, t, d, device, layout="kernel"):
+    """r, k, v, w (B, H, T, D) fp32 from a seed, as contiguous tensors or as
+    views of (B, T, H, D) tensors ("model"); u, s0."""
+    rng = np.random.RandomState(b * t + d)
+    draw = lambda *s, scale=0.5: torch.tensor(scale * rng.standard_normal(s),  # noqa: E731
+                                              dtype=torch.float32, device=device)
+    shape = (b, t, h, d) if layout == "model" else (b, h, t, d)
+    r, k, v = (draw(*shape) for _ in range(3))
+    w = torch.exp(-torch.exp(draw(*shape)))
+    seq = [x.movedim(1, 2) if layout == "model" else x for x in (r, k, v, w)]
+    return (*seq, draw(h, d), draw(b, h, d, d, scale=0.1))
+
+
+@pytest.mark.parametrize("case", [(8, 40, 512, 64), (8, 40, 1, 64), (1, 40, 2048, 64),
+                                  (2, 40, 77, 64), (1, 3, 13, 32), (3, 2, 9, 16),
+                                  (2, 5, 3, 64), (3, 3, 2, 32), (2, 2, 4, 16)], ids=str)
+def test_wkv_kernel_at_the_serving_shapes(cuda, case):
+    """rwkv6-3b's prefill (8 x 512) and decode (T = 1) at 40 heads of 64, a
+    long prompt at B = 1, T that no 16-step chunk divides, and T of 2-4 on
+    either side of the step kernel's limit, at each head dim: within
+    rtol = atol = 1e-4 of the plain version."""
+    args = _wkv_inputs(*case, cuda)
+    before = wk.rwkv6_scan.launches
+    y, s = wk.rwkv6_scan(*args)
+    torch.cuda.synchronize()
+    assert wk.rwkv6_scan.launches == before + 1
+    y_ref, s_ref = rwkv6_scan_ref(*args)
+    torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s, s_ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", [(8, 40, 512, 64), (2, 40, 77, 64), (1, 4, 1, 32)], ids=str)
+def test_wkv_kernel_reads_model_layout_views_in_place(cuda, case):
+    """(B, H, T, D) views of (B, T, H, D) tensors, as ``ops.rwkv6_scan``
+    hands the model's products over: the call allocates its two outputs and
+    nothing else (no copy of r, k, v, w), y is laid out (B, T, H, D), and
+    the results are those of contiguous copies, within the limit. Memory is
+    counted in the bytes the call requests, and the allocations it makes:
+    the caching allocator rounds large blocks up."""
+    b, h, t, d = case
+    args = _wkv_inputs(*case, cuda, layout="model")
+    wk.rwkv6_scan(*args)  # built and loaded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_stats()
+    y, s = wk.rwkv6_scan(*args)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_stats()
+    outputs = 4 * (b * h * t * d + b * h * d * d)
+    assert after["allocation.all.allocated"] - before["allocation.all.allocated"] == 2
+    assert after["requested_bytes.all.peak"] - before["requested_bytes.all.current"] <= outputs
+    assert after["requested_bytes.all.current"] - before["requested_bytes.all.current"] == outputs
+    assert y.movedim(1, 2).is_contiguous()
+    y_m, s_m = ops.rwkv6_scan(*(x.movedim(2, 1) for x in args[:4]), *args[4:])
+    assert y_m.is_contiguous() and torch.equal(y_m, y.movedim(1, 2)) and torch.equal(s_m, s)
+    y_c, s_c = wk.rwkv6_scan(*(x.contiguous() for x in args[:4]), *args[4:])
+    torch.testing.assert_close(y, y_c, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s, s_c, rtol=1e-4, atol=1e-4)
+    y_ref, s_ref = rwkv6_scan_ref(*args)
+    torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s, s_ref, rtol=1e-4, atol=1e-4)
+
+
 def test_wkv_kernel_refuses_other_head_dims(cuda):
     r = torch.zeros((1, 1, 4, 48), device=cuda)
     with pytest.raises(ValueError, match="D in"):
@@ -200,9 +264,14 @@ def test_rwkv_model_on_the_card_matches_its_cpu_run(cuda):
 @pytest.mark.parametrize("case", [(1, 64, 128), (2, 128, 256), (3, 100, 64), (2, 1, 4096),
                                   (3, 97, 1000), (1, 37, 33)], ids=str)
 def test_rglru_kernel_matches_its_plain_version_on_the_card(cuda, case, dtype):
-    """Within rtol = atol = 1e-6 (built with -fmad=false, the kernel
-    rounds as the plain version does and should agree bit for bit); odd
-    widths and T = 1 included. Each call launches the kernel once."""
+    """Bit for bit, and so within the limit of rtol = atol = 1e-6 that
+    chip_smoke.py holds: the kernel walks time in the plain version's order
+    and, built with -fmad=false, rounds the product and the sum apart as it
+    does. The limit is that tight because no other order or rounding of
+    this fp32 recurrence keeps it where decays are near 1 (see
+    tests/test_torch_rglru_scan.py). Odd widths, T = 1, T <= 16 (loaded
+    straight into registers) and T > 16 (the cp.async ring) included. Each
+    call launches the kernel once."""
     b, t, w = case
     gen = torch.Generator(device=cuda).manual_seed(t * w)
     a = torch.sigmoid(torch.randn((b, t, w), generator=gen, device=cuda)).to(dtype)
@@ -216,6 +285,29 @@ def test_rglru_kernel_matches_its_plain_version_on_the_card(cuda, case, dtype):
     h_ref, fin_ref = rglru_scan_ref(a, x, h0)
     torch.testing.assert_close(h, h_ref, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(h_fin, fin_ref, rtol=1e-6, atol=1e-6)
+    assert torch.equal(h, h_ref) and torch.equal(h_fin, fin_ref)
+
+
+@pytest.mark.parametrize("decay", ["sigmoid", "near1"])
+@pytest.mark.parametrize("case", [(8, 512, 4096), (8, 1, 4096), (1, 3072, 4096), (1, 3071, 4096),
+                                  (3, 77, 1000), (2, 17, 4096)], ids=str)
+def test_rglru_kernel_at_the_serving_shapes(cuda, case, decay):
+    """recurrentgemma-9b's prefill (8 x 512), decode (T = 1) and long
+    prompt (1 x 3,072), T that no 32-step stage of the ring divides, B = 1,
+    and decays near 1 (in (0.999, 1)), where nothing contracts: bit for bit
+    against the plain version, within the limit of 1e-6."""
+    b, t, w = case
+    gen = torch.Generator(device=cuda).manual_seed(t + w)
+    u = torch.rand((b, t, w), generator=gen, device=cuda)
+    a = torch.sigmoid(torch.randn((b, t, w), generator=gen, device=cuda)) if decay == "sigmoid" \
+        else 1.0 - 1e-3 * u
+    x = 0.5 * torch.randn((b, t, w), generator=gen, device=cuda)
+    h0 = 0.5 * torch.randn((b, w), generator=gen, device=cuda)
+    h, h_fin = rg.rglru_scan(a, x, h0)
+    h_ref, fin_ref = rglru_scan_ref(a, x, h0)
+    torch.testing.assert_close(h, h_ref, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(h_fin, fin_ref, rtol=1e-6, atol=1e-6)
+    assert torch.equal(h, h_ref) and torch.equal(h_fin, fin_ref)
 
 
 def test_hybrid_model_on_the_card_matches_its_cpu_run(cuda):

@@ -24,12 +24,26 @@ from repro_torch.kernels.ref import rglru_scan_ref
 #: (B, T, W): the reference's RG_CASES (tests/test_kernels.py)
 RG_CASES = [(1, 64, 128), (2, 128, 256), (1, 96, 512), (3, 100, 64)]
 TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+#: (B, T, W) around the kernel's time staging (a ring of 32-step stages
+#: above T = 16, straight loads at or below): T a multiple of the stage,
+#: not one, under one stage, at and just above 16, T = 1; odd widths and
+#: widths that leave a warp of columns part empty
+STAGED_CASES = [(2, 64, 128), (3, 100, 64), (1, 97, 40), (2, 17, 33), (2, 16, 96),
+                (2, 10, 33), (2, 1, 128), (1, 77, 1001)]
+#: the kernel's limit against the plain version (chip_smoke.py's RG_TOL)
+KERNEL_TOL = 1e-6
 
 
-def _draw(b, t, w, seed):
-    """a in (0, 1), x, h0 as fp32 numpy."""
+def _draw(b, t, w, seed, decay="sigmoid"):
+    """a in (0, 1), x, h0 as fp32 numpy. ``decay``: a = sigmoid(normal), or
+    uniform in (0, 1e-3) ("near0") or in (1 - 1e-3, 1) ("near1")."""
     rng = np.random.RandomState(seed)
-    a = 1.0 / (1.0 + np.exp(-rng.standard_normal((b, t, w))))
+    if decay == "sigmoid":
+        a = 1.0 / (1.0 + np.exp(-rng.standard_normal((b, t, w))))
+    elif decay == "near0":
+        a = 1e-3 * rng.uniform(size=(b, t, w))
+    else:
+        a = 1.0 - 1e-3 * rng.uniform(size=(b, t, w))
     x = 0.5 * rng.standard_normal((b, t, w))
     h0 = 0.5 * rng.standard_normal((b, w))
     return [v.astype(np.float32) for v in (a, x, h0)]
@@ -117,3 +131,46 @@ def test_wrapper_refuses_other_devices_and_bad_ranks():
         rg.rglru_scan(a, a, torch.empty((1, 16), device="meta"))
     with pytest.raises(ValueError, match=r"\(B, T, W\)"):
         rg.rglru_scan(torch.zeros(4, 16), torch.zeros(4, 16), torch.zeros(16))
+
+
+@pytest.mark.parametrize("case", STAGED_CASES, ids=str)
+@pytest.mark.parametrize("decay", ["sigmoid", "near0"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_the_interpreted_pallas_kernel_at_the_kernels_limit(case, decay, dtype):
+    """The plain version, which the kernel equals bit for bit on the card, is
+    held to the interpreted Pallas kernel at the kernel's limit of 1e-6 (not
+    only the reference's 1e-5 / 5e-2), on the kernel's staging cases, with
+    decays that contract and bf16 inputs (both sides upcast the same bf16
+    values)."""
+    arrays = _draw(*case, seed=7 * case[1] + case[2], decay=decay)
+    ref = pallas_rglru_scan(*_jax(arrays, dtype), chunk=32, block_w=64, interpret=True)
+    out = rglru_scan_ref(*_torch(arrays, dtype))
+    assert out[0].shape == case and out[1].shape == (case[0], case[2])
+    _close(out, ref, KERNEL_TOL)
+
+
+def _fused_walk(a, x, h0):
+    """h <- a h + x with one rounding a step (the product exact in float64)."""
+    h, hs = h0.astype(np.float64), []
+    for t in range(a.shape[1]):
+        h = (a[:, t].astype(np.float64) * h + x[:, t]).astype(np.float32).astype(np.float64)
+        hs.append(h)
+    return np.stack(hs, axis=1).astype(np.float32), hs[-1].astype(np.float32)
+
+
+@pytest.mark.parametrize("case", STAGED_CASES, ids=str)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decays_near_one_part_the_plain_walk_from_the_pallas_kernels_fused_one(case, dtype):
+    """With decays near 1 nothing contracts, and walks that round
+    differently drift apart. The interpreted Pallas kernel (XLA on the CPU
+    fuses a h + x into one rounding) walks as ``_fused_walk`` does, within
+    1e-6; the plain version rounds the product and the sum apart, as the
+    kernel does, and is held to the Pallas kernel at the reference's fp32
+    limit of 1e-5 (at 1e-6 the fp32 cases of 64 steps or more fail: the
+    two roundings drift apart). That is why the kernel keeps the plain
+    version's order and roundings, and so its limit of 1e-6."""
+    arrays = _draw(*case, seed=7 * case[1] + case[2], decay="near1")
+    ref = pallas_rglru_scan(*_jax(arrays, dtype), chunk=32, block_w=64, interpret=True)
+    upcast = [t.float().numpy() for t in _torch(arrays, dtype)]
+    _close([torch.from_numpy(v) for v in _fused_walk(*upcast)], ref, KERNEL_TOL)
+    _close(rglru_scan_ref(*_torch(arrays, dtype)), ref, TOL["float32"])

@@ -112,3 +112,51 @@ def test_wrapper_refuses_other_devices():
     u, s0 = torch.empty((1, 16), device="meta"), torch.empty((1, 1, 16, 16), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         wk.rwkv6_scan(r, r, r, r, u, s0)
+
+
+def _model_layout(b, t, h, d, seed):
+    """r, k, v, w as (B, T, H, D) tensors, u, s0, from ``_draw``."""
+    r, k, v, w, u, s0 = _draw(b, h, t, d, seed=seed)
+    seq = [torch.from_numpy(np.ascontiguousarray(np.moveaxis(a, 2, 1))) for a in (r, k, v, w)]
+    return seq, torch.from_numpy(u), torch.from_numpy(s0)
+
+
+@pytest.mark.parametrize("view", ["model_layout", "sliced", "strided_time"])
+def test_wrapper_and_ops_give_the_same_results_on_views_as_on_copies(view):
+    """Non-contiguous (B, T, H, D) views, as the model hands them over and
+    as slices of wider tensors, give what their contiguous copies give,
+    through the wrapper and through ``ops.rwkv6_scan``."""
+    seq, u, s0 = _model_layout(2, 24, 3, 32, seed=21)
+    if view == "sliced":  # every other head of a tensor twice as wide
+        seq = [torch.cat([x, x.flip(2)], dim=2)[:, :, ::2] for x in seq]
+    elif view == "strided_time":  # every other step of a sequence twice as long
+        seq = [torch.repeat_interleave(x, 2, dim=1)[:, ::2] for x in seq]
+    kernel_views = [x.movedim(1, 2) for x in seq]
+    assert not any(x.is_contiguous() for x in kernel_views)
+    copies = [x.contiguous() for x in kernel_views]
+    y, s = wk.rwkv6_scan(*kernel_views, u, s0)
+    y_c, s_c = wk.rwkv6_scan(*copies, u, s0)
+    assert torch.equal(y, y_c) and torch.equal(s, s_c)
+    y_m, s_m = ops.rwkv6_scan(*seq, u, s0)
+    y_mc, s_mc = ops.rwkv6_scan(*(x.contiguous() for x in seq), u, s0)
+    assert torch.equal(y_m, y_mc) and torch.equal(s_m, s_mc)
+    assert torch.equal(y_m, y.movedim(1, 2)) and y_m.shape == seq[0].shape
+
+
+def test_the_kernel_reads_model_layout_views_in_place():
+    """The kernel reads a (B, H, T, D) view of a (B, T, H, D) fp32 tensor
+    where it lies (no copy) and passes its strides; views it cannot read
+    (a last dim that is not contiguous, a stride that is no multiple of 4
+    elements, a 4-byte offset) are copied. A dim of size 1 takes any
+    stride, and is passed as 0."""
+    x = torch.zeros((2, 5, 3, 16)).movedim(1, 2)  # (B, H, T, D) view
+    assert wk._in_place(x) is x
+    assert wk._strides(x) == [5 * 3 * 16, 16, 3 * 16]
+    one = torch.zeros((2, 1, 3, 16)).movedim(1, 2)  # T = 1
+    assert wk._in_place(one) is one and wk._strides(one) == [48, 16, 0]
+    for bad in (torch.zeros((2, 3, 16, 5)).transpose(2, 3),  # D not contiguous
+                torch.zeros((2, 3, 5, 18))[..., :16],       # a row of 18 elements
+                torch.zeros(2 * 3 * 5 * 16 + 1)[1:].view(2, 3, 5, 16)):  # 4-byte offset
+        copied = wk._in_place(bad)
+        assert copied is not bad and copied.is_contiguous() and torch.equal(copied, bad)
+        assert copied.data_ptr() % 16 == 0
