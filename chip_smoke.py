@@ -312,9 +312,12 @@ def device_ms(fn, n, kernel=None):
 
 def call_device_ms(fn, n):
     """Device time of one call of ``fn`` with every kernel, copy and fill it
-    runs summed (the profiler's device rows over ``n`` calls, over ``n``),
-    and {row name: launches a call}. Profiled again, up to three times, if
-    the profiler recorded nothing."""
+    runs summed, {row name: launches a call} and {row name: launches the
+    profiler recorded over ``n`` calls}. The profiler may drop records: each
+    row's time is averaged over the launches it recorded, and its launches a
+    call are those it recorded over ``n``, rounded up (exact while it drops
+    fewer than one in a row's launches a call). Profiled again, up to three
+    times, if the profiler recorded nothing."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -323,11 +326,12 @@ def call_device_ms(fn, n):
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        events = _device_events(prof)
+        events = [e for e in _device_events(prof) if e.count]
         if events:
-            return (sum(_self_device_us(e) for e in events) / 1e3 / n,
-                    {e.key: e.count / n for e in events})
-    return 0.0, {}
+            per_call = {e.key: math.ceil(e.count / n - 1e-9) for e in events}
+            ms = sum(_self_device_us(e) / e.count * per_call[e.key] for e in events) / 1e3
+            return ms, per_call, {e.key: e.count for e in events}
+    return 0.0, {}, {}
 
 
 def _device_events(prof):
@@ -488,14 +492,22 @@ def wkv_checks(wk, ref):
         torch.cuda.synchronize()
         row["model_max_abs_err"] = held(
             (model_out[0].transpose(1, 2), model_out[1]), want, f"model layout {B, T, H, D}")
-        row["model_call_ms"], per_call = call_device_ms(lambda: kops.rwkv6_scan(*seq, u, s0), 20)
+        n_calls = 20
+        row["model_call_ms"], per_call, recorded = call_device_ms(
+            lambda: kops.rwkv6_scan(*seq, u, s0), n_calls)
+        fail_if(not per_call, "wkv model layout: profiler recorded no device time")
         others = {k: n for k, n in per_call.items() if "wkv6_kernel" not in k}
         fail_if(bool(others), f"wkv model layout: the call runs more than the kernel: {others}")
-        fail_if(not per_call, "wkv model layout: profiler recorded no device time")
+        kernel_rows = {k: n for k, n in per_call.items() if "wkv6_kernel" in k}
+        kept = sum(recorded[k] for k in kernel_rows)  # too few to count launches a call?
+        fail_if(list(kernel_rows.values()) != [1] or 2 * kept < n_calls,
+                f"wkv model layout: not one kernel launch a call ({kernel_rows}; recorded "
+                f"{recorded} over {n_calls} calls)")
         print(f"[kernels] rwkv6_scan model layout (B, T, H, D) = {B, T, H, D} through "
               f"ops.rwkv6_scan: max_abs_err {row['model_max_abs_err']:.3g} | device time of "
               f"the whole call {row['model_call_ms'] * 1e3:.2f} us (kernel alone "
-              f"{row['ms'] * 1e3:.2f} us) | device rows a call: {per_call}", flush=True)
+              f"{row['ms'] * 1e3:.2f} us) | launches a call: {per_call} (recorded over "
+              f"{n_calls} calls: {recorded})", flush=True)
     return rows
 
 

@@ -23,18 +23,24 @@
 // the steps ahead into a ring of STAGES stages of SPAN steps in shared
 // memory with cp.async, and walks one stage while the next STAGES - 1 are in
 // flight (40 KB an SM at B = 1, W = 4096, where a warp has an SM to itself).
-// Where W % 32 == 0 a row of the warp's columns is copied as 8 pieces of 16
-// bytes by 8 lanes, and a __syncwarp on each side of a stage's copy orders
-// the lanes; otherwise each lane copies its own column 4 bytes at a time and
-// reads only what it copied.
+// A row of the warp's columns is copied as 8 pieces of 16 bytes by 8
+// lanes, and a __syncwarp on each side of a stage's copy orders the lanes;
+// so the ring takes W % 32 == 0 and 16-byte aligned a and x, which every
+// model width and the model's fresh tensors give. Other inputs, and T <=
+// DIRECT (decode), take a thread per column that loads STEPS steps at a
+// time straight into registers: no ring.
 //
 // A parallel scan over chunks of time (chunk maps A h + X folded into each
-// chunk's carry) would need no long walk, but its carries do not round as
-// the walk does: with decays near 1 nothing contracts, and such a scan
-// strays from the plain version by more than 1e-6 at T = 64 already. This
-// walk keeps the plain version's order and equals it bit for bit. At T <=
-// DIRECT (decode) a thread per column loads STEPS steps at a time straight
-// into registers: no ring.
+// chunk's carry; its plain mirror is rglru_scan_chunked_plain in
+// kernels/ref.py) would need no long walk, but its carries do not round as
+// the walk does. With decays that contract fast it holds 1e-6 against the
+// plain version. With a trained model's decays (a^8 in (0.9, 0.999) per
+// channel) at (1, 3072, 4096), and with decays near 1 at T = 64, it lies
+// outside 1e-6 of the plain version at every chunk size tried, while the
+// plain version is itself outside 1e-6 of the exact (float64) answer
+// (tests/test_torch_rglru_scan.py). The limit is below the fp32 walk's own
+// rounding, so this walk keeps the plain version's order and equals it bit
+// for bit.
 //
 // Built with -fmad=false: a * h + x rounds the product and then the sum, as
 // the plain PyTorch version computes it.
@@ -50,11 +56,6 @@ constexpr int STEPS = 8;    // steps a thread without a ring loads ahead
 constexpr int STAGES = 6;   // stages of the ring (48 KB)
 constexpr int STAGE_BYTES = SPAN * 2 * LANES * 4;
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
-}
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -69,8 +70,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// A few steps (decode): a thread per column, STEPS steps at a time loaded
-// into registers before their dependent chain runs, no ring.
+// A few steps (decode), or inputs the ring does not take: a thread per
+// column, STEPS steps at a time loaded into registers before their
+// dependent chain runs, no ring. The grid's y is the batch row.
 __global__ void __launch_bounds__(DIRECT_THREADS)
     rglru_kernel_direct(const float* __restrict__ a, const float* __restrict__ x,
                         const float* __restrict__ h0, float* __restrict__ h_out,
@@ -101,10 +103,8 @@ __global__ void __launch_bounds__(DIRECT_THREADS)
   h_fin[b * W + w] = h;
 }
 
-// A warp per 32 columns of one batch row (a block: `unit`) with its ring.
-// VEC: W % 32 == 0 and a, x 16-byte aligned, so a warp copies its rows in
-// 16-byte pieces.
-template <bool VEC>
+// A warp per 32 columns of one batch row (a block: `unit`) with its ring;
+// W % 32 == 0 and a, x 16-byte aligned.
 __global__ void __launch_bounds__(LANES)
     rglru_kernel(const float* __restrict__ a, const float* __restrict__ x,
                  const float* __restrict__ h0, float* __restrict__ h_out,
@@ -115,7 +115,6 @@ __global__ void __launch_bounds__(LANES)
   const long long unit = blockIdx.x;
   const long long b = unit / groups;
   const long long col = (unit % groups) * LANES + lane;
-  if (col >= W) return;  // only where W % 32 != 0: never with VEC
   const long long base = b * T * W + col;
   const long long row0 = base - lane;  // the warp's first column
   const long long stages = (T + SPAN - 1) / SPAN;
@@ -124,33 +123,23 @@ __global__ void __launch_bounds__(LANES)
     if (s < stages) {
       float* slot = ring + (s % STAGES) * (SPAN * 2 * LANES);
       const long long t0 = s * SPAN;
-      if constexpr (VEC) {  // 16 bytes a copy: 8 copies a row of the warp
 #pragma unroll
-        for (int m = 0; m < SPAN * 2 * 8 / LANES; ++m) {
-          const int e = lane + LANES * m;
-          const int i = e / 16, arr = (e / 8) % 2, q = e % 8;
-          if (t0 + i < T)
-            cp_async16(slot + (2 * i + arr) * LANES + 4 * q,
-                       (arr ? x : a) + row0 + (t0 + i) * W + 4 * q);
-        }
-      } else {  // 4 bytes a copy: a lane copies its own column
-#pragma unroll
-        for (int i = 0; i < SPAN; ++i) {
-          if (t0 + i < T) {
-            cp_async4(slot + (2 * i) * LANES + lane, a + base + (t0 + i) * W);
-            cp_async4(slot + (2 * i + 1) * LANES + lane, x + base + (t0 + i) * W);
-          }
-        }
+      for (int m = 0; m < SPAN * 2 * 8 / LANES; ++m) {  // 8 copies a row
+        const int e = lane + LANES * m;
+        const int i = e / 16, arr = (e / 8) % 2, q = e % 8;
+        if (t0 + i < T)
+          cp_async16(slot + (2 * i + arr) * LANES + 4 * q,
+                     (arr ? x : a) + row0 + (t0 + i) * W + 4 * q);
       }
     }
     cp_async_commit();  // an empty group past the end keeps the count
   };
   for (int s = 0; s < STAGES - 1; ++s) fetch(s);
   for (long long s = 0; s < stages; ++s) {
-    if constexpr (VEC) __syncwarp();  // every lane is done with the slot refilled next
+    __syncwarp();  // every lane is done with the slot refilled next
     fetch(s + STAGES - 1);
     cp_async_wait<STAGES - 1>();  // stage s has landed
-    if constexpr (VEC) __syncwarp();  // and the other lanes' copies with it
+    __syncwarp();  // and the other lanes' copies with it
     const float* slot = ring + (s % STAGES) * (SPAN * 2 * LANES) + lane;
     const long long t0 = s * SPAN;
     if (t0 + SPAN <= T) {
@@ -167,20 +156,6 @@ __global__ void __launch_bounds__(LANES)
     }
   }
   h_fin[b * W + col] = h;
-}
-
-template <bool VEC>
-cudaError_t launch(const float* a, const float* x, const float* h0, float* h_out,
-                   float* h_fin, long long T, long long W, long long groups,
-                   long long units, cudaStream_t stream) {
-  // several blocks' rings share an SM
-  static const cudaError_t carveout = cudaFuncSetAttribute(
-      rglru_kernel<VEC>, cudaFuncAttributePreferredSharedMemoryCarveout,
-      cudaSharedmemCarveoutMaxShared);
-  if (carveout != cudaSuccess) return carveout;
-  rglru_kernel<VEC><<<(unsigned)units, LANES, STAGES * STAGE_BYTES, stream>>>(
-      a, x, h0, h_out, h_fin, T, W, groups);
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -200,14 +175,26 @@ extern "C" int rglru_f32(const void* a, const void* x, const void* h0,
   float* op = static_cast<float*>(h_out);
   float* fp = static_cast<float*>(h_fin);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long blocks_w = (W + DIRECT_THREADS - 1) / DIRECT_THREADS;
-  if (T <= DIRECT && B <= 65535 && blocks_w <= 0x7fffffffLL) {
-    rglru_kernel_direct<<<dim3((unsigned)blocks_w, (unsigned)B), DIRECT_THREADS, 0, st>>>(
-        ap, xp, hp, op, fp, T, W);
-    return (int)cudaGetLastError();
-  }
   const bool vec = W % LANES == 0 && reinterpret_cast<unsigned long long>(a) % 16 == 0 &&
                    reinterpret_cast<unsigned long long>(x) % 16 == 0;
-  if (vec) return (int)launch<true>(ap, xp, hp, op, fp, T, W, groups, units, st);
-  return (int)launch<false>(ap, xp, hp, op, fp, T, W, groups, units, st);
+  if (T <= DIRECT || !vec) {
+    const long long blocks_w = (W + DIRECT_THREADS - 1) / DIRECT_THREADS;
+    constexpr long long ROWS = 65535;  // batch rows a grid's y holds
+    for (long long b0 = 0; b0 < B; b0 += ROWS) {
+      const dim3 grid((unsigned)blocks_w, (unsigned)(B - b0 < ROWS ? B - b0 : ROWS));
+      rglru_kernel_direct<<<grid, DIRECT_THREADS, 0, st>>>(
+          ap + b0 * T * W, xp + b0 * T * W, hp + b0 * W, op + b0 * T * W, fp + b0 * W, T, W);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    return (int)cudaSuccess;
+  }
+  // several blocks' rings share an SM
+  static const cudaError_t carveout = cudaFuncSetAttribute(
+      rglru_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (carveout != cudaSuccess) return (int)carveout;
+  rglru_kernel<<<(unsigned)units, LANES, STAGES * STAGE_BYTES, st>>>(
+      ap, xp, hp, op, fp, T, W, groups);
+  return (int)cudaGetLastError();
 }

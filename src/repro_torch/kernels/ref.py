@@ -84,3 +84,39 @@ def rglru_scan_ref(a: torch.Tensor, x: torch.Tensor,
         h = af[:, t] * h + xf[:, t]
         hs.append(h)
     return torch.stack(hs, dim=1), h
+
+
+def rglru_scan_chunked_plain(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor,
+                             chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RG-LRU recurrence as a scan chunked over time would compute it,
+    for the tests that weigh that design against the serial walk.
+
+    Time is cut into chunks of ``chunk`` steps (the last may be shorter).
+    1. Each chunk's map h -> A h + X from its own steps: A = a_t A and
+       X = a_t X + x_t from A = 1, X = 0.
+    2. The carries in order: c_0 = h0, c_{j+1} = A_j c_j + X_j.
+    3. Each chunk walked again from its carry, in :func:`rglru_scan_ref`'s
+       order.
+    Every product and sum rounds on its own, in fp32. Same shapes and
+    returns as :func:`rglru_scan_ref`; the first chunk equals it bit for bit.
+    """
+    af, xf = a.float(), x.float()
+    steps = af.shape[1]
+    cuts = list(range(0, steps, chunk)) + [steps]
+    maps = []
+    for lo, hi in zip(cuts, cuts[1:]):
+        big_a = torch.ones_like(h0, dtype=torch.float32)
+        big_x = torch.zeros_like(h0, dtype=torch.float32)
+        for t in range(lo, hi):
+            big_a = af[:, t] * big_a
+            big_x = af[:, t] * big_x + xf[:, t]
+        maps.append((big_a, big_x))
+    carry = [h0.float()]
+    for big_a, big_x in maps[:-1]:
+        carry.append(big_a * carry[-1] + big_x)
+    hs = []
+    for (lo, hi), h in zip(zip(cuts, cuts[1:]), carry):
+        for t in range(lo, hi):
+            h = af[:, t] * h + xf[:, t]
+            hs.append(h)
+    return torch.stack(hs, dim=1), h

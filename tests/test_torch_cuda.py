@@ -262,16 +262,19 @@ def test_rwkv_model_on_the_card_matches_its_cpu_run(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", [(1, 64, 128), (2, 128, 256), (3, 100, 64), (2, 1, 4096),
-                                  (3, 97, 1000), (1, 37, 33)], ids=str)
+                                  (3, 97, 1000), (1, 37, 33), (70000, 2, 3)], ids=str)
 def test_rglru_kernel_matches_its_plain_version_on_the_card(cuda, case, dtype):
     """Bit for bit, and so within the limit of rtol = atol = 1e-6 that
     chip_smoke.py holds: the kernel walks time in the plain version's order
     and, built with -fmad=false, rounds the product and the sum apart as it
     does. The limit is that tight because no other order or rounding of
-    this fp32 recurrence keeps it where decays are near 1 (see
-    tests/test_torch_rglru_scan.py). Odd widths, T = 1, T <= 16 (loaded
-    straight into registers) and T > 16 (the cp.async ring) included. Each
-    call launches the kernel once."""
+    this fp32 recurrence keeps it where decays are near 1, or where they
+    are a trained model's over a long prompt: there the plain walk is
+    itself outside 1e-6 of the exact answer (see
+    tests/test_torch_rglru_scan.py). T = 1, T <= 16 and odd widths (a
+    thread per column, loaded straight into registers) and T > 16 with
+    W % 32 == 0 (the cp.async ring) included. Each call launches the
+    kernel once. 70,000 batch rows: more than a grid's y holds."""
     b, t, w = case
     gen = torch.Generator(device=cuda).manual_seed(t * w)
     a = torch.sigmoid(torch.randn((b, t, w), generator=gen, device=cuda)).to(dtype)
@@ -307,6 +310,26 @@ def test_rglru_kernel_at_the_serving_shapes(cuda, case, decay):
     h_ref, fin_ref = rglru_scan_ref(a, x, h0)
     torch.testing.assert_close(h, h_ref, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(h_fin, fin_ref, rtol=1e-6, atol=1e-6)
+    assert torch.equal(h, h_ref) and torch.equal(h_fin, fin_ref)
+
+
+def test_rglru_kernel_takes_inputs_the_ring_cannot_copy(cuda):
+    """a and x contiguous but 4 bytes off a 16-byte boundary, which the
+    wrapper passes on as they are and the ring's 16-byte copies cannot
+    read, at a length and width the ring would take: the thread-per-column
+    kernel runs them, bit for bit with the plain version, one launch."""
+    b, t, w = 2, 100, 128
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    a, x = (torch.empty(b * t * w + 1, device=cuda)[1:].view(b, t, w) for _ in range(2))
+    a.copy_(torch.sigmoid(torch.randn((b, t, w), generator=gen, device=cuda)))
+    x.copy_(0.5 * torch.randn((b, t, w), generator=gen, device=cuda))
+    h0 = 0.5 * torch.randn((b, w), generator=gen, device=cuda)
+    assert a.is_contiguous() and a.data_ptr() % 16 != 0
+    before = rg.rglru_scan.launches
+    h, h_fin = rg.rglru_scan(a, x, h0)
+    torch.cuda.synchronize()
+    assert rg.rglru_scan.launches == before + 1
+    h_ref, fin_ref = rglru_scan_ref(a, x, h0)
     assert torch.equal(h, h_ref) and torch.equal(h_fin, fin_ref)
 
 

@@ -19,7 +19,8 @@ from repro.kernels.rglru_scan import rglru_scan as pallas_rglru_scan
 from repro.models.rglru import rglru_scan_ref as assoc_scan
 from repro_torch.kernels import ops
 from repro_torch.kernels import rglru_scan as rg
-from repro_torch.kernels.ref import rglru_scan_ref
+from repro_torch.kernels.ref import rglru_scan_chunked_plain, rglru_scan_ref
+from repro_torch.models.rglru import C_FACTOR, rglru_param_init
 
 #: (B, T, W): the reference's RG_CASES (tests/test_kernels.py)
 RG_CASES = [(1, 64, 128), (2, 128, 256), (1, 96, 512), (3, 100, 64)]
@@ -34,10 +35,31 @@ STAGED_CASES = [(2, 64, 128), (3, 100, 64), (1, 97, 40), (2, 17, 33), (2, 16, 96
 KERNEL_TOL = 1e-6
 
 
+def _model_inputs(b, t, w, rng, trained):
+    """a, x, h0 = 0 as RG-LRU blocks of the port's model make them from an
+    input z of unit scale, with the block's initial weights. ``trained``:
+    lam per channel so that a^8 is uniform in (0.9, 0.999) at r = 1, the
+    range Griffin (section 2.4) starts from and a trained model keeps; else
+    the model's own initial lam (a^8 = 0.97)."""
+    p = rglru_param_init(torch.Generator().manual_seed(int(rng.randint(1 << 30))), w, w, 4)
+    if trained:
+        a8 = torch.from_numpy(rng.uniform(0.9, 0.999, size=w))
+        p["lam"] = torch.log(torch.expm1(-torch.log(a8) / C_FACTOR)).float()
+    z = torch.from_numpy(rng.standard_normal((b, t, w)).astype(np.float32))
+    r = torch.sigmoid(z @ p["w_a"] + p["gate_b"][0])
+    i = torch.sigmoid(z @ p["w_x"] + p["gate_b"][1])
+    log_a = -C_FACTOR * torch.nn.functional.softplus(p["lam"]) * r
+    beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
+    return torch.exp(log_a).numpy(), (beta * i * z).numpy(), np.zeros((b, w))
+
+
 def _draw(b, t, w, seed, decay="sigmoid"):
     """a in (0, 1), x, h0 as fp32 numpy. ``decay``: a = sigmoid(normal), or
-    uniform in (0, 1e-3) ("near0") or in (1 - 1e-3, 1) ("near1")."""
+    uniform in (0, 1e-3) ("near0") or in (1 - 1e-3, 1) ("near1"), or as the
+    model makes them ("model", "trained": :func:`_model_inputs`)."""
     rng = np.random.RandomState(seed)
+    if decay in ("model", "trained"):
+        return [v.astype(np.float32) for v in _model_inputs(b, t, w, rng, decay == "trained")]
     if decay == "sigmoid":
         a = 1.0 / (1.0 + np.exp(-rng.standard_normal((b, t, w))))
     elif decay == "near0":
@@ -174,3 +196,75 @@ def test_decays_near_one_part_the_plain_walk_from_the_pallas_kernels_fused_one(c
     upcast = [t.float().numpy() for t in _torch(arrays, dtype)]
     _close([torch.from_numpy(v) for v in _fused_walk(*upcast)], ref, KERNEL_TOL)
     _close(rglru_scan_ref(*_torch(arrays, dtype)), ref, TOL["float32"])
+
+
+#: (B, T, W, chunk) for the chunked scan's plain mirror: chunks that divide
+#: T and that do not, T under one chunk, T = 1, odd widths
+CHUNKED_CASES = [(2, 64, 128, 16), (3, 100, 64, 32), (1, 97, 40, 16), (2, 20, 33, 32),
+                 (2, 1, 128, 16), (1, 77, 1001, 8)]
+
+
+def _excess(out, want, tol=KERNEL_TOL):
+    """How far ``out`` lies past rtol = atol = ``tol`` of ``want``: > 0 is
+    outside."""
+    return ((out.double() - want.double()).abs() - tol * want.double().abs()).max().item() - tol
+
+
+@pytest.mark.parametrize("case", CHUNKED_CASES, ids=str)
+@pytest.mark.parametrize("decay", ["sigmoid", "near0", "model"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunked_scan_holds_the_kernels_limit_where_decays_contract(case, decay, dtype):
+    """A scan chunked over time (chunk maps, carries, a rescan from each
+    carry) against the plain walk and the interpreted Pallas kernel at the
+    kernel's limit of 1e-6: it holds where the decays contract within a few
+    steps, the model's initial ones among them. Under one chunk it is the
+    plain walk."""
+    b, t, w, chunk = case
+    arrays = _draw(b, t, w, seed=5 * t + w, decay=decay)
+    args = _torch(arrays, dtype)
+    out = rglru_scan_chunked_plain(*args, chunk)
+    want = rglru_scan_ref(*args)
+    assert out[0].shape == (b, t, w) and out[1].shape == (b, w)
+    _close(out, want, KERNEL_TOL)
+    _close(out, pallas_rglru_scan(*_jax(arrays, dtype), chunk=32, block_w=64, interpret=True),
+           KERNEL_TOL)
+    if t <= chunk:
+        assert all(torch.equal(o, r) for o, r in zip(out, want))
+
+
+def _exact_walk(a, x, h0):
+    """The recurrence in float64: the answer both fp32 orders round."""
+    h, hs = h0.double(), []
+    for t in range(a.shape[1]):
+        h = a[:, t].double() * h + x[:, t].double()
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
+@pytest.mark.parametrize("decay,case,chunks", [("near1", (2, 64, 128), (8, 16)),
+                                               ("trained", (1, 3072, 4096), (16, 32, 64, 128))],
+                         ids=["near1_T64", "trained_1x3072x4096"])
+def test_chunked_scan_strays_past_the_kernels_limit_with_slow_decays(decay, case, chunks, capsys):
+    """Why the kernel walks time serially. With decays near 1 over 64 steps,
+    and with a trained model's decays over recurrentgemma-9b's 3,072-token
+    prompt at full width, the chunked scan lies outside rtol = atol = 1e-6
+    of the plain walk at every chunk size, though it is no further from the
+    exact (float64) recurrence than the plain walk, which is itself outside
+    1e-6 of it: the limit is below the plain version's own rounding, and
+    only the serial order meets it. ``pytest -s`` prints the numbers."""
+    args = _torch(_draw(*case, seed=19, decay=decay), "float32")
+    want = rglru_scan_ref(*args)[0]
+    exact = _exact_walk(*args)
+    walk_err = (want.double() - exact).abs().max().item()
+    with capsys.disabled():
+        print(f"\n{decay} {case}: plain walk past 1e-6 of float64 by {_excess(want, exact):.3g}, "
+              f"max error {walk_err:.3g}")
+    assert _excess(want, exact) > 0
+    for chunk in chunks:
+        out = rglru_scan_chunked_plain(*args, chunk)[0]
+        chunk_err = (out.double() - exact).abs().max().item()
+        with capsys.disabled():
+            print(f"{decay} {case} chunk {chunk}: past 1e-6 of the plain walk by "
+                  f"{_excess(out, want):.3g}; max error against float64 {chunk_err:.3g}")
+        assert _excess(out, want) > 0
+        assert chunk_err <= walk_err
