@@ -157,11 +157,16 @@ BF16_TC_FLOPS = 989e12
 #: query heads and 1 KV head of 256, window 512 on 'L' layers, none on 'G'),
 #: the reference's FA_CASES (tests/test_kernels.py) in fp32 and bf16, and
 #: ragged and edge shapes. The serving shapes (bf16: the tensor-core kernel)
-#: are timed, the first goes into the kernels JSON line; so is FA_FP32 for
-#: the CUDA-core kernel, the first serving shape in fp32
+#: are timed, the first goes into the kernels JSON line
 FA_SERVING = [(8, 4, 1, 512, 512, 256, True, w, 0.0, "bfloat16") for w in (512, None)] + \
              [(1, 4, 1, 8192, 8192, 256, True, w, 0.0, "bfloat16") for w in (512, None)]
+#: the CUDA-core kernel's timed shapes, fp32: the first serving shape (window
+#: 512; it goes into the kernels JSON line), the same without a window (the
+#: library call then takes is_causal=True), and the long prompt with window
+#: 512 (the kernel's block skipping at length)
 FA_FP32 = FA_SERVING[0][:-1] + ("float32",)
+FA_FP32_TIMED = [FA_FP32, FA_SERVING[1][:-1] + ("float32",), FA_SERVING[2][:-1] + ("float32",)]
+FA_TIMED = FA_SERVING + FA_FP32_TIMED
 #: each route's kernel, as the profiler names it
 FA_KERNEL = {"tensor_cores": "flash_fwd_sm90_kernel", "cuda_cores": "flash_fwd_kernel"}
 FA_CASES = [
@@ -189,7 +194,7 @@ FA_CHECKS = FA_SERVING + [FA_FP32] + [
     # recurrentgemma-9b's serving prefills: 16 query heads, 1 KV head of 256,
     # window 2048
     (b, 16, 1, s, s, 256, True, 2048, 0.0, "bfloat16") for b, s, _ in HYB_RUNS
-]
+] + FA_FP32_TIMED[1:]
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: bf16 checks are also held normwise: ||out - plain|| <= FA_BF16_NORMWISE
 #: ||plain|| over the whole output. At long shapes an output is about as
@@ -294,19 +299,26 @@ def device_ms(fn, n, kernel=None):
     kernel named ``kernel`` among what ``fn`` launches): the kernel time the
     profiler records over ``n`` calls, averaged over the launches it
     recorded (it may drop some). A window whose records it dropped entirely
-    is profiled again, up to three times; 0.0 when it records none."""
+    is profiled again, up to five times; 0.0 when it records none (the
+    callers then fail), after a line that gives each window's count of
+    device records."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    seen = []
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in _device_events(prof) if kernel is None or kernel in e.key]
+        rows = _device_events(prof)
+        events = [e for e in rows if kernel is None or kernel in e.key]
         launches = sum(e.count for e in events)
         if launches:
             return sum(_self_device_us(e) for e in events) / 1e3 / launches
+        seen.append(sum(e.count for e in rows))
+    print(f"[profiler] no launch of {kernel or 'the kernel'} recorded in 5 windows of {n} calls "
+          f"(device records a window: {seen})", flush=True)
     return 0.0
 
 
@@ -368,6 +380,16 @@ def event_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
+def ptxas_of(stem, kernel) -> str:
+    """The ptxas registers and spills of the kernels of source ``stem``
+    whose names start with ``kernel``, from this process's build."""
+    from repro_torch import _cuda_build as _build
+
+    report = _build.BUILD_LOG.get(stem, (0.0, ""))[1]
+    hits = [e for e in report.split("; ") if e.startswith(kernel)]
+    return "; ".join(hits) or "not built in this process"
+
+
 def kernel_checks(wf, fs, live_state):
     """Phase 3. Returns {kernel: {shape: row}} of measurements."""
     import torch
@@ -391,6 +413,9 @@ def kernel_checks(wf, fs, live_state):
         ref = wf.waterfill_bisect_plain(caps, pool)
         torch.cuda.synchronize()
         err_w = compare([out], [ref], f"waterfill {shape}")
+        if C <= 32:  # the 32-way descent: its plain mirror's output, bit for bit
+            fail_if(not torch.equal(out.cpu(), wf.waterfill_descent_plain(caps.cpu(), pool.cpu())),
+                    f"waterfill {shape}: the descent differs from its plain mirror")
         # fused step: kernel vs plain
         refs = fs.fused_step_plain(*args)
         outs = fs.fused_step(*args)
@@ -422,12 +447,15 @@ def kernel_checks(wf, fs, live_state):
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             }
             fail_if(row["ms"] <= 0.0, f"{name} {shape}: profiler recorded no device time")
+            if name == "waterfill":  # rows of C <= 32 run the 32-way descent
+                row["ptxas"] = ptxas_of("waterfill", f"waterfill_descent_kernel<{C}>")
             rows[name][shape] = row
             print(f"[kernels] {name:10s} S={S:5d} C={C:2d} K={K} Q={Q:5d}: "
                   f"max_abs_err {err:.3g} | device {row['ms'] * 1e3:.2f} us | "
                   f"wrapper call {row['call_ms'] * 1e3:.2f} us | plain "
                   f"{row['plain_ms'] * 1e3:.1f} us | bound {row['bound_ms'] * 1e3:.3f} us "
-                  f"({row['bound_by']})", flush=True)
+                  f"({row['bound_by']})" + (f" | ptxas {row['ptxas']}" if "ptxas" in row else ""),
+                  flush=True)
     return rows
 
 
@@ -578,8 +606,8 @@ def flash_checks(fa, ref):
     the card (bf16 also normwise, FA_BF16_NORMWISE; window 1 must return v
     exactly), and a shape with queries that
     no key may attend on each route (the kernel must return zeros there).
-    The timed shapes (FA_SERVING on the tensor-core kernel, FA_FP32 on the
-    CUDA-core kernel) are timed against the plain version, one
+    The timed shapes (FA_SERVING on the tensor-core kernel, FA_FP32_TIMED on
+    the CUDA-core kernel) are timed against the plain version, one
     ``scaled_dot_product_attention`` call (the library yardstick) and the
     bound. Returns {route: {check: row}} of measurements."""
     import torch
@@ -618,7 +646,7 @@ def flash_checks(fa, ref):
             fail_if(not torch.equal(out, v.repeat_interleave(H // KV, dim=1)),
                     f"{label}: window 1 does not return v")
         err = row["max_abs_err"]
-        if check in FA_SERVING or check == FA_FP32:
+        if check in FA_TIMED:
             # each input read once, the output written once; 4 D flops a kept
             # (query, key) pair: q k^T and p v
             nbytes = q.element_size() * (2 * B * H * S * D + 2 * B * KV * T * D)
@@ -648,13 +676,17 @@ def flash_checks(fa, ref):
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             })
             fail_if(row["ms"] <= 0.0, f"{label}: profiler recorded no device time")
+            if route == fa.CUDA_CORES:
+                dmax = 64 if D <= 64 else 128 if D <= 128 else 256
+                row["ptxas"] = ptxas_of("flash_attention", f"flash_fwd_kernel<float, {dmax}>")
             print(f"[kernels] {name} B={B} H={H} KV={KV} S={S} D={D} window={window} {dtype}: "
                   f"max_abs_err {err:.3g} | device {row['ms'] * 1e3:.2f} us "
                   f"({flops / row['ms'] / 1e9:.1f} TFLOP/s of kept work) | wrapper call "
                   f"{row['call_ms'] * 1e3:.1f} us | plain {row['plain_ms'] * 1e3:.1f} us | "
                   f"library (scaled_dot_product_attention) {row['library_ms'] * 1e3:.1f} us | "
                   f"bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}: {nbytes / 1e6:.1f} "
-                  f"MB, {flops / 1e9:.2f} GFLOP)", flush=True)
+                  f"MB, {flops / 1e9:.2f} GFLOP)"
+                  + (f" | ptxas {row['ptxas']}" if "ptxas" in row else ""), flush=True)
         rows[route][check] = row
     for route, by_check in rows.items():
         worst = {dt: max((r["max_abs_err"] for key, r in by_check.items() if key[-1] == dt),

@@ -4,8 +4,9 @@ Each kernel is one ``.cu`` source with a plain C interface, kept in a
 ``csrc/`` directory beside the module that wraps it. It is compiled at
 first use with ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/`` at
 the repository root (the shared library's name carries a hash of its
-source, so an edited source is rebuilt and an unchanged one is loaded as
-is) and loaded with ``ctypes``. ``-fmad=false`` keeps every multiply and
+source and of the ``.cuh`` headers beside it, which a source may include,
+so an edited source or header is rebuilt and an unchanged one is loaded
+as is) and loaded with ``ctypes``. ``-fmad=false`` keeps every multiply and
 add separately rounded, as the plain PyTorch versions compute them.
 """
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -30,7 +32,7 @@ NVCC_FLAGS = (
 
 _libs: Dict[Path, ctypes.CDLL] = {}
 #: kernel name (the source's stem) -> (seconds, ptxas register / spill
-#: report) of builds in this process
+#: report, see :func:`ptxas_report`) of builds in this process
 BUILD_LOG: Dict[str, Tuple[float, str]] = {}
 _lock = threading.Lock()
 
@@ -46,7 +48,10 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 
 
@@ -69,12 +74,34 @@ def _finish(src: Path, job) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src.name}:\n{out}")
     os.replace(tmp, lib)
-    report = " | ".join(
-        line.split("ptxas info    :")[-1].strip()
-        for line in out.splitlines()
-        if "registers" in line or "spill" in line
-    )
-    BUILD_LOG[src.stem] = (time.perf_counter() - t0, report)
+    BUILD_LOG[src.stem] = (time.perf_counter() - t0, ptxas_report(out))
+
+
+def ptxas_report(out: str) -> str:
+    """Each kernel's registers and spilled bytes from ``ptxas -v`` output:
+    "name: N registers, S bytes spill stores, L bytes spill loads; ..."
+    (names demangled where ``c++filt`` is found)."""
+    entries, name, spill = [], None, ""
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = m.group(1), ""
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = f"{m.group(1)} bytes spill stores, {m.group(2)} bytes spill loads"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            entries.append((name, f"{m.group(1)} registers, {spill or 'spills not reported'}"))
+            name = None
+    filt = shutil.which("c++filt")
+    if filt and entries:
+        names = subprocess.run([filt], input="\n".join(n for n, _ in entries),
+                               capture_output=True, text=True).stdout.splitlines()
+        if len(names) == len(entries):
+            short = (re.sub(r"^void |\(.*\)$", "", n.replace("(anonymous namespace)::", ""))
+                     for n in names)
+            entries = [(n, r) for n, (_, r) in zip(short, entries)]
+    return "; ".join(f"{n}: {r}" for n, r in entries)
 
 
 def build(sources: Iterable[Path]) -> None:

@@ -53,10 +53,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "water_descent.cuh"
+
 namespace {
 
-constexpr int kIters = 80;    // halvings of the water level
-constexpr int kLevels = 5;    // halvings a round of the 32-way descent
+using water::kIters;          // halvings of the water level
 constexpr int kMaxWarps = 4;  // warps (rows) a block
 constexpr unsigned kFull = 0xffffffffu;
 constexpr double kEps = 1e-12;
@@ -134,35 +135,15 @@ struct Step {
 template <int T, int CW>
 constexpr int kLoopCols = CW > 0 ? CW : 32 * T;
 
-// s[0] = the sum of s[0..N) in the butterfly's pairing: s[i] += s[i + O]
-// for O = N / 2 .. 1 (template recursion keeps every index a constant, so
-// s stays in registers).
-template <int N, int O = N / 2>
-__device__ __forceinline__ void fold(double (&s)[N]) {
-  if constexpr (O > 0) {
-#pragma unroll
-    for (int i = 0; i < O; ++i) s[i] += s[i + O];
-    fold<N, O / 2>(s);
-  }
-}
-
 // The water level of `caps` for `pool_eff`: kIters halvings of [0, hi],
-// keeping sum(min(caps, hi)) >= pool_eff; the level is the last hi.
-//
-// With the row in one tile (CW > 0: C <= CW <= 32, CW a power of two) the
-// halvings run as kIters / 5 rounds of a 32-way descent of the same
-// bisection tree. Lane l evaluates node l + 1 (heap order: node n
-// has children 2n and 2n + 1) of the round's five levels: it walks to the
-// node with the same 0.5 * (lo + hi) halvings the sequential search would
-// take, so its mid is bit-identical, and sums min(cap, mid) over the row's
-// caps in the butterfly's own pairing (s[i] += s[i + o], o = CW / 2 .. 1;
-// the butterfly's levels above CW add only zeros), so the sum is the
-// warp_sum's bit for bit. A ballot of `sum < pool_eff` then picks the path.
-// Wider rows halve one level at a time, each sum a butterfly.
+// keeping sum(min(caps, hi)) >= pool_eff; the level is the last hi. With
+// the row in one tile (CW > 0: C <= CW <= 32, CW a power of two) the
+// halvings run as the 32-way descent of water_descent.cuh, bit for bit the
+// one-at-a-time chain; wider rows halve one level at a time, each sum a
+// butterfly.
 template <int T, int CW>
 __device__ __forceinline__ double water_level(const double (&caps)[T], double hi,
                                               double pool_eff, double* col_f, int lane) {
-  double lo = 0.0;
   if constexpr (CW > 0) {
     col_f[lane] = caps[0];
     __syncwarp();
@@ -170,34 +151,9 @@ __device__ __forceinline__ double water_level(const double (&caps)[T], double hi
 #pragma unroll
     for (int i = 0; i < CW; ++i) cv[i] = col_f[i];
     __syncwarp();
-    const int node = lane + 1;
-    const int depth = 31 - __clz(node);
-    for (int r = 0; r < kIters / kLevels; ++r) {
-      // four predicated levels on every lane: a loop to each lane's own
-      // depth diverges, and measured slower on an H100
-      double l = lo, h = hi;
-#pragma unroll
-      for (int d = kLevels - 2; d >= 0; --d) {
-        const double m = 0.5 * (l + h);
-        const bool on = d < depth;
-        const bool right = (node >> d) & 1;
-        l = on && right ? m : l;
-        h = on && !right ? m : h;
-      }
-      const double mid = 0.5 * (l + h);
-      double s[CW];
-#pragma unroll
-      for (int i = 0; i < CW; ++i) s[i] = fmin(cv[i], mid);
-      fold<CW>(s);
-      const unsigned low = __ballot_sync(kFull, s[0] < pool_eff);
-      int n = 1;  // the path's node, down to the round's last level
-#pragma unroll
-      for (int d = 1; d < kLevels; ++d) n = 2 * n + (int)((low >> (n - 1)) & 1u);
-      const bool up = (low >> (n - 1)) & 1u;
-      lo = __shfl_sync(kFull, up ? mid : l, n - 1);
-      hi = __shfl_sync(kFull, up ? h : mid, n - 1);
-    }
+    hi = water::descend<CW>(cv, hi, pool_eff, lane);
   } else {
+    double lo = 0.0;
     for (int it = 0; it < kIters; ++it) {
       const double mid = 0.5 * (lo + hi);
       double filled = 0.0;

@@ -8,23 +8,43 @@
 // the row total matches the pool to float64 resolution.
 //
 // What bounds it on an H100: not bytes (a row reads C + 1 doubles and
-// writes C) but the 80 dependent iterations of a row sum, each a float64
-// min per lane plus a five-step warp shuffle reduction, i.e. latency.
-// The design keeps the row's caps in registers for the whole loop (one
-// load, one store per element), lets the 32 lanes of a warp stride over
-// the channel axis (the bucketed C is 4..32, one tile) and reduces with
-// __shfl_xor_sync, so no shared memory and no block-level barrier sits
-// inside the loop; rows run on independent warps, four to a block.
-// Any C up to 1024 is handled (tiles of 32 lanes, T = C/32 rounded up to
-// a power of two, held in registers); the wrapper refuses larger C.
+// writes C) but the chain of 80 dependent halvings, i.e. latency. Done one
+// at a time (a float64 min per lane, a five-step shuffle butterfly of
+// doubles and a branch, ~150-200 cycles each) the chain took 11.69 us at
+// S = 1024, C = 16.
+//
+// Rows of C <= 32 (the sweep's bucketed widths) run the halvings as 16
+// rounds of a 32-way descent of the same bisection tree, the loop kernel's
+// water level (water_descent.cuh, shared with fused_step.cu). The row's
+// caps go once through a warp-private shared slot into every lane's
+// registers (CW of them, the row's width rounded up to a power of two);
+// lane l evaluates node l + 1 of a round's five levels with the chain's own
+// mids and sums, and a ballot picks the path. The output equals the halving
+// chain's bit for bit (waterfill_descent_plain in waterfill_bisect.py is its
+// plain mirror). A round is ~14 dependent float64 operations plus a ballot
+// and two shuffles, against five halvings of the chain. ptxas: the descent
+// takes 32 to 103 registers (1 to 32 columns; 67 at 16), no spills.
+//
+// Measured on an H100, the descent's time grows with the row's width (its
+// CW minimums and fold adds a round, on every lane): 5.3 / 7.0 / 10.2 us at
+// S = 1024 and C = 8 / 16 / 32, against the 2.5-4 us a round's latency
+// alone predicts at 16. Taking the row's total and maximum from the
+// registers instead of two butterflies, and finding the round's path by a
+// second ballot of the leaves on it, were both slower.
+//
+// Wider rows (up to C = 1024, tiles of 32 lanes, T = C/32 rounded up to a
+// power of two, held in registers) keep the halving chain; the wrapper
+// refuses larger C. Rows run on independent warps, four to a block.
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "water_descent.cuh"
+
 namespace {
 
-constexpr int kIters = 80;
+using water::kFull;
+using water::kIters;  // halvings of the water level
 constexpr int kWarpsPerBlock = 4;
-constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
@@ -38,14 +58,34 @@ __device__ __forceinline__ double warp_max(double v) {
   return v;
 }
 
+// Rows of C <= CW <= 32 (CW a power of two): the 32-way descent.
+template <int CW>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+    waterfill_descent_kernel(const double* __restrict__ caps, const double* __restrict__ pool,
+                             double* __restrict__ out, long long S, int C) {
+  __shared__ double slot[kWarpsPerBlock][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long row = (long long)blockIdx.x * kWarpsPerBlock + warp;
+  if (row >= S) return;  // uniform across the warp
+  const double cap = lane < C ? caps[row * C + lane] : 0.0;
+  double hi = warp_max(fmax(cap, 0.0));
+  const double pool_eff = fmax(fmin(pool[row], warp_sum(cap)), 0.0);
+  slot[warp][lane] = cap;
+  __syncwarp();
+  double cv[CW];
+#pragma unroll
+  for (int i = 0; i < CW; ++i) cv[i] = slot[warp][i];
+  hi = water::descend<CW>(cv, hi, pool_eff, lane);
+  if (lane < C) out[row * C + lane] = fmin(cap, hi);
+}
+
+// Rows of C > 32: the halving chain, T tiles of 32 lanes in registers.
 template <int T>
-__global__ void waterfill_kernel(const double* __restrict__ caps,
-                                 const double* __restrict__ pool,
-                                 double* __restrict__ out, long long S,
-                                 int C) {
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+    waterfill_chain_kernel(const double* __restrict__ caps, const double* __restrict__ pool,
+                           double* __restrict__ out, long long S, int C) {
   const int lane = threadIdx.x & 31;
-  const long long row =
-      (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const long long row = (long long)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (row >= S) return;  // uniform across the warp
   const double* c_row = caps + row * C;
   double cap[T];
@@ -81,12 +121,21 @@ __global__ void waterfill_kernel(const double* __restrict__ caps,
   }
 }
 
+unsigned blocks(long long S) { return (unsigned)((S + kWarpsPerBlock - 1) / kWarpsPerBlock); }
+
+template <int CW>
+cudaError_t descent(const double* caps, const double* pool, double* out, long long S, int C,
+                    cudaStream_t stream) {
+  waterfill_descent_kernel<CW><<<blocks(S), 32 * kWarpsPerBlock, 0, stream>>>(caps, pool, out,
+                                                                             S, C);
+  return cudaGetLastError();
+}
+
 template <int T>
-cudaError_t launch(const double* caps, const double* pool, double* out,
-                   long long S, int C, cudaStream_t stream) {
-  const long long blocks = (S + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  waterfill_kernel<T><<<(unsigned)blocks, 32 * kWarpsPerBlock, 0, stream>>>(
-      caps, pool, out, S, C);
+cudaError_t chain(const double* caps, const double* pool, double* out, long long S, int C,
+                  cudaStream_t stream) {
+  waterfill_chain_kernel<T><<<blocks(S), 32 * kWarpsPerBlock, 0, stream>>>(caps, pool, out, S,
+                                                                          C);
   return cudaGetLastError();
 }
 
@@ -102,12 +151,17 @@ extern "C" int waterfill_f64(const void* caps, const void* pool, void* out,
   double* o = static_cast<double*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int Ci = (int)C;
+  if (C <= 1) return (int)descent<1>(c, p, o, S, Ci, st);
+  if (C <= 2) return (int)descent<2>(c, p, o, S, Ci, st);
+  if (C <= 4) return (int)descent<4>(c, p, o, S, Ci, st);
+  if (C <= 8) return (int)descent<8>(c, p, o, S, Ci, st);
+  if (C <= 16) return (int)descent<16>(c, p, o, S, Ci, st);
+  if (C <= 32) return (int)descent<32>(c, p, o, S, Ci, st);
   const long long tiles = (C + 31) / 32;
-  if (tiles <= 1) return (int)launch<1>(c, p, o, S, Ci, st);
-  if (tiles <= 2) return (int)launch<2>(c, p, o, S, Ci, st);
-  if (tiles <= 4) return (int)launch<4>(c, p, o, S, Ci, st);
-  if (tiles <= 8) return (int)launch<8>(c, p, o, S, Ci, st);
-  if (tiles <= 16) return (int)launch<16>(c, p, o, S, Ci, st);
-  if (tiles <= 32) return (int)launch<32>(c, p, o, S, Ci, st);
+  if (tiles <= 2) return (int)chain<2>(c, p, o, S, Ci, st);
+  if (tiles <= 4) return (int)chain<4>(c, p, o, S, Ci, st);
+  if (tiles <= 8) return (int)chain<8>(c, p, o, S, Ci, st);
+  if (tiles <= 16) return (int)chain<16>(c, p, o, S, Ci, st);
+  if (tiles <= 32) return (int)chain<32>(c, p, o, S, Ci, st);
   return (int)cudaErrorInvalidValue;
 }

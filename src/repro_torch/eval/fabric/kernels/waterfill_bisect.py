@@ -6,7 +6,9 @@ Port of the Pallas kernel ``_waterfill_kernel``
 (S, C) and pool (S,), :data:`BISECT_ITERS` halvings of the water level
 from ``max(caps)``; the allocation is ``min(cap, level)``. It agrees with
 the sort-based closed form :func:`repro_torch.eval.fabric.kernels.
-waterfill` to ~1e-12 relative.
+waterfill` to ~1e-12 relative. On rows of C <= 32 the kernel runs the
+halvings as a 32-way descent; :func:`waterfill_descent_plain` is its plain
+mirror, equal to it bit for bit.
 
 :func:`waterfill_bisect` launches the kernel for CUDA tensors and runs
 :func:`waterfill_bisect_plain` only for CPU tensors.
@@ -52,6 +54,59 @@ def bisect_level(caps, pool):
         lo = torch.where(low, mid, lo)
         hi = torch.where(low, hi, mid)
     return hi
+
+
+#: halvings a round of the kernel's 32-way descent (rows of C <= 32)
+DESCENT_LEVELS = 5
+
+
+def fold(x):
+    """The sum over the last axis (of length 32) in the warp butterfly's
+    pairing, ``x[i] += x[i + o]`` for o = 16, 8, 4, 2, 1, as the kernel's
+    ``fold`` and ``warp_sum`` add."""
+    o = x.shape[-1] // 2
+    while o:
+        x = x[..., :o] + x[..., o:2 * o]
+        o //= 2
+    return x[..., 0]
+
+
+def waterfill_descent_plain(caps, pool):
+    """Plain mirror of the kernel on rows of C <= 32: the water level as
+    ``BISECT_ITERS / DESCENT_LEVELS`` rounds of a 32-way descent. Node
+    n = 1..31 of a round (heap order: children 2n and 2n + 1) is walked to
+    with the halvings ``0.5 * (lo + hi)`` the one-at-a-time chain would take,
+    its sum of ``min(cap, mid)`` is taken in the butterfly's pairing
+    (:func:`fold`), and the path of ``sum < pool_eff`` picks the next
+    bracket. Equals the kernel bit for bit; returns ``min(caps, level)``."""
+    S, C = caps.shape
+    if C > 32:
+        raise ValueError(f"the 32-way descent takes rows of C <= 32, got {C}")
+    if C == 0:
+        return torch.zeros_like(caps)
+    pad = torch.nn.functional.pad(caps, (0, 32 - C))  # the warp's 32 lanes
+    pool_eff = torch.clamp(torch.minimum(pool, fold(pad)), min=0.0)
+    hi = torch.clamp(pad.amax(dim=-1), min=0.0)
+    lo = torch.zeros_like(hi)
+    node = torch.arange(1, 32)  # lanes 0..30; lane 31's node is never picked
+    depth = torch.floor(torch.log2(node.double())).long()
+    rows = torch.arange(S)
+    for _ in range(BISECT_ITERS // DESCENT_LEVELS):
+        lo_n, hi_n = lo[:, None].expand(S, 31), hi[:, None].expand(S, 31)
+        for d in range(DESCENT_LEVELS - 2, -1, -1):
+            m = 0.5 * (lo_n + hi_n)
+            on, right = d < depth, ((node >> d) & 1).bool()
+            lo_n = torch.where(on & right, m, lo_n)
+            hi_n = torch.where(on & ~right, m, hi_n)
+        mid = 0.5 * (lo_n + hi_n)
+        low = fold(torch.minimum(pad[:, None, :], mid[:, :, None])) < pool_eff[:, None]
+        n = torch.ones(S, dtype=torch.long)
+        for _ in range(1, DESCENT_LEVELS):
+            n = 2 * n + low[rows, n - 1].long()
+        up, pick = low[rows, n - 1], n - 1
+        lo = torch.where(up, mid[rows, pick], lo_n[rows, pick])
+        hi = torch.where(up, hi_n[rows, pick], mid[rows, pick])
+    return torch.minimum(caps, hi[:, None])
 
 
 def waterfill_bisect_plain(caps, pool):

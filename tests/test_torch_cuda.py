@@ -487,6 +487,109 @@ def test_flash_kernel_window_one_and_unattended_queries(cuda):
         assert fa.flash_attention.tc_launches == before + 2 * (dtype == torch.bfloat16)
 
 
+#: the register-tiled CUDA-core kernel (64-query blocks, 64-key tiles):
+#: S and T off every tile edge, every head-dim instance, GQA 4:1 and 8:2, a
+#: window across tile edges, softcaps, non-causal, T = 0, and fp32 rows of 72
+#: bytes (D = 18), which take the load path without cp.async (D = 20 rows
+#: are 80 bytes, on 16 bytes)
+FA_CUDA_CORE_CASES = [
+    (1, 4, 1, 1, 1, 64, True, None, 0.0),
+    (1, 4, 1, 63, 63, 64, True, None, 0.0),
+    (1, 4, 1, 65, 65, 64, True, None, 0.0),
+    (2, 8, 2, 333, 333, 128, True, None, 0.0),
+    (1, 4, 1, 1000, 1000, 256, True, None, 0.0),
+    (1, 4, 1, 130, 130, 20, True, None, 0.0),
+    (1, 4, 1, 130, 130, 32, True, None, 0.0),
+    (1, 4, 1, 130, 130, 96, True, None, 0.0),
+    (2, 8, 2, 200, 200, 256, True, 77, 0.0),
+    (1, 4, 1, 333, 333, 64, True, 77, 30.0),
+    (1, 8, 2, 150, 150, 128, True, None, 50.0),
+    (2, 4, 1, 65, 333, 64, False, None, 0.0),
+    (1, 4, 1, 63, 1000, 256, False, 77, 0.0),
+    (1, 4, 2, 5, 0, 64, False, None, 0.0),
+    (1, 4, 1, 100, 100, 18, True, None, 0.0),
+]
+
+
+@pytest.mark.parametrize("case", FA_CUDA_CORE_CASES, ids=str)
+def test_cuda_core_flash_kernel_matches_flash_attention_ref(cuda, case):
+    """fp32 on the CUDA-core kernel within rtol = atol = 2e-5 of the plain
+    version, one launch a call (T = 0: zeros)."""
+    b, h, kv, s, t, d, causal, window, cap = case
+    gen = torch.Generator(device=cuda).manual_seed(1000 + s * d + t)
+    q = torch.randn((b, h, s, d), generator=gen, device=cuda)
+    k, v = (torch.randn((b, kv, t, d), generator=gen, device=cuda) for _ in range(2))
+    kw = dict(causal=causal, window=window, logit_softcap=cap)
+    assert fa._route(q.dtype, d) == fa.CUDA_CORES
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    torch.testing.assert_close(out, flash_attention_ref(q, k, v, **kw), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("case", [(1, 3, 1, 50, 70, 20, False, 9, 0.0),
+                                  (2, 4, 2, 130, 130, 20, True, 77, 30.0)], ids=str)
+def test_cuda_core_flash_kernel_takes_bf16_rows_off_16_bytes(cuda, case):
+    """bf16 with D = 20 (40-byte rows) on the CUDA-core kernel, upcast on
+    load, within rtol = atol = 2e-2 and normwise FA_BF16_NORMWISE."""
+    b, h, kv, s, t, d, causal, window, cap = case
+    gen = torch.Generator(device=cuda).manual_seed(s + t)
+    q = torch.randn((b, h, s, d), generator=gen, device=cuda).bfloat16()
+    k, v = (torch.randn((b, kv, t, d), generator=gen, device=cuda).bfloat16() for _ in range(2))
+    kw = dict(causal=causal, window=window, logit_softcap=cap)
+    assert fa._route(q.dtype, d) == fa.CUDA_CORES
+    out = fa.flash_attention(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(out, want, rtol=2e-2, atol=2e-2)
+    o, w = out.float(), want.float()
+    assert (o - w).norm().item() <= FA_BF16_NORMWISE * w.norm().item()
+
+
+def test_cuda_core_flash_kernel_takes_inputs_off_16_bytes(cuda):
+    """fp32 views that start 4 bytes past a 16-byte boundary take the plain
+    load path: the same result as aligned copies, within 2e-5 of the plain
+    version."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    shapes = [(2, 4, 150, 64), (2, 1, 150, 64), (2, 1, 150, 64)]
+    views = []
+    for shape in shapes:
+        n = int(np.prod(shape))
+        views.append(torch.randn(n + 1, generator=gen, device=cuda)[1:].view(shape))
+    q, k, v = views
+    assert all(t.is_contiguous() and t.data_ptr() % 16 == 4 for t in views)
+    out = fa.flash_attention(q, k, v, window=77)
+    torch.testing.assert_close(out, flash_attention_ref(q, k, v, window=77), rtol=2e-5, atol=2e-5)
+    assert torch.equal(out, fa.flash_attention(q.clone(), k.clone(), v.clone(), window=77))
+
+
+def _waterfill_rows(C, seed, S=300):
+    """caps with idle channels; pools that bind, exceed the caps' sum, are 0
+    or are negative."""
+    rng = np.random.RandomState(seed)
+    caps = rng.uniform(0, 1e9, (S, C))
+    caps[rng.uniform(size=caps.shape) < 0.3] = 0.0
+    pool = rng.uniform(0, 1.0, S) * caps.sum(axis=1)
+    pool[1::5] = caps[1::5].sum(axis=1) * 1.5 + 1.0
+    pool[2::5] = 0.0
+    pool[3::5] = -1.0 - caps[3::5].sum(axis=1)
+    return torch.from_numpy(caps), torch.from_numpy(pool)
+
+
+@pytest.mark.parametrize("C", [1, 3, 16, 17, 32, 33, 64, 1000])
+def test_waterfill_kernel_runs_the_descent_bit_for_bit(cuda, C):
+    """Rows of C <= 32 run the 32-way descent: the kernel's output equals its
+    plain mirror's on the same inputs bit for bit; wider rows keep the
+    halving chain, within 1e-12 of the plain version."""
+    caps, pool = _waterfill_rows(C, seed=C)
+    before = wf.waterfill_bisect.launches
+    out = wf.waterfill_bisect(caps.to(cuda), pool.to(cuda)).cpu()
+    assert wf.waterfill_bisect.launches == before + 1
+    if C <= 32:
+        assert torch.equal(out, wf.waterfill_descent_plain(caps, pool))
+    torch.testing.assert_close(out, wf.waterfill_bisect_plain(caps, pool), rtol=1e-12, atol=0)
+
+
 def test_resolve_device_keeps_fp32_products_out_of_tf32(cuda):
     """A caller's "high" precision would run fp32 matrix products in TF32;
     resolving the card sets them back to full fp32."""

@@ -84,3 +84,62 @@ def test_wrapper_runs_the_plain_version_on_cpu_tensors():
     out = wf.waterfill_bisect(_t(caps), _t(pool))
     assert wf.waterfill_bisect.launches == before  # no kernel on the CPU
     torch.testing.assert_close(out, wf.waterfill_bisect_plain(_t(caps), _t(pool)), rtol=0, atol=0)
+
+
+def _butterfly_chain(caps, pool):
+    """The halving chain one level at a time, each sum in the warp
+    butterfly's pairing (the kernel's one-at-a-time form)."""
+    pad = torch.nn.functional.pad(caps, (0, 32 - caps.shape[1]))
+    pool_eff = torch.clamp(torch.minimum(pool, wf.fold(pad)), min=0.0)
+    hi = torch.clamp(pad.amax(dim=-1), min=0.0)
+    lo = torch.zeros_like(hi)
+    for _ in range(wf.BISECT_ITERS):
+        mid = 0.5 * (lo + hi)
+        low = wf.fold(torch.minimum(pad, mid[:, None])) < pool_eff
+        lo, hi = torch.where(low, mid, lo), torch.where(low, hi, mid)
+    return torch.minimum(caps, hi[:, None])
+
+
+@pytest.mark.parametrize("C", [1, 3, 4, 8, 16, 17, 32])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_descent_mirror_is_the_butterfly_halving_chain_bit_for_bit(C, seed):
+    """The 32-way descent takes the chain's mids and sums: its level and
+    output equal the one-at-a-time chain's exactly."""
+    caps, pool = _draw(C, seed=300 + 10 * C + seed, S=64)
+    out = wf.waterfill_descent_plain(_t(caps), _t(pool))
+    assert torch.equal(out, _butterfly_chain(_t(caps), _t(pool)))
+
+
+@pytest.mark.parametrize("C", [1, 3, 16, 17, 32])
+def test_descent_mirror_matches_interpreted_pallas_kernel(C):
+    caps, pool = _draw(C, seed=400 + C)
+    with jax.enable_x64(True):
+        ref = np.asarray(waterfill_pallas(caps, pool, interpret=True))
+    out = wf.waterfill_descent_plain(_t(caps), _t(pool)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=RTOL, atol=0)
+    np.testing.assert_allclose(out, wf.waterfill_bisect_plain(_t(caps), _t(pool)).numpy(),
+                               rtol=RTOL, atol=0)
+
+
+@pytest.mark.parametrize("pool_kind", ["zero", "above_the_caps", "negative"])
+def test_descent_mirror_edge_pools(pool_kind):
+    """A zero or negative pool fills to ``max(caps) * 2**-80`` at most (the
+    bracket's lower end is 0); a pool above the caps' sum gives every
+    channel its cap."""
+    caps, _ = _draw(16, seed=500)
+    total = caps.sum(axis=1)
+    pool = {"zero": 0.0 * total, "above_the_caps": 2.0 * total + 1.0,
+            "negative": -1.0 - total}[pool_kind]
+    out = wf.waterfill_descent_plain(_t(caps), _t(pool))
+    assert torch.equal(out, _butterfly_chain(_t(caps), _t(pool)))
+    if pool_kind == "above_the_caps":
+        np.testing.assert_allclose(out.numpy(), caps, rtol=RTOL, atol=0)
+    else:
+        assert (out.numpy() <= caps.max(axis=1, keepdims=True) * 2.0 ** -80).all()
+        assert (out.numpy() >= 0).all()
+
+
+def test_descent_mirror_refuses_rows_wider_than_a_warp():
+    caps, pool = _draw(33, seed=6)
+    with pytest.raises(ValueError, match="C <= 32"):
+        wf.waterfill_descent_plain(_t(caps), _t(pool))
