@@ -44,6 +44,14 @@ Phases, each printing its own lines:
      relative; rows whose event counts differ are counted and listed); a
      sample of 64 rows must match the port's own CPU run (plain kernel
      versions) within 1e-6 relative;
+  5b. the port's event simulator (a scalar loop on the host) over the
+     default and full grids, timed; each route's results of phases 4 and
+     5 (default grid: "rounds", "kernel", "none"; full grid: "rounds",
+     "kernel") paired with it through eval.difftest: the worst relative
+     throughput error of each, limits 2% (the difftest's bar) and 1e-6
+     (route agreement); rows whose event counts differ are listed, not
+     gated; then `python -m repro_torch.eval.difftest --smoke --route
+     all` in a subprocess on the card must exit 0;
   6. profiled runs of the sweep: the default grid on the "rounds" and
      "kernel" routes and the full grid on "rounds": device busy and idle
      share, device operations per host round;
@@ -98,6 +106,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1638,9 +1647,11 @@ def sweep_paths(wf, fs, by_path):
     # ---- 4. the default grid on the three routes ----
     golden = load_golden(str(GOLDEN))
     scs = default_matrix()
+    default_res = {}
     for route, must in (("rounds", "fused_rounds"), ("kernel", "fused_step"),
                         ("none", "waterfill")):
         res, st, lc, secs = run_grid(scs, "cuda", route, wf, fs)
+        default_res[route] = res
         devs = compare_golden(golden, metrics_snapshot(scs, res))
         path = f"default_{route}"
         for k in lc:
@@ -1704,6 +1715,9 @@ def sweep_paths(wf, fs, by_path):
     for k, n in launches.items():
         fail_if(n == 0, f"full grid: {k} was never launched on its path")
 
+    # ---- 5b. the event simulator against every route ----
+    event_against_routes(scs, default_res, full, {"rounds": res, "kernel": res_k})
+
     # ---- 6. profiled sweeps ----
     from torch.profiler import ProfilerActivity, profile
 
@@ -1735,6 +1749,54 @@ def sweep_paths(wf, fs, by_path):
             print(f"[profile] {label}, fused_step={route}: wall {wall:.3f}s; device time not "
                   "measured (the profiler recorded no device activity)", flush=True)
     return launches
+
+
+#: phase 5b's limit on each route against the event leg: route agreement
+#: (PERF.md section 2), far inside the difftest's own 2%
+EVENT_ROUTE_TOL = 1e-6
+
+
+def event_against_routes(scs, default_res, full, full_res):
+    """Phase 5b: the port's event simulator over both grids, paired with
+    the routes' results of phases 4 and 5 (no further card runs), then
+    the difftest CLI on the smoke matrix in a subprocess on the card."""
+    from repro_torch.eval import difftest
+    from repro_torch.eval.runner import run_matrix
+
+    for grid, scenarios, by_route in (("default", scs, default_res), ("full", full, full_res)):
+        t0 = time.perf_counter()
+        event = run_matrix(scenarios, backend="event")
+        secs = time.perf_counter() - t0
+        print(f"[event] {grid} grid: {len(scenarios)} rows, "
+              f"{sum(r.n_events for r in event)} events in {secs:.3f}s on the host "
+              f"({len(scenarios) / secs:.1f} rows/s)", flush=True)
+        for route, results in by_route.items():
+            reports = difftest.pair_results(scenarios, event, results, "event", route)
+            worst = max(r.rel_err for r in reports)
+            differ = difftest.event_count_differences(scenarios, event, results)
+            print(f"[event] {grid} grid, route {route} vs the event leg: worst relative "
+                  f"throughput error {worst:.3e} (limits {difftest.DEFAULT_RTOL:g} and "
+                  f"{EVENT_ROUTE_TOL:g}); {len(differ)} rows count other events "
+                  f"(event, {route}): {differ}", flush=True)
+            try:
+                difftest.assert_agreement(reports)
+            except AssertionError as exc:
+                raise SmokeFailure(f"{grid} grid, route {route}: {exc}") from None
+            fail_if(not worst <= EVENT_ROUTE_TOL,
+                    f"{grid} grid, route {route}: {worst:.3g} from the event leg")
+            fail_if(any(a.total_bytes != b.total_bytes for a, b in zip(event, results)),
+                    f"{grid} grid, route {route}: total_bytes differ from the event leg")
+
+    cmd = [sys.executable, "-m", "repro_torch.eval.difftest", "--smoke", "--route", "all"]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=str(ROOT), env=env, capture_output=True, text=True,
+                         timeout=600)
+    for line in out.stdout.splitlines():
+        print(f"[difftest] {line}", flush=True)
+    print(f"[difftest] {' '.join(cmd[1:])}: exit {out.returncode} in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    fail_if(out.returncode != 0, f"the difftest CLI failed: {out.stderr[-2000:]}")
 
 
 def main(argv) -> int:

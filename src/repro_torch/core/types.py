@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Optional
+from typing import Optional, Sequence
 
 MB = 1024 * 1024
 GB = 1024 * MB
@@ -20,6 +20,16 @@ KB = 1024
 def gbps(x: float) -> float:
     """Gigabits/second -> bytes/second."""
     return x * 1e9 / 8.0
+
+
+def mbps(x: float) -> float:
+    """Megabits/second -> bytes/second."""
+    return x * 1e6 / 8.0
+
+
+def to_gbps(bytes_per_s: float) -> float:
+    """bytes/second -> Gigabits/second."""
+    return bytes_per_s * 8.0 / 1e9
 
 
 class ChunkType(enum.IntEnum):
@@ -117,6 +127,16 @@ class DiskSpec:
             return self.per_channel_rate
         return self.streaming_rate / max(1, self.saturation_cc)
 
+    def aggregate_rate(self, active_channels: int) -> float:
+        """Aggregate disk rate shared by ``active_channels`` channels: the
+        streaming rate, degraded by ``contention`` per channel past
+        ``saturation_cc`` (below it the per-channel lane is the limit)."""
+        if active_channels <= 0:
+            return 0.0
+        over = max(0, active_channels - self.saturation_cc)
+        penalty = 1.0 / (1.0 + self.contention * over)
+        return self.streaming_rate * penalty
+
 
 @dataclasses.dataclass(frozen=True)
 class NetworkSpec:
@@ -154,6 +174,28 @@ class NetworkSpec:
             if list(prof) != sorted(prof, key=lambda p: p[0]):
                 raise ValueError("bandwidth_profile steps must be sorted")
 
+    def bandwidth_at(self, t: float) -> float:
+        """Link capacity at simulation time ``t`` (nominal when static)."""
+        if self.bandwidth_profile is None:
+            return self.bandwidth
+        mult = self.bandwidth_profile[0][1]
+        for step_t, step_m in self.bandwidth_profile:
+            if step_t <= t:
+                mult = step_m
+            else:
+                break
+        return self.bandwidth * mult
+
+    def next_profile_change(self, t: float) -> float:
+        """Time of the first profile step strictly after ``t`` (inf when
+        none remains or the path is static): an event horizon."""
+        if self.bandwidth_profile is None:
+            return float("inf")
+        for step_t, _ in self.bandwidth_profile:
+            if step_t > t:
+                return step_t
+        return float("inf")
+
     @property
     def bdp(self) -> float:
         """Bandwidth-delay product in bytes."""
@@ -165,3 +207,31 @@ class NetworkSpec:
         per_stream = self.window_efficiency * self.buffer_size / max(self.rtt, 1e-9)
         eff = 1.0 / (1.0 + self.stream_cpu_overhead * (p - 1))
         return min(p * per_stream * eff, self.bandwidth)
+
+
+@dataclasses.dataclass
+class Chunk:
+    """A set of files of one size class plus its tuned parameters."""
+
+    ctype: ChunkType
+    files: list  # list[FileSpec]
+    params: Optional[TransferParams] = None
+
+    @property
+    def total_bytes(self) -> int:
+        return sum(f.size for f in self.files)
+
+    @property
+    def avg_file_size(self) -> float:
+        return self.total_bytes / len(self.files) if self.files else 0.0
+
+    @property
+    def name(self) -> str:
+        return self.ctype.name
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+
+def dataset_total(files: Sequence[FileSpec]) -> int:
+    return sum(f.size for f in files)

@@ -82,6 +82,48 @@ def small_dominated_mixed(scale: float = 1.0, seed: int = 3) -> List[FileSpec]:
     return base + extra
 
 
+def chunk_count_mixed(scale: float = 1.0, seed: int = 4) -> List[FileSpec]:
+    """Fig. 4: 1 MB..9.2 GB mixed dataset, total 300.5 GB (chunk-count study)."""
+    rng = np.random.RandomState(seed)
+    n = max(16, int(round(3000 * scale)))
+    sizes = np.exp(rng.uniform(np.log(1 * MB), np.log(9.2 * GB), size=n))
+    sizes *= (300.5 * GB * scale) / sizes.sum()
+    sizes = np.clip(sizes, 1 * MB, 9.2 * GB)
+    rng.shuffle(sizes)
+    return _spec_list("ccmix", sizes)
+
+
+def equal_class_dataset(
+    total_bytes: float, seed: int = 5, files_per_class: int = 64
+) -> List[FileSpec]:
+    """Fig. 7: all four size classes with close-to-equal total sizes."""
+    rng = np.random.RandomState(seed)
+    per_class = total_bytes / 4.0
+    out: List[FileSpec] = []
+    ranges = {
+        "small": (1 * MB, 62 * MB),
+        "medium": (63 * MB, 250 * MB),
+        "large": (251 * MB, 1250 * MB),
+        "huge": (1251 * MB, 9 * GB),
+    }
+    for cls, (lo, hi) in ranges.items():
+        sizes: List[float] = []
+        budget = per_class
+        while budget > lo:
+            s = float(rng.uniform(lo, min(hi, max(lo + 1, budget))))
+            sizes.append(s)
+            budget -= s
+            if len(sizes) >= files_per_class:
+                break
+        if not sizes:
+            sizes = [per_class]
+        out.extend(
+            FileSpec(name=f"{cls}/{i:05d}", size=int(s))
+            for i, s in enumerate(sizes)
+        )
+    return out
+
+
 def heavy_tail_dataset(
     scale: float = 1.0, seed: int = 6, alpha: float = 1.1
 ) -> List[FileSpec]:
@@ -111,3 +153,15 @@ def small_file_swarm(scale: float = 1.0, seed: int = 7) -> List[FileSpec]:
 def uniform_files(n: int, size: int, prefix: str = "u") -> List[FileSpec]:
     """n equal files."""
     return [FileSpec(name=f"{prefix}/{i:06d}", size=size) for i in range(n)]
+
+
+#: the named generators of the paper's datasets and the wider shapes
+DATASETS = {
+    "des": dark_energy_survey,
+    "genome": genome_sequencing,
+    "mixed": mixed_dataset,
+    "small_dominated": small_dominated_mixed,
+    "chunk_count_mixed": chunk_count_mixed,
+    "heavy_tail": heavy_tail_dataset,
+    "small_file_swarm": small_file_swarm,
+}

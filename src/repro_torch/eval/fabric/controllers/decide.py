@@ -108,6 +108,9 @@ def laggard_grants(eta, owners, live, n_grants, max_iters: int):
         grants = grants + hit.to(torch.int64)
         first = torch.where(hit & (first == max_iters), i, first)
         n = _gather(owners + grants, dst)
-        factor = torch.where(n > 1, (n - 1.0) / torch.clamp(n, min=1), 0.5)
+        # in float64, as the reference's int64 counts promote: torch
+        # would take an int tensor and a Python float to float32
+        nf = n.to(torch.float64)
+        factor = torch.where(n > 1, (nf - 1.0) / torch.clamp(nf, min=1.0), 0.5)
         e = torch.where(hit & torch.isfinite(e), e * factor.unsqueeze(-1), e)
     return grants, first

@@ -22,11 +22,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import netmodel, testbeds
-from repro_torch.core.baselines import GLOBUS_PRESETS
+from repro_torch.core.baselines import GLOBUS_PRESETS, globus_class
 from repro_torch.core.chunking import _CLASS_LABELS, size_thresholds
 from repro_torch.core.params import MAX_PIPELINING
 from repro_torch.core.types import (
-    MB,
     MC_ROUND_ROBIN_ORDER,
     PROMC_DELTA,
     ChunkType,
@@ -388,7 +387,7 @@ def build_plan(scenarios: Sequence) -> ScenarioPlan:
             sched_names[i] = "Untuned"
         elif alg == "globus":
             avg = contexts[c].globus_avg
-            gi = 0 if avg < 50 * MB else (1 if avg <= 250 * MB else 2)
+            gi = _GLOBUS_CLASSES.index(globus_class(avg))
             sp_pp[i] = _GLOBUS_PP[gi]
             sp_p[i] = _GLOBUS_P[gi]
             sp_cc[i] = _GLOBUS_CC[gi]

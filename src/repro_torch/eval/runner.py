@@ -1,6 +1,15 @@
 """Matrix runner: scenarios -> columnar plan -> batched sweep on the card ->
 per-scenario results -> golden compare.
 
+Two backends:
+
+  - ``batch`` (the default): the columnar plan through
+    :class:`TorchFabricSimulation`, on the card unless the caller passes
+    ``device="cpu"``;
+  - ``event``: one :class:`repro_torch.core.simulator.Simulation` per
+    row (``build_simulation(sc).run()``), a scalar loop on the host, the
+    semantics the sweep is held to (:mod:`repro_torch.eval.difftest`).
+
 Rows run in chunks of :data:`CHUNK_SIZE` scenarios ordered by the plan's cost
 proxy, so each chunk is cost-homogeneous and a long straggler does not
 pin the whole matrix's sweep width; results come back in input order.
@@ -18,18 +27,38 @@ import json
 from typing import Dict, Iterable, List, Optional, Sequence
 
 from repro_torch.core.device import resolve_device
-from repro_torch.core.simulator import SimResult
+from repro_torch.core.simulator import SimResult, Simulation
 
 from .fabric.bucketing import chunk_spans
 from .fabric.driver import SweepStats, TorchFabricSimulation
 from .fabric.plan import build_plan, plan_supported
-from .scenarios import Scenario, default_matrix, full_matrix, smoke_matrix
+from .scenarios import (
+    Scenario,
+    build_simulation,
+    default_matrix,
+    full_matrix,
+    smoke_matrix,
+)
 
 #: scenarios per batched execution chunk (bounds device memory; the
 #: 276-row default grid runs as one chunk, the full grid as two)
 CHUNK_SIZE = 1024
 
 MATRIX_NAMES = ("default", "smoke", "full")
+
+BACKENDS = ("batch", "event")
+
+
+def _check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; options: {BACKENDS}")
+
+
+def _no_object_ingest():
+    return NotImplementedError(
+        "the batched backend ingests columnar plans only; prebuilt "
+        "Simulations run on backend='event'"
+    )
 
 
 def run_plan(
@@ -66,9 +95,17 @@ def run_matrix(
     fused_step: str = "rounds",
     waterfill_impl: str = "kernel",
     stats: Optional[SweepStats] = None,
+    backend: str = "batch",
 ) -> List[SimResult]:
-    """Run every scenario through the columnar plan; results in input
-    order. ``device`` defaults to the card and raises without one."""
+    """Run every scenario; results in input order. The batched backend
+    runs the columnar plan on ``device`` (default: the card; it raises
+    without one); the event backend runs one event simulation a row on
+    the host and takes no device."""
+    _check_backend(backend)
+    if backend == "event":
+        if device is not None:
+            raise ValueError("the event backend runs on the host; it takes no device")
+        return [build_simulation(sc).run() for sc in scenarios]
     dev = resolve_device(device)
     if not plan_supported(scenarios):
         raise ValueError("every scenario needs a built-in algorithm")
@@ -76,6 +113,30 @@ def run_matrix(
         build_plan(scenarios), device=dev, fused_step=fused_step,
         waterfill_impl=waterfill_impl, stats=stats,
     )
+
+
+def run_scenario(scenario: Scenario, backend: str = "event", device=None) -> SimResult:
+    """One scenario on ``backend`` (the event simulation by default)."""
+    return run_matrix([scenario], device=device, backend=backend)[0]
+
+
+def run_built(builders: Sequence, backend: str = "event") -> List[SimResult]:
+    """Run lazily built Simulations: ``builders[i]`` is a zero-argument
+    callable returning a fresh one (schedulers are stateful). Only the
+    event backend runs them."""
+    _check_backend(backend)
+    if backend != "event":
+        raise _no_object_ingest()
+    return [b().run() for b in builders]
+
+
+def run_simulations(sims: Sequence[Simulation], backend: str = "event") -> List[SimResult]:
+    """Run prebuilt Simulations (sweeps that do not fit the Scenario
+    grid); only the event backend runs them."""
+    _check_backend(backend)
+    if backend != "event":
+        raise _no_object_ingest()
+    return [sim.run() for sim in sims]
 
 
 def build_matrix(name: str) -> List[Scenario]:

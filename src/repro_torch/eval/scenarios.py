@@ -16,7 +16,9 @@ from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core import testbeds
-from repro_torch.core.types import GB, MB, FileSpec
+from repro_torch.core.runner import build_scheduler
+from repro_torch.core.simulator import Simulation
+from repro_torch.core.types import GB, MB, FileSpec, param_triple
 from repro_torch.data import filesets
 
 #: name -> builder(seed) -> list[FileSpec], scaled to tens of files
@@ -162,6 +164,40 @@ def _build_files_cached(dataset: str, dataset_seed: int) -> tuple:
     return entry
 
 
+def build_files(scenario: Scenario) -> List[FileSpec]:
+    """The scenario's dataset (deterministic in (dataset, seed)); the
+    specs are shared through the cache, the list is fresh per call."""
+    return list(_build_files_cached(scenario.dataset, scenario.dataset_seed))
+
+
+def build_simulation(scenario: Scenario, record_timeline: Optional[bool] = None) -> Simulation:
+    """Scenario -> a ready-to-run event Simulation with a fresh scheduler.
+    ``record_timeline`` overrides the scenario's own flag when given."""
+    network = testbeds.TESTBEDS[scenario.network]
+    extra = (
+        {"static_params": scenario.static_params}
+        if scenario.static_params is not None
+        else {}
+    )
+    sched = build_scheduler(
+        scenario.algorithm,
+        build_files(scenario),
+        network,
+        max_cc=scenario.max_cc,
+        num_chunks=scenario.num_chunks,
+        **extra,
+    )
+    if record_timeline is None:
+        record_timeline = scenario.record_timeline
+    return Simulation(
+        sched.chunks,
+        sched.network,  # baselines may degrade the path (GCP mode)
+        sched,
+        tick_period=scenario.tick_period,
+        record_timeline=record_timeline,
+    )
+
+
 def default_matrix(seed: int = 0) -> List[Scenario]:
     """The golden-pinned grid: 6 networks x 6 core datasets x 5 schedulers
     (maxCC=8) = 180 rows, plus a maxCC sweep {1, 2, 4, 16} of MC and
@@ -220,6 +256,27 @@ def full_matrix(seed: int = 0) -> List[Scenario]:
         for ds in ("mixed", "heavy_tail", "uniform_huge"):
             for algo in ("sc", "mc", "promc"):
                 out.append(Scenario(network=net, dataset=ds, algorithm=algo, seed=seed))
+    return out
+
+
+def expand_candidates(scenarios: Sequence[Scenario], candidates) -> List[Scenario]:
+    """Expand a matrix along the autotuner's candidate axis: each scenario
+    yields one ``static`` row per ``(pp, p, cc)`` candidate (a shared
+    sequence, ``TransferParams`` accepted, or a callable ``scenario ->
+    sequence``), scenario-major, candidate order kept. A candidate row
+    moves exactly the bytes of its base scenario."""
+    out: List[Scenario] = []
+    for sc in scenarios:
+        cands = candidates(sc) if callable(candidates) else candidates
+        for params in cands:
+            out.append(
+                dataclasses.replace(
+                    sc,
+                    algorithm="static",
+                    static_params=param_triple(params),
+                    record_timeline=False,
+                )
+            )
     return out
 
 

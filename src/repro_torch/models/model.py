@@ -62,6 +62,28 @@ def _params(shapes: Dict[str, Tuple[int, ...]], device) -> Dict[str, nn.Paramete
     }
 
 
+#: vocabulary columns of one fp32 slice of the logits product
+LOGITS_SLICE = 16384
+
+
+def sliced_logits(h: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``h`` (..., D) times ``table`` (V, D) transposed with bf16 operands:
+    the products, exact in fp32, are summed in fp32 and stored bf16, a
+    slice of :data:`LOGITS_SLICE` vocabulary columns at a time, so no fp32
+    (..., V) tensor is made (at gemma3-1b's 262,144 vocabulary and 8 x 512
+    tokens it would be 4.3 GB, the largest buffer). The sums run in fp32
+    arithmetic (on the card ``resolve_device`` keeps them out of TF32): one
+    bf16 product on the H100's tensor cores rounds ~6.5x as many logits
+    away from the exact sum's bf16 value (``repro_torch.bench.logits_rounding``)."""
+    h = L.cast(h).float()
+    vocab = table.shape[0]
+    out = torch.empty(h.shape[:-1] + (vocab,), dtype=torch.bfloat16, device=h.device)
+    for lo in range(0, vocab, LOGITS_SLICE):
+        w = L.cast(table[lo:lo + LOGITS_SLICE]).float()
+        out[..., lo:lo + LOGITS_SLICE] = torch.matmul(h, w.T)
+    return out
+
+
 class BaseLM(nn.Module):
     """Embedding and output head shared by every family."""
 
@@ -123,13 +145,11 @@ class BaseLM(nn.Module):
         return L.cast(emb * math.sqrt(self.cfg.d_model))
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
-        """Final norm, then bf16 x bf16 against the (tied) table with fp32
-        accumulation, stored bf16. The products of two bf16 values are exact
-        in fp32, so the fp32 product of the upcast operands is that sum."""
+        """Final norm, then the (tied) table's product, stored bf16
+        (:func:`sliced_logits`)."""
         h = L.rms_norm(h, self.embed["final_norm"], self.cfg.norm_eps)
         table = self.embed["head"] if "head" in self.embed else self.embed["tok"]
-        logits = torch.matmul(h.float(), L.cast(table).float().T)
-        return logits.to(torch.bfloat16)
+        return sliced_logits(h, table)
 
 
 class DenseBlock(nn.Module):

@@ -650,3 +650,36 @@ def test_dense_model_on_the_card_matches_its_cpu_run(cuda):
         torch.testing.assert_close(got_h.cpu(), h_out, rtol=1e-2, atol=1e-2)
         for name, want in st_out.items():
             torch.testing.assert_close(got[name].cpu(), want, rtol=1e-2, atol=1e-2)
+
+
+def test_dense_logits_make_no_fp32_vocab_buffer(cuda):
+    """At gemma3-1b's width and vocabulary (262,144) and 8 x 512 tokens the
+    fp32 (B, S, V) logits would be 4.3 GB; ``_logits`` (fp32 sums a
+    vocabulary slice at a time, stored bf16) stays below that, and agrees
+    with the whole-vocabulary fp32-then-cast product within one bf16 ulp
+    plus the bound of the fp32 sums' order."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_config("gemma3-1b"), num_layers=1, layer_pattern="L")
+    model = build_model(cfg, device=cuda).init(torch.Generator(device=cuda).manual_seed(0))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    h = torch.randn((8, 512, cfg.d_model), generator=g, device=cuda).to(torch.bfloat16)
+    fp32_bytes = 8 * 512 * cfg.vocab_size * 4
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    logits = model._logits(h)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert logits.dtype == torch.bfloat16 and logits.shape == (8, 512, cfg.vocab_size)
+    assert peak < fp32_bytes, (peak, fp32_bytes)
+    hn = model.embed["final_norm"]
+    from repro_torch.models import layers as L
+
+    hn = L.rms_norm(h[:1], hn, cfg.norm_eps)
+    table = L.cast(model.embed["tok"])
+    old = torch.matmul(hn.float(), table.float().T).to(torch.bfloat16)
+    mag = torch.matmul(hn.float().abs(), table.float().abs().T)
+    e = torch.floor(torch.log2(old.float().abs().clamp(min=2.0 ** -126)))
+    bound = torch.exp2(e - 7) + 2 * cfg.d_model * 2.0 ** -24 * mag
+    assert bool(((logits[:1].float() - old.float()).abs() <= bound).all())

@@ -91,6 +91,28 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
     assert len(res) == 2 and all(r.total_time > 0 for r in res)
 
 
+def test_difftest_needs_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """The difftest's CLI and its sweep legs raise without a card; the
+    event leg runs on the host and needs none."""
+    from repro_torch.eval import difftest
+    from repro_torch.eval.runner import run_matrix, run_scenario
+    from repro_torch.eval.scenarios import smoke_matrix
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scs = smoke_matrix()[:2]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        difftest.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        difftest.main(["--smoke", "--device", "cuda", "--route", "all"])
+    for leg in difftest.SWEEP_LEGS:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            difftest.run_leg(scs, leg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_scenario(scs[0], backend="batch")
+    assert len(run_matrix(scs, backend="event")) == 2
+    assert difftest.main(["--smoke", "--device", "cpu", "--sample", "3"]) == 0
+
+
 def test_model_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
     from repro_torch.configs import get_config
     from repro_torch.models.config import reduce_for_smoke
