@@ -12,13 +12,17 @@ Phases, each printing its own lines:
   3. each kernel against its plain PyTorch version on the card at the
      shapes its path gives it: the sweep's kernels also on a live
      default-grid state (limit 1e-12 relative; bool and int64 outputs
-     exact), the one-step fused kernel, the loop kernel (fused_rounds) on
-     live default-grid states at caps of 1, 16 and 256 steps, on states
-     pushed to each stop reason, on the default grid with 32 and 64
-     channel columns (the wide rows' one-halving-at-a-time water level)
-     and on a live full-grid chunk, then on that chunk at the main path's
-     cap of 2,048 steps, timed (per launch and per step of the longest
-     row), the WKV-6 kernel at the serving run's prefill and decode
+     exact), the one-step fused kernel, the loop kernel (fused_rounds, the
+     whole device loop: steps, completions, handlers, ticks, ProMC moves,
+     resume stack, timeline ring) against its plain whole loop on live
+     default-grid states at caps of 1, 3, 16, 256 and 2,048 steps, on states
+     pushed to each stop (done, both capacity guards, max_time, stranded,
+     cap), with resume files and with recording rows (a ring of 8 samples),
+     on the default grid with 32 and 64 channel columns (the wide rows'
+     one-halving-at-a-time water level) and on a live full-grid chunk, then
+     on that chunk at the main path's cap of 2,048 steps, timed (per launch
+     and per step of the longest row), the WKV-6 kernel at the serving
+     run's prefill and decode
      shapes and a long prompt (rtol = atol = 1e-4, fp32), the RG-LRU
      kernel at recurrentgemma-9b's prefill, decode and long-prompt shapes,
      an odd width and bf16 inputs (rtol = atol = 1e-6), the two
@@ -36,12 +40,16 @@ Phases, each printing its own lines:
   4. the 276-row default grid on the loop kernel's route ("rounds", the
      default), the one-step fused route ("kernel") and the split route
      ("none"), each held to tests/golden/eval_matrix.json at rtol 1e-6;
-     host rounds, device row steps and host syncs of each;
+     host rounds, device row steps, host syncs and host transitions (rows
+     a capacity guard stopped; must be 0) of each;
   5. the main path: the 1116-row full grid on the "rounds" route, then on
      the "kernel" route, each with every launch count set to 0 just before
      and read just after; rows/s of each; the two held to each other over
      every row (total_time, throughput, per-chunk bytes within 1e-6
-     relative; rows whose event counts differ are counted and listed); a
+     relative; rows whose event counts differ are counted and listed);
+     host transitions 0 on both; the "rounds" route's host rounds must be
+     the launches each runner chunk's longest row needs at 2,048 steps a
+     launch; a
      sample of 64 rows must match the port's own CPU run (plain kernel
      versions) within 1e-6 relative;
   5b. the port's event simulator (a scalar loop on the host) over the
@@ -51,7 +59,7 @@ Phases, each printing its own lines:
      throughput error of each, limits 2% (the difftest's bar) and 1e-6
      (route agreement); rows whose event counts differ are listed, not
      gated; then `python -m repro_torch.eval.difftest --smoke --route
-     all` in a subprocess on the card must exit 0;
+     all --expect-zero-replays` in a subprocess on the card must exit 0;
   6. profiled runs of the sweep: the default grid on the "rounds" and
      "kernel" routes and the full grid on "rounds": device busy and idle
      share, device operations per host round;
@@ -251,7 +259,7 @@ def rel_err(out, ref) -> float:
 def abs_err(out, ref) -> float:
     import torch
 
-    same = out == ref
+    same = (out == ref) | (torch.isnan(out) & torch.isnan(ref))
     return float(torch.where(same, 0.0, (out - ref).abs()).max()) if out.numel() else 0.0
 
 
@@ -1435,7 +1443,7 @@ def dense_card_against_cpu(fa):
 
 
 #: step caps of phase 3's loop-kernel checks on the live default-grid state
-ROUND_CHECK_STEPS = (1, 16, 256)
+ROUND_CHECK_STEPS = (1, 16, 256, 2048)
 
 
 def live_round_state(scenarios, sweeps, widen=0):
@@ -1468,28 +1476,32 @@ def full_chunk():
     return [full[i] for i in order[:CHUNK_SIZE]]
 
 
-def round_events(s, out, max_steps):
+def round_events(s, out):
     """What the rows of one loop-kernel launch met, from its operands ``s``
-    and the plain version's results ``out``: each stop reason of their
-    last step, rows that took a tick's bookkeeping inside the loop, rows
-    that stepped past a bandwidth-profile step."""
+    and the plain version's results ``out``: each stop code, and what rows
+    did inside the loop (chunk completions, ticks, ProMC ticks, moves and
+    grants, SC waves, resume pushes, timeline samples and halvings,
+    bandwidth-profile steps)."""
     import torch
 
-    from repro_torch.eval.fabric.kernels import fused_step as fs
-    from repro_torch.eval.fabric.shim import TorchOps
+    from repro_torch.eval.fabric import transition as tr
 
     act = s["act"]
-    busy_k = TorchOps.count_by_chunk(s["chunk_of"], out["busy"], s["qptr"].shape[1])
-    tick = out["t"] >= out["next_tick"] - 1e-12
+    kind = s["kind"]
     crossed = (s["prof_t"] > s["t"].unsqueeze(-1)) & (s["prof_t"] < out["t"].unsqueeze(-1))
     masks = {
-        "completion": (~s["chunk_done"] & (s["qlen"] - out["qptr"] == 0) & (busy_k == 0)).any(-1),
-        "promc_tick": tick & (s["kind"] == fs.KIND_PROMC),
-        "no_busy": ~out["busy"].any(-1),
-        "timeline": s["record_timeline"],
-        "max_time": out["t"] > s["max_time"],
-        "cap": out["steps"] >= max_steps,
-        "tick_in_loop": out["next_tick"] > s["next_tick"],
+        "done": out["stop"] == tr.STOP_DONE,
+        "cap": out["stop"] == tr.STOP_CAP,
+        "guard": out["stop"] == tr.STOP_GUARD,
+        "error": out["stop"] == tr.STOP_ERROR,
+        "completion": (out["chunk_done"] & ~s["chunk_done"]).any(-1),
+        "tick": out["next_tick"] > s["next_tick"],
+        "promc_tick": (out["next_tick"] > s["next_tick"]) & (kind == tr.KIND_PROMC),
+        "sc_wave": out["sc_cursor"] > s["sc_cursor"],
+        "grant_or_move": out["n_moves"] > s["n_moves"],
+        "resume_push": (out["prepend_sizes"] != s["prepend_sizes"]).flatten(1).any(-1),
+        "timeline": out["tl_seen"] > s["tl_seen"],
+        "halving": out["tl_stride"] > s["tl_stride"],
         "profile_step": crossed.any(-1),
     }
     return {k: int(torch.sum(act & m)) for k, m in masks.items()}
@@ -1497,37 +1509,81 @@ def round_events(s, out, max_steps):
 
 def pushed(s, reason):
     """A copy of the loop operands ``s`` with some rows pushed to
-    ``reason``."""
+    ``reason``, and the events a launch on it must show."""
+    import torch
+
+    from repro_torch.eval.fabric import transition as tr
+
     s = {k: v.clone() for k, v in s.items()}
-    if reason == "no_busy":  # idle rows whose queues ran dry
-        s["busy"][::7] = False
-        s["qptr"][::7] = s["qlen"][::7]
-    elif reason == "max_time":
+    kind, act = s["kind"], s["act"]
+    must = {"max_time": ("error",), "stranded": ("error",), "sc_guard": ("guard",),
+            "stack_guard": ("guard",), "resume": ("resume_push", "grant_or_move"),
+            "timeline": ("timeline", "halving"),
+            "multi_completion": ("completion", "done")}[reason]
+    if reason == "max_time":
         s["max_time"].copy_(s["t"] + 1.0)
-    elif reason == "timeline":
+    elif reason == "multi_completion":  # idle rows whose queues ran dry: every
+        s["busy"][::5] = False          # live chunk completes in one step
+        s["qptr"][::5] = s["qlen"][::5]
+    elif reason == "stranded":  # rows whose channels were all closed
+        for name, empty in (("chunk_of", -1), ("busy", False), ("dead", 0.0), ("rem", 0.0),
+                            ("cap", 0.0)):
+            s[name][::7] = empty
+    elif reason == "sc_guard":  # SC waves wider than the channel axis
+        sc = kind == tr.KIND_SC
+        s["conc"][sc] = s["busy"].shape[1] + 1
+    elif reason == "stack_guard":  # ProMC rows ticking with a full stack
+        pr = (kind == tr.KIND_PROMC) & act
+        s["prepend_sizes"] = s["prepend_sizes"][..., :1].contiguous()
+        s["prepend_sizes"].fill_(4.0e6)
+        live = pr.unsqueeze(-1) & ~s["chunk_done"]
+        s["prepend_n"][live] = 1000
+        s["next_tick"][pr] = s["t"][pr]
+    elif reason == "resume":  # resume files on the ProMC rows' live chunks
+        pr = (kind == tr.KIND_PROMC) & act
+        live = pr.unsqueeze(-1) & ~s["chunk_done"]
+        size = torch.ceil(s["avg_fs_k"])
+        s["prepend_sizes"][..., :2] = size.unsqueeze(-1)
+        s["prepend_n"][live] = 2
+        s["queue_bytes"] += torch.where(live, 2 * size, 0.0)
+        s["promc_patience"][pr] = 1
+        s["promc_ratio"][pr] = 1.2
+    elif reason == "timeline":  # recording rows in a ring of 8 samples
+        S = s["act"].shape[0]
         s["record_timeline"][::3] = True
-    return s
+        for name, shape, fill in (("tl_t", (S, 8), 0.0), ("tl_rate", (S, 8), 0.0),
+                                  ("tl_len", (S,), 0), ("tl_stride", (S,), 1),
+                                  ("tl_seen", (S,), 0), ("tl_last_t", (S,), 0.0),
+                                  ("tl_last_rate", (S,), 0.0)):
+            s[name] = torch.full(shape, fill, dtype=s[name].dtype, device=s[name].device)
+    return s, must
 
 
 def rounds_checks(fs, default_state, chunk_state):
-    """Phase 3, the loop kernel: against the plain version on the card, on
-    the live default-grid state at each cap of ROUND_CHECK_STEPS, on states
-    pushed to the stop reasons the live state meets rarely, on the default
-    grid with 32 and 64 channel columns, on the live full-grid chunk, and
-    on that chunk at the main path's cap (limit 1e-12 relative; bool and
-    int64 exact); timed on the last, with the plain version and the bound.
-    Returns the timing row (the kernels JSON line's)."""
+    """Phase 3, the loop kernel: against the plain whole loop on the card,
+    on the live default-grid state at each cap of ROUND_CHECK_STEPS, on
+    states pushed to each stop (done, both capacity guards, max_time,
+    stranded, cap) and with resume files and recording rows, on the
+    default grid with 32 and 64 channel columns, on the live full-grid
+    chunk, and on that chunk at the main path's cap (limit 1e-12 relative;
+    bool and int64 exact, rings, stacks and chunk_of included); timed on
+    the last, with the plain version and the bound. Returns the timing row
+    (the kernels JSON line's)."""
     import torch
 
-    cases = [(f"live default grid, cap {n}", default_state, n, None) for n in ROUND_CHECK_STEPS]
-    cases += [(f"default grid pushed to {r}, cap 64", pushed(default_state, r), 64, r)
-              for r in ("no_busy", "max_time", "timeline")]
+    cases = [(f"live default grid, cap {n}", default_state, n, ("done",) if n == 2048 else ())
+             for n in ROUND_CHECK_STEPS]
+    cases.append(("live default grid, cap 3", default_state, 3, ("cap",)))
+    for reason in ("max_time", "stranded", "sc_guard", "stack_guard", "resume", "timeline",
+                   "multi_completion"):
+        s, must = pushed(default_state, reason)
+        cases.append((f"default grid pushed to {reason}, cap 256", s, 256, must))
     # wider channel axes: one tile of 32, two tiles
     from repro_torch.eval.scenarios import default_matrix
 
-    cases += [(f"live default grid widened {w}x, cap 64",
-               live_round_state(default_matrix(), 20, widen=w), 64, None) for w in (1, 2)]
-    cases.append(("live full-grid chunk, cap 256", chunk_state, 256, "profile_step"))
+    cases += [(f"live default grid widened {w}x, cap 256",
+               live_round_state(default_matrix(), 20, widen=w), 256, ("done",)) for w in (1, 2)]
+    cases.append(("live full-grid chunk, cap 256", chunk_state, 256, ("profile_step",)))
     seen, worst = {}, 0.0
     for label, s0, max_steps, must in cases:
         want = fs.fused_rounds_plain(s0, max_steps)
@@ -1538,14 +1594,16 @@ def rounds_checks(fs, default_state, chunk_state):
         fail_if(fs.fused_rounds.launches != before + 1, f"fused_rounds {label}: no launch")
         worst = max(worst, compare([got[k] for k in want], list(want.values()),
                                    f"fused_rounds {label}"))
-        ev = round_events(s0, want, max_steps)
+        ev = round_events(s0, want)
         for k, n in ev.items():
             seen[k] = seen.get(k, 0) + n
-        fail_if(must is not None and ev[must] == 0, f"fused_rounds {label}: no row met {must}")
+        missing = [m for m in must if ev[m] == 0]
+        fail_if(bool(missing), f"fused_rounds {label}: no row met {missing}")
         print(f"[kernels] fused_rounds {label}: S={s0['act'].shape[0]} C={s0['busy'].shape[1]} "
-              f"K={s0['qptr'].shape[1]} B={s0['prof_t'].shape[1]}; {int(want['steps'].sum())} row "
-              f"steps (longest {int(want['steps'].max())}); rows stopping by reason {ev}; equal "
-              "to the plain version", flush=True)
+              f"K={s0['qptr'].shape[1]} B={s0['prof_t'].shape[1]} P={s0['prepend_sizes'].shape[2]} "
+              f"T={s0['tl_t'].shape[1]}; {int(want['steps'].sum())} row steps (longest "
+              f"{int(want['steps'].max())}); rows by stop and event {ev}; equal to the plain "
+              "version", flush=True)
     missing = [k for k, n in seen.items() if n == 0]
     fail_if(bool(missing), f"fused_rounds: no check met {missing}")
 
@@ -1565,6 +1623,7 @@ def rounds_checks(fs, default_state, chunk_state):
     longest = int(want["steps"].max())
     S, C = s0["busy"].shape
     fed = int((want["qptr"] - s0["qptr"]).sum())
+    ev = round_events(s0, want)
     # each operand read once, the state and outputs written once, each fed
     # file size read once (not the whole buffer); 2 flops (min, add) a
     # channel a halving, 80 halvings a row step
@@ -1581,11 +1640,11 @@ def rounds_checks(fs, default_state, chunk_state):
         "library_ms": None, "row_steps": steps, "longest": longest,
     }
     print(f"[kernels] fused_rounds full-grid chunk S={S} C={C} cap {cap}: {steps} row steps, "
-          f"longest row {longest}; against the plain version: worst relative {rel:.3g}, |error| "
-          f"{err:.3g}, bool / int64 equal | device {ms:.4f} ms a launch, {ms / longest * 1e3:.3f} "
-          f"us a step of the longest row | plain {plain_ms:.1f} ms | bound "
-          f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}: {nbytes / 1e6:.2f} MB, "
-          f"{ops / 1e9:.3f} GFLOP)", flush=True)
+          f"longest row {longest}; rows by stop and event {ev}; against the plain version: "
+          f"worst relative {rel:.3g}, |error| {err:.3g}, bool / int64 equal | device {ms:.4f} ms "
+          f"a launch, {ms / longest * 1e3:.3f} us a step of the longest row | plain "
+          f"{plain_ms:.1f} ms | bound {row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}: "
+          f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP)", flush=True)
     return row
 
 
@@ -1659,12 +1718,15 @@ def sweep_paths(wf, fs, by_path):
         print(f"[default] fused_step={route}: {len(scs)} rows in {secs:.3f}s "
               f"({len(scs) / secs:.1f} rows/s), {st.sweeps} host rounds ({st.fused} fused, "
               f"{st.split} split), {st.steps} device row steps, {st.host_syncs} host syncs, "
-              f"launches {lc}, {len(devs)} golden deviations", flush=True)
+              f"{st.host_transitions} host transitions, launches {lc}, {len(devs)} golden "
+              "deviations", flush=True)
         for d in devs[:10]:
             print(f"[default] DEVIATION {d.scenario} {d.field}: golden={d.golden} "
                   f"observed={d.observed}", flush=True)
         fail_if(bool(devs), f"default grid ({route}): {len(devs)} golden deviations")
         fail_if(lc[must] == 0, f"default grid ({route}): {must} never launched")
+        fail_if(st.host_transitions != 0,
+                f"default grid ({route}): {st.host_transitions} rows left a transition to the host")
 
     # ---- 5. the main path: the full grid, "rounds" route, then "kernel" ----
     full = full_matrix()
@@ -1673,8 +1735,11 @@ def sweep_paths(wf, fs, by_path):
     for k in launches:
         by_path[k]["full"] = launches[k]
         by_path[k]["full_kernel_route"] = launches_k[k]
-    # the one-step kernel's own path is the "kernel" route
+    # the one-step kernel's own path is the "kernel" route, and so is the
+    # water-fill kernel's: that route splits the sweeps of batches that
+    # hold resume files, which the loop kernel feeds itself
     launches["fused_step"] = launches_k["fused_step"]
+    launches["waterfill"] = launches_k["waterfill"]
     worst_route, differ = 0.0, []
     for i, (a, b) in enumerate(zip(res, res_k)):
         fail_if(a.total_bytes != b.total_bytes, f"full grid row {i}: total_bytes by route")
@@ -1683,10 +1748,30 @@ def sweep_paths(wf, fs, by_path):
         worst_route = max([worst_route] + [abs(x - y) / max(abs(y), 1e-300) for x, y in pairs])
         if a.n_events != b.n_events:
             differ.append((full[i].name, a.n_events, b.n_events))
+    # every host round after a runner chunk's first is a row at the step
+    # cap: a chunk takes as many launches as its longest row needs
+    from repro_torch.eval.fabric.bucketing import chunk_spans
+    from repro_torch.eval.fabric.plan import build_plan
+    from repro_torch.eval.runner import CHUNK_SIZE
+
+    costs = build_plan(full).cost_proxy()
+    order = sorted(range(len(full)), key=lambda i: costs[i])
+    need = []
+    for lo, hi in chunk_spans(len(order), CHUNK_SIZE):
+        longest = max(res[i].n_events for i in order[lo:hi])
+        need.append((hi - lo, longest, -(-longest // fs.ROUND_CAP)))
+    print(f"[full] fused_step=rounds by runner chunk (rows, the longest row's steps, the "
+          f"launches it needs at {fs.ROUND_CAP} steps a launch): {need}; host rounds "
+          f"{st.sweeps}", flush=True)
+    fail_if(st.sweeps != sum(n for _, _, n in need),
+            "full grid: host rounds beyond the step cap's")
     for rt, stt, sec in (("rounds", st, secs), ("kernel", st_k, secs_k)):
         print(f"[full] fused_step={rt}: {len(full)} rows in {sec:.3f}s ({len(full) / sec:.1f} "
               f"rows/s), {stt.sweeps} host rounds ({stt.fused} fused, {stt.split} split), "
-              f"{stt.steps} device row steps, {stt.host_syncs} host syncs", flush=True)
+              f"{stt.steps} device row steps, {stt.host_syncs} host syncs, "
+              f"{stt.host_transitions} host transitions", flush=True)
+        fail_if(stt.host_transitions != 0,
+                f"full grid ({rt}): {stt.host_transitions} rows left a transition to the host")
     print(f"[full] rounds vs kernel over all {len(full)} rows: worst relative difference "
           f"{worst_route:.3g} (total_time, throughput, per-chunk bytes; limit 1e-6); "
           f"{len(differ)} rows count other events: {differ[:12]}", flush=True)
@@ -1787,7 +1872,8 @@ def event_against_routes(scs, default_res, full, full_res):
             fail_if(any(a.total_bytes != b.total_bytes for a, b in zip(event, results)),
                     f"{grid} grid, route {route}: total_bytes differ from the event leg")
 
-    cmd = [sys.executable, "-m", "repro_torch.eval.difftest", "--smoke", "--route", "all"]
+    cmd = [sys.executable, "-m", "repro_torch.eval.difftest", "--smoke", "--route", "all",
+           "--expect-zero-replays"]
     env = dict(os.environ, PYTHONPATH=str(SRC))
     t0 = time.perf_counter()
     out = subprocess.run(cmd, cwd=str(ROOT), env=env, capture_output=True, text=True,

@@ -27,11 +27,14 @@ Rows count their events too: where the sweep's water level (bisected, or
 the closed form's sums) and the event loop's part in the last bits, a
 row may take a step more or fewer, with its times equal to ~1e-16
 (:func:`event_count_differences` lists such rows; they are not gated;
-the reference's NumPy driver does the same). Two parts of the reference harness are left out:
-``--expect-zero-replays`` (the port has no replay path: the sweep ingests
-built-in schedulers only and raises on custom scheduler rows, so the
-count would read nothing), and the shared-fabric ``tenant`` matrices (the
-plan raises on coupled rows).
+the reference's NumPy driver does the same).
+
+``--expect-zero-replays`` fails the run unless every leg run through the
+loop kernel (:data:`LOOP_LEGS`) left no transition to the host
+(``SweepStats.host_transitions``, the rows a capacity guard stopped: the
+counterpart of the reference's parked-row replays). The shared-fabric
+``tenant`` matrices of the reference harness are left out (the plan
+raises on coupled rows).
 """
 from __future__ import annotations
 
@@ -48,6 +51,9 @@ DEFAULT_RTOL = 0.02
 
 #: the sweep's routes; ``"all"`` on the command line runs each
 ROUTES = ("rounds", "kernel", "none")
+
+#: the legs that run through the loop kernel
+LOOP_LEGS = ("rounds",)
 
 #: leg name -> (fused_step, waterfill_impl) of the batched driver
 SWEEP_LEGS: Dict[str, Tuple[str, str]] = {
@@ -77,10 +83,10 @@ class DiffReport:
         return self.rel_err <= rtol
 
 
-def run_leg(scenarios: Sequence[Scenario], leg: str, device=None):
+def run_leg(scenarios: Sequence[Scenario], leg: str, device=None, stats=None):
     """Results of one leg: ``"event"`` on the host, a sweep leg of
     :data:`SWEEP_LEGS` on ``device`` (default: the card; raises without
-    one)."""
+    one). ``stats``, a ``SweepStats``, accumulates a sweep leg's counts."""
     if leg == "event":
         return run_matrix(scenarios, backend="event")
     try:
@@ -88,7 +94,8 @@ def run_leg(scenarios: Sequence[Scenario], leg: str, device=None):
     except KeyError:
         raise ValueError(f"unknown leg {leg!r}; options: event, {', '.join(SWEEP_LEGS)}") from None
     return run_matrix(
-        scenarios, device=device, fused_step=fused_step, waterfill_impl=waterfill_impl
+        scenarios, device=device, fused_step=fused_step, waterfill_impl=waterfill_impl,
+        stats=stats,
     )
 
 
@@ -159,15 +166,20 @@ def diff_backend(
     rtol: float = DEFAULT_RTOL,
     device=None,
     results_cache: Optional[dict] = None,
+    stats=None,
 ) -> List[DiffReport]:
     """Hold one sweep leg to the event leg. Each leg runs at most once:
     pass ``results_cache`` to share the runs across calls; the pairings
-    reuse the results."""
+    reuse the results. ``stats`` accumulates the sweep leg's counts when
+    it runs."""
     cache = results_cache if results_cache is not None else {}
 
     def results(leg: str):
         if leg not in cache:
-            cache[leg] = run_leg(scenarios, leg, device)
+            if stats is not None and leg == backend:
+                cache[leg] = run_leg(scenarios, leg, device, stats=stats)
+            else:
+                cache[leg] = run_leg(scenarios, leg, device)
         return cache[leg]
 
     reports = pair_results(scenarios, results("event"), results(backend), "event", backend)
@@ -193,6 +205,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         help="a deterministic N-scenario subsample of the matrix (seeded shuffle)",
     )
     ap.add_argument("--sample-seed", type=int, default=0, help="seed for --sample")
+    ap.add_argument(
+        "--expect-zero-replays", action="store_true",
+        help="fail unless every leg through the loop kernel left no transition to the host",
+    )
     args = ap.parse_args(argv)
     device = resolve_device(args.device)  # raises before any leg runs
 
@@ -215,9 +231,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         f"event leg: {len(scenarios)} scenarios, "
         f"{sum(r.n_events for r in cache['event'])} events in {event_s:.3f}s on the host"
     )
+    from .fabric.driver import SweepStats
+
+    failed = []
     for leg in legs:
+        stats = SweepStats() if args.expect_zero_replays and leg in LOOP_LEGS else None
         reports = diff_backend(
-            scenarios, leg, rtol=args.rtol, device=device, results_cache=cache
+            scenarios, leg, rtol=args.rtol, device=device, results_cache=cache, stats=stats
         )
         worst = max((r.rel_err for r in reports), default=0.0)
         differ = event_count_differences(scenarios, cache["event"], cache[leg])
@@ -228,6 +248,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         )
         for name, n_ref, n_leg in differ[:20]:
             print(f"  events {name}: event={n_ref} {leg}={n_leg}")
+        if stats is not None:
+            print(f"  host transitions (rows a capacity guard stopped): {stats.host_transitions}")
+            if stats.host_transitions:
+                failed.append(leg)
+    if failed:
+        print(f"difftest FAILED: --expect-zero-replays, host transitions on {failed}")
+        return 1
     return 0
 
 

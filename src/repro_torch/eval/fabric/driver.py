@@ -13,28 +13,34 @@ buffer (Q,) padded once at upload. C, K, P, B and Q sit on the bucketing
 ladder; C and P are sized up front from the plan's closed-form bound on
 simultaneously open channels.
 
-A sweep is :meth:`_advance` (rates, horizon, fluid byte movement) then
-:meth:`_post` (feed, chunk completions, controller tick, scenario done).
-While no resume file exists in the batch, sweeps take a fused route:
+A step advances a row (rates, horizon, fluid byte movement) and feeds its
+idle channels; the transition that follows (:mod:`.transition`: chunk
+completions, the SC / MC / ProMC handlers, the controller tick, the done
+test) is one copy of torch code that the host and the loop kernel's plain
+version share. Three routes:
 
-* ``fused_step="rounds"`` (the default): one launch of the fused-rounds
-  CUDA kernel per host round. Each row takes steps on the card (rates +
-  horizon + advance + feed, the profile lookup, the clock, the event
-  count, the ``delivered`` scatter and the tick EMA) until the host has
-  something to decide, a chunk completion, a ProMC tick, no busy channel,
-  a timeline sample, ``max_time`` or :data:`ROUND_CAP` steps; then
-  :meth:`_post` runs once for every row's last step. Every row's event
-  sequence is the one-step route's: scenarios are independent.
+* ``fused_step="rounds"`` (the default): one launch of the loop kernel
+  (``csrc/fused_step.cu``) per host round. Each row runs on the card,
+  steps and transitions alike (the resume-stack feed and the timeline
+  ring included), until it is done, errs (``t > max_time`` or a stranded
+  chunk; the host raises), meets a capacity guard (an SC wave wider than
+  the free columns, a ProMC tick with a full resume stack: its pending
+  transition runs on the host in the next round, which grows the axis,
+  and ``SweepStats.host_transitions`` counts it) or has taken
+  :data:`ROUND_CAP` steps. C and P are pre-sized so that the guards do not
+  fire on the grids.
 * ``fused_step="kernel"``: one launch of the one-step fused kernel per
-  sweep, then :meth:`_post`.
+  sweep while no resume file exists in the batch, then :meth:`_post` on
+  the host.
+* ``fused_step="none"``: every sweep split, whose water-fill is the
+  bisected CUDA kernel (``waterfill_impl="kernel"``) or the sort-based
+  closed form (``"closed"``), then :meth:`_post`.
 
-Sweeps with resume files, and every sweep under ``fused_step="none"``,
-take the split path, whose water-fill is the bisected CUDA kernel
-(``waterfill_impl="kernel"``) or the sort-based closed form
-(``"closed"``). On the CPU the same routes run the kernels' plain PyTorch
-versions. The SC / MC / ProMC controllers run as masked tensor code
-batched over S; the host reads back a few flags per round (which paths
-to take, whether a row broke its limits) and nothing per row.
+On the CPU the same routes run the kernels' plain PyTorch versions. The
+controllers run as masked tensor code batched over S; the host reads back
+a few flags per round (which paths to take, whether a row broke its
+limits, which handlers and axes a host transition needs) and nothing per
+row.
 
 Only the built-in controllers of a plan are supported; custom scheduler
 rows and coupled shared-fabric rows raise.
@@ -51,17 +57,15 @@ import torch
 from repro_torch.core.device import resolve_device
 from repro_torch.core.simulator import SimResult
 
-from . import controllers, kernels
+from . import kernels, transition
 from .bucketing import COMPACT_FLOOR, PROFILE_PAD_FLOOR, bucket, qsizes_pad
 from .kernels.fused_step import ROUND_CAP, ROUND_OPERANDS, fused_rounds, fused_step
 from .kernels.waterfill_bisect import waterfill_bisect
 from .plan import PLAN_C_FLOOR, PLAN_PROFILED_C_FLOOR
 from .shim import NO_CHUNK, TorchOps
+from .transition import KIND_TRIVIAL, STOP_GUARD, STOP_NONE
 
 _EPS = 1e-12
-
-#: controller kinds (plan rows carry no custom schedulers)
-KIND_TRIVIAL, KIND_STATIC, KIND_SC, KIND_MC, KIND_PROMC = 0, 1, 2, 3, 4
 
 #: default scenario wall-clock guard (seconds of simulated time)
 _DEFAULT_MAX_TIME = 48 * 3600.0
@@ -84,8 +88,7 @@ _ROW_ARRAYS = (
     "pair_fast", "pair_slow", "promc_ratio", "promc_patience", "sc_cursor",
     "sc_order", "conc", "par", "cap_k", "avg_fs_k", "nfiles", "setup_cost",
     "n_moves", "prof_t", "prof_mult", "tl_t", "tl_rate", "tl_len",
-    "tl_stride", "tl_seen", "tl_last_t", "tl_last_rate", "steps", "rate_sum",
-    "t0",
+    "tl_stride", "tl_seen", "tl_last_t", "tl_last_rate", "steps", "stop",
 )
 
 #: per-row results read back when a row retires
@@ -98,15 +101,18 @@ _RESULT_ARRAYS = (
 @dataclasses.dataclass
 class SweepStats:
     """What one driver did: host rounds (``sweeps``) by route, host reads
-    of device values (each one waits for the device), and row steps taken
-    on the device (``steps``, the sum of the rows' event counts; on the
-    ``"rounds"`` route a round takes many)."""
+    of device values (each one waits for the device), row steps taken on
+    the device (``steps``, the sum of the rows' event counts; on the
+    ``"rounds"`` route a round takes many), and rows whose loop stopped at
+    a capacity guard and left a step's transition to the host
+    (``host_transitions``; 0 wherever the plan's bounds size C and P)."""
 
     sweeps: int = 0
     fused: int = 0
     split: int = 0
     host_syncs: int = 0
     steps: int = 0
+    host_transitions: int = 0
 
 
 class _PlanRuntime:
@@ -289,10 +295,9 @@ class TorchFabricSimulation:
             "tl_seen": (np.zeros(S, dtype=np.int64), i8),
             "tl_last_t": (np.zeros(S), f8),
             "tl_last_rate": (np.zeros(S), f8),
-            # the last fused-rounds launch: steps, last rate sum and start
+            # the last loop launch: each row's steps and stop code
             "steps": (np.zeros(S, dtype=np.int64), i8),
-            "rate_sum": (np.zeros(S), f8),
-            "t0": (np.zeros(S), f8),
+            "stop": (np.full(S, STOP_NONE, dtype=np.int64), i8),
         }
         for name, (arr, dtype) in host.items():
             setattr(self, name, self._up(arr, dtype))
@@ -352,17 +357,22 @@ class TorchFabricSimulation:
 
     def step(self) -> bool:
         """One host round over the live rows: a synchronized sweep, or on
-        the ``"rounds"`` route each row's steps up to its next host
-        decision. Returns False once every row is done. One host read
-        decides the route, compaction and whether any row exceeded
-        ``max_time`` or stranded a chunk."""
+        the ``"rounds"`` route one loop launch in which each row steps
+        until it is done, errs, meets a capacity guard or takes
+        :data:`ROUND_CAP` steps. Returns False once every row is done. One
+        host read decides the route, compaction, whether any row exceeded
+        ``max_time`` or stranded a chunk, and which rows a guard stopped
+        (their pending transition runs here first)."""
         act = ~self.done
-        over = act & (self.t > self.max_time)
-        stranded = self._stranded(act)
-        n_act, n_pre, n_over, n_str = self._read(
-            torch.stack(
-                [act.sum(), (self.prepend_n > 0).sum(), over.sum(), stranded.sum()]
-            )
+        pending = act & (self.stop == STOP_GUARD)
+        chk = act & ~pending  # a pending row's state is mid-step
+        over = chk & (self.t > self.max_time)
+        stranded = transition.stranded(vars(self), chk)
+        n_act, n_pre, n_over, n_str, n_pend = self._read(
+            torch.stack([
+                act.sum(), (self.prepend_n > 0).sum(), over.sum(), stranded.sum(),
+                pending.sum(),
+            ])
         )
         if n_act == 0:
             return False
@@ -378,15 +388,20 @@ class TorchFabricSimulation:
             raise RuntimeError(
                 f"scheduler {r.scheduler} stranded chunks of {r.name!r}"
             )
+        if n_pend:
+            self.stats.host_transitions += n_pend
+            self._post(pending, skip_feed=True)
+            self.stop = torch.where(pending, STOP_NONE, self.stop)
+            act = ~self.done
         # amortized compaction: rebuild once half of a wide batch is done
         if self.S > COMPACT_FLOOR and (self.S - n_act) * 2 >= self.S:
             self._compact(act)
             act = ~self.done
         self.stats.sweeps += 1
-        if self.fused_step == "rounds" and n_pre == 0:
+        if self.fused_step == "rounds":
             self.stats.fused += 1
-            self._advance_rounds(act)  # counts the rows' events itself
-            self._post(act, skip_feed=True)
+            # counts the rows' events and takes their transitions itself
+            fused_rounds(self.round_operands(act), ROUND_CAP)
             return True
         self.n_events = self.n_events + act.to(torch.int64)
         if self.fused_step == "kernel" and n_pre == 0:
@@ -398,13 +413,6 @@ class TorchFabricSimulation:
             self._advance(act)
             self._post(act)
         return True
-
-    def _stranded(self, act):
-        """Rows with no busy channel and a live chunk that holds no channel
-        (a scheduler fault)."""
-        no_busy = act & ~self.busy.any(dim=-1)
-        held = TorchOps.count_by_chunk(self.chunk_of, self.chunk_of != NO_CHUNK, self.K) > 0
-        return no_busy & (~self.chunk_done & ~held).any(dim=-1)
 
     def _bandwidth_now(self):
         """Effective per-row bandwidth under the profile at time ``t`` and
@@ -477,219 +485,37 @@ class TorchFabricSimulation:
         self.fin_any = torch.where(act, fin, self.fin_any)
 
     def round_operands(self, act) -> dict:
-        """The fused-rounds kernel's operands: the driver's own state
-        tensors by name (updated in place by a launch), with ``act``."""
+        """The loop kernel's operands: the driver's own state tensors by
+        name (updated in place by a launch), with ``act``."""
         s = {name: getattr(self, name) for name in ROUND_OPERANDS if name != "act"}
         s["act"] = act
         return s
 
-    def _advance_rounds(self, act) -> None:
-        """Each row of ``act`` steps on the card up to its next host
-        decision (resume-free batches only); the timeline sample of a
-        recording row's single step is pushed here."""
-        fused_rounds(self.round_operands(act), ROUND_CAP)
-        if self._any_record:
-            self._record(act, self.rate_sum, self.t0)
-
     def _feed(self, enabled) -> None:
         """Idle channels of ``enabled`` rows pull their next file (resume
         stack first, then FIFO)."""
-        (
-            self.busy, self.dead, self.rem, self.qptr, self.queue_bytes,
-            self.prepend_n,
-        ) = kernels.feed_queues(
-            enabled, self.chunk_of, self.busy, self.dead, self.rem,
-            self.qsizes, self.qoff, self.qlen, self.qptr, self.queue_bytes,
-            self.fsdt, self.prepend_sizes, self.prepend_n,
-        )
-
-    def _mark_complete(self, m) -> None:
-        self.chunk_done = self.chunk_done | m
-        self.queue_bytes = torch.where(m, 0.0, self.queue_bytes)
-        self.completed_at = torch.where(m, self.t.unsqueeze(-1), self.completed_at)
+        transition.feed(vars(self), enabled)
 
     def _post(self, act, skip_feed: bool = False) -> None:
-        """Transition half of a sweep: feed -> completions -> tick -> done
-        (``skip_feed`` on the fused route, whose kernel fed already)."""
+        """Transition half of a sweep on the host: feed (unless the step's
+        kernel fed already) -> completions -> tick -> done, through
+        :func:`.transition.post_transition` on the driver's own tensors.
+        One host read skips handlers no row runs and finds the capacity
+        guards, which grow C or P before the transition."""
+        s = vars(self)  # post_transition replaces the driver's tensors in place
         if not skip_feed:
-            self._feed(act)
-
-        # a chunk completes once no file is left and none is in flight
-        busy_per_chunk = TorchOps.count_by_chunk(self.chunk_of, self.busy, self.K)
-        files_left = self.qlen - self.qptr + self.prepend_n
-        completed = (
-            act.unsqueeze(-1) & ~self.chunk_done & (files_left == 0)
-            & (busy_per_chunk == 0)
-        )
-        comp_rows = completed.any(dim=-1)
-        tick_hit = act & (self.t >= self.next_tick - _EPS)
-        # baselines: pure bookkeeping
-        self._mark_complete(completed & self.trivial_complete.unsqueeze(-1))
-        ctrl = completed & (self.kind >= KIND_SC).unsqueeze(-1)
-        is_sc = self.kind == KIND_SC
-        is_mc = (self.kind == KIND_MC) | (self.kind == KIND_PROMC)
-        promc_tick = tick_hit & (self.kind == KIND_PROMC)
-        flags = self._read(
-            torch.cat([
-                (ctrl & is_sc.unsqueeze(-1)).any(dim=0),
-                (ctrl & is_mc.unsqueeze(-1)).any(dim=0),
-                tick_hit.any().unsqueeze(0),
-                promc_tick.any().unsqueeze(0),
-            ])
-        )
-        K = self.K
-        sc_k, mc_k = flags[:K], flags[K: 2 * K]
-        if any(sc_k) or any(mc_k):
-            self._complete_ctrl(ctrl, sc_k, mc_k, is_sc, is_mc)
-        if flags[2 * K]:
-            ema = kernels.tick_ema(
-                self.rate_est, self.delivered, self.delivered_at_tick,
-                self.tick_period.unsqueeze(-1),
-            )
-            rows = tick_hit.unsqueeze(-1)
-            self.rate_est = torch.where(rows, ema, self.rate_est)
-            self.delivered_at_tick = torch.where(rows, self.delivered, self.delivered_at_tick)
-            if flags[2 * K + 1]:
-                self._tick_ctrl(promc_tick)
-            self.next_tick = self.next_tick + torch.where(tick_hit, self.tick_period, 0.0)
-
-        newly = act & self.chunk_done.all(dim=-1) & (self.fin_any | comp_rows)
-        self.finish_t = torch.where(newly, self.t, self.finish_t)
-        self.done = self.done | newly
-
-    # ------------------------------------------------------------------ #
-    # batched controller dispatch (SC / MC / ProMC rows)
-    # ------------------------------------------------------------------ #
-
-    def _view_arrays(self):
-        """Batched chunk views: (S, K) remaining bytes, channel counts and
-        ETAs for the controller kernels."""
-        open_mask = self.chunk_of != NO_CHUNK
-        n_ch = TorchOps.count_by_chunk(self.chunk_of, open_mask, self.K)
-        inflight = TorchOps.chunk_scatter_add(
-            torch.zeros_like(self.queue_bytes), self.chunk_of, self.rem,
-            open_mask & self.busy,
-        )
-        bytes_rem = self.queue_bytes + inflight
-        pred = controllers.predicted_chunk_rate(
-            self.avg_fs_k, self.cap_k, self.fsdt, n_ch, open_mask.sum(dim=-1),
-            self.bw, self.disk_rate, self.sat_cc, self.contention,
-        )
-        eta = controllers.chunk_eta(bytes_rem, self.rate_est, pred, self.chunk_done)
-        return bytes_rem, n_ch, eta
-
-    def _complete_ctrl(self, m, sc_k, mc_k, is_sc, is_mc) -> None:
-        """Chunk completions on controller rows: mark every completed chunk,
-        then run each chunk's completion handler in index order (lowest
-        first) with a re-feed after each, as the event loop orders them."""
-        rows = m.any(dim=-1)
-        self._mark_complete(m)
-        # ProMC drops its streak evidence on any completion
-        pr = rows & (self.kind == KIND_PROMC)
-        self.streak = torch.where(pr, 0, self.streak)
-        self.pair_fast = torch.where(pr, -1, self.pair_fast)
-        self.pair_slow = torch.where(pr, -1, self.pair_slow)
-        for k in range(self.K):
-            if not (sc_k[k] or mc_k[k]):
-                continue
-            trig = m[:, k]
-            fed = torch.zeros_like(trig)
-            short = torch.zeros((), dtype=torch.bool, device=self.device)
-            freed = torch.zeros_like(self.n_moves)
-            if sc_k[k]:
-                sc_t = trig & is_sc
-                n_open, nxt = self._sc_close(sc_t, k)
-                short = ((self.chunk_of == NO_CHUNK).sum(dim=-1) < n_open).any()
-                fed = fed | sc_t
-            if mc_k[k]:
-                mc_t = trig & is_mc
-                bytes_rem, n_ch, eta = self._view_arrays()
-                freed = torch.where(mc_t, n_ch[:, k], 0)
-            grow, max_iters = self._read(torch.stack([short.to(torch.int64), freed.max()]))
-            if sc_k[k]:
-                while grow:
-                    self._grow()
-                    grow = self._read(((self.chunk_of == NO_CHUNK).sum(dim=-1) < n_open).any())
-                self.chunk_of, self.dead, self.cap = controllers.open_ranked(
-                    n_open, nxt, self.chunk_of, self.dead, self.cap,
-                    self.setup_cost, self.cap_k,
-                )
-            if mc_k[k] and max_iters > 0:
-                fed = fed | self._laggard_grant(mc_t, k, bytes_rem, n_ch, eta, freed, max_iters)
-            self._feed(fed)
-
-    def _sc_close(self, trig, k: int):
-        """SC's completion handler, first half: close the finished chunk's
-        channels and advance the cursor past empty size classes. Returns
-        how many channels the next chunk opens, and which chunk."""
-        (
-            self.chunk_of, self.busy, self.dead, self.rem, self.cap,
-        ) = controllers.close_chunk(
-            trig, k, self.chunk_of, self.busy, self.dead, self.rem, self.cap
-        )
-        self.sc_cursor = controllers.sc_advance_cursor(
-            trig, self.sc_cursor, self.sc_order, self.nfiles, self.n_chunks
-        )
-        open_ok = trig & (self.sc_cursor < self.n_chunks)
-        nxt = torch.gather(
-            self.sc_order, -1, torch.clamp(self.sc_cursor, 0, self.K - 1).unsqueeze(-1)
-        ).squeeze(-1)
-        n_open = torch.where(
-            open_ok, torch.gather(self.conc, -1, nxt.unsqueeze(-1)).squeeze(-1), 0
-        )
-        return n_open, nxt
-
-    def _laggard_grant(self, trig, k, bytes_rem, n_ch, eta, freed, max_iters):
-        """MC / ProMC completion handler: re-target the freed channels to
-        the largest-ETA chunks. Returns the rows that acted (and re-feed);
-        with no live receiver a row emits no action at all."""
-        ks = torch.arange(self.K, dtype=torch.int64, device=self.device)
-        live = ~self.chunk_done & (ks != k) & (bytes_rem > 0)
-        grants, first = controllers.laggard_grants(eta, n_ch, live, freed, max_iters)
-        acted = trig & (grants.sum(dim=-1) > 0)
-        (
-            self.chunk_of, self.busy, self.dead, self.rem, self.cap,
-            self.n_moves,
-        ) = controllers.apply_grants(
-            acted, k, grants, first, self.chunk_of, self.busy, self.dead,
-            self.rem, self.cap, self.n_moves, self.par, self.cap_k,
-            self.setup_cost,
-        )
-        return acted
-
-    def _tick_ctrl(self, rows) -> None:
-        """ProMC periodic check on ``rows``: streak update and, on patience
-        expiry, one fast->slow channel move (a busy victim pushes its
-        remainder on the resume stack)."""
-        bytes_rem, n_ch, eta = self._view_arrays()
-        live = ~self.chunk_done & (bytes_rem > 0)
-        streak, pf, ps, move, src, dst = controllers.promc_tick(
-            eta, self.rate_est, n_ch, live, self.streak, self.pair_fast,
-            self.pair_slow, self.promc_ratio, self.promc_patience,
-        )
-        self.streak = torch.where(rows, streak, self.streak)
-        self.pair_fast = torch.where(rows, pf, self.pair_fast)
-        self.pair_slow = torch.where(rows, ps, self.pair_slow)
-        moving = rows & move
-        full, any_move = self._read(
-            torch.stack([(self.prepend_n >= self.P).any(), moving.any()])
-        )
-        # keep a free stack slot on every chunk, even on no-move ticks
+            transition.feed(s, act)
+        completed, tick_hit = transition.completions(s, act)
+        flags = self._read(transition.transition_flags(s, completed, tick_hit))
+        hint = transition.hints(flags, self.K)
+        if hint["ks_sc"]:
+            while self._read(transition.sc_short(s, completed, hint["ks_sc"]).any()):
+                self._grow()
+        full = transition.stack_guard_read(flags, self.K)
         while full:
             self._grow_prepend()
-            full = self._read((self.prepend_n >= self.P).any())
-        if not any_move:
-            return
-        (
-            self.chunk_of, self.busy, self.dead, self.rem, self.cap,
-            self.queue_bytes, self.prepend_sizes, self.prepend_n,
-            self.n_moves,
-        ) = controllers.move_channel(
-            moving, src, dst, self.chunk_of, self.busy, self.dead, self.rem,
-            self.cap, self.queue_bytes, self.prepend_sizes, self.prepend_n,
-            self.n_moves, self.par, self.cap_k, self.setup_cost,
-        )
-        self._feed(moving)
+            full = self._read(transition.stack_full(s, tick_hit).any())
+        transition.post_transition(s, act, completed, tick_hit, **hint)
 
     # ------------------------------------------------------------------ #
     # live-row compaction and results

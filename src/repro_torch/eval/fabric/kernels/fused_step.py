@@ -1,33 +1,33 @@
-"""Fused resume-free sweep steps: the CUDA kernels of ``csrc/fused_step.cu``
-and their plain PyTorch versions.
+"""Fused sweep steps: the CUDA kernels of ``csrc/fused_step.cu`` and their
+plain PyTorch versions.
 
 Port of the Pallas kernel ``_fused_kernel``
 (``src/repro/eval/fabric/kernels/fused_step_pallas.py``): per scenario
 row, ``disk_pool`` -> bisected water-fill -> ``event_horizon`` ->
-``advance_channels`` -> the pure-FIFO branch of ``feed_queues``. The
-driver routes a sweep here only while no resume file exists anywhere in
-the batch. Two entry points:
+``advance_channels`` -> the pure-FIFO branch of ``feed_queues``, and of
+the reference's device loop around it (``jax_backend``'s four phases in a
+``lax.while_loop``). Two entry points:
 
 * :func:`fused_step`, the Pallas kernel's counterpart: one step of every
-  active row a launch. Operands, in order: ``act`` (S,) bool; ``busy``
-  (S, C) bool; ``dead``, ``rem``, ``cap`` (S, C) float64; ``chunk_of``
-  (S, C) int64; ``tick_dt``, ``bw``, ``disk_rate`` (S,) float64;
-  ``sat_cc`` (S,) int64; ``contention`` (S,) float64; ``qoff``, ``qlen``,
-  ``qptr`` (S, K) int64; ``queue_bytes``, ``fsdt`` (S, K) float64;
-  ``qsizes`` (Q,) float64. Returns ``(dt, rate_sum, fin_any, busy, dead,
-  rem, moved, qptr, queue_bytes)``; inactive rows pass through with
-  ``dt = 0``.
-* :func:`fused_rounds`, the reference's device loop (``jax_backend``'s
-  phase A inside a ``lax.while_loop``) for the card: each active row takes
-  steps until the host has something to decide, up to ``max_steps``
-  (:data:`ROUND_CAP`, the reference's), updating the driver's state
-  tensors in place. A step is :func:`fused_step`'s plus the profile
-  lookup, the clock, the event count and the ``delivered`` scatter; a row
-  stops after the step with a chunk completion, a ProMC tick, no busy
-  channel, a timeline sample, ``t > max_time`` or the cap, and leaves
-  that step's transition half (the driver's ``_post``) to the host. A row
-  that goes on past a tick applies the tick's bookkeeping (``tick_ema``,
-  ``delivered_at_tick``, ``next_tick``) itself.
+  active row a launch, for sweeps with no resume file in the batch.
+  Operands, in order: ``act`` (S,) bool; ``busy`` (S, C) bool; ``dead``,
+  ``rem``, ``cap`` (S, C) float64; ``chunk_of`` (S, C) int64; ``tick_dt``,
+  ``bw``, ``disk_rate`` (S,) float64; ``sat_cc`` (S,) int64;
+  ``contention`` (S,) float64; ``qoff``, ``qlen``, ``qptr`` (S, K) int64;
+  ``queue_bytes``, ``fsdt`` (S, K) float64; ``qsizes`` (Q,) float64.
+  Returns ``(dt, rate_sum, fin_any, busy, dead, rem, moved, qptr,
+  queue_bytes)``; inactive rows pass through with ``dt = 0``.
+* :func:`fused_rounds`, the whole device loop for the card: each active
+  row takes steps until it is done, errs, meets a capacity guard or has
+  taken ``max_steps`` (:data:`ROUND_CAP`, the reference's), updating the
+  driver's state tensors in place and writing each row's steps and stop
+  code (``transition.STOP_*``). A step is :func:`fused_step`'s with the
+  profile lookup, the resume-stack feed, the timeline push, the clock,
+  the event count and the ``delivered`` scatter, then the transition of
+  :func:`..transition.post_transition` (completions, handlers in chunk
+  order with a re-feed after each, the tick with ProMC's move, the done
+  test). A row at a guard stops before that transition, which the host
+  takes.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 the plain version only for CPU tensors.
@@ -41,10 +41,11 @@ from pathlib import Path
 import torch
 
 from repro_torch import _cuda_build as _build
+from .. import transition
 from ..shim import TorchOps
 from . import (
     advance_channels, bandwidth_now, disk_pool, event_horizon, feed_queues,
-    tick_ema,
+    timeline_push,
 )
 from .waterfill_bisect import bisect_level
 
@@ -57,44 +58,57 @@ SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fused_step.cu"
 #: reference's ``_ROUND_CAP``)
 ROUND_CAP = 2048
 
-#: the driver's kind code of ProMC rows, whose ticks the host decides
-KIND_PROMC = 4
-
 #: :func:`fused_rounds`' operands by name: (dtype, axes) in the kernel's
 #: pointer order. The first group is read, the second updated in place,
-#: the third written.
+#: the third written. Axes: S rows, C channels, K chunks, B profile steps,
+#: Q file sizes, P resume-stack depth, T timeline samples.
 ROUND_INPUTS = {
     "act": (torch.bool, "S"), "tick_period": (torch.float64, "S"),
     "max_time": (torch.float64, "S"), "record_timeline": (torch.bool, "S"),
-    "kind": (torch.int64, "S"), "cap": (torch.float64, "SC"),
-    "chunk_of": (torch.int64, "SC"), "bw": (torch.float64, "S"),
+    "kind": (torch.int64, "S"), "trivial_complete": (torch.bool, "S"),
+    "n_chunks": (torch.int64, "S"), "bw": (torch.float64, "S"),
     "disk_rate": (torch.float64, "S"), "sat_cc": (torch.int64, "S"),
-    "contention": (torch.float64, "S"), "prof_t": (torch.float64, "SB"),
-    "prof_mult": (torch.float64, "SB"), "qoff": (torch.int64, "SK"),
-    "qlen": (torch.int64, "SK"), "fsdt": (torch.float64, "SK"),
-    "chunk_done": (torch.bool, "SK"), "qsizes": (torch.float64, "Q"),
+    "contention": (torch.float64, "S"), "setup_cost": (torch.float64, "S"),
+    "promc_ratio": (torch.float64, "S"), "promc_patience": (torch.int64, "S"),
+    "prof_t": (torch.float64, "SB"), "prof_mult": (torch.float64, "SB"),
+    "qoff": (torch.int64, "SK"), "qlen": (torch.int64, "SK"),
+    "fsdt": (torch.float64, "SK"), "nfiles": (torch.int64, "SK"),
+    "sc_order": (torch.int64, "SK"), "conc": (torch.int64, "SK"),
+    "par": (torch.int64, "SK"), "cap_k": (torch.float64, "SK"),
+    "avg_fs_k": (torch.float64, "SK"), "qsizes": (torch.float64, "Q"),
 }
 ROUND_STATE = {
     "t": (torch.float64, "S"), "n_events": (torch.int64, "S"),
     "fin_any": (torch.bool, "S"), "next_tick": (torch.float64, "S"),
-    "busy": (torch.bool, "SC"), "dead": (torch.float64, "SC"),
-    "rem": (torch.float64, "SC"), "qptr": (torch.int64, "SK"),
-    "queue_bytes": (torch.float64, "SK"), "delivered": (torch.float64, "SK"),
+    "done": (torch.bool, "S"), "finish_t": (torch.float64, "S"),
+    "sc_cursor": (torch.int64, "S"), "streak": (torch.int64, "S"),
+    "pair_fast": (torch.int64, "S"), "pair_slow": (torch.int64, "S"),
+    "n_moves": (torch.int64, "S"), "busy": (torch.bool, "SC"),
+    "dead": (torch.float64, "SC"), "rem": (torch.float64, "SC"),
+    "cap": (torch.float64, "SC"), "chunk_of": (torch.int64, "SC"),
+    "qptr": (torch.int64, "SK"), "queue_bytes": (torch.float64, "SK"),
+    "prepend_n": (torch.int64, "SK"), "chunk_done": (torch.bool, "SK"),
+    "completed_at": (torch.float64, "SK"), "delivered": (torch.float64, "SK"),
     "delivered_at_tick": (torch.float64, "SK"), "rate_est": (torch.float64, "SK"),
+    "prepend_sizes": (torch.float64, "SKP"), "tl_t": (torch.float64, "ST"),
+    "tl_rate": (torch.float64, "ST"), "tl_len": (torch.int64, "S"),
+    "tl_stride": (torch.int64, "S"), "tl_seen": (torch.int64, "S"),
+    "tl_last_t": (torch.float64, "S"), "tl_last_rate": (torch.float64, "S"),
 }
-#: per row: the steps taken, and the last step's rate sum and start time
-#: (a timeline sample)
-ROUND_OUTPUTS = {
-    "steps": (torch.int64, "S"), "rate_sum": (torch.float64, "S"),
-    "t0": (torch.float64, "S"),
-}
+#: per row: the steps taken and the stop code (``transition.STOP_*``)
+ROUND_OUTPUTS = {"steps": (torch.int64, "S"), "stop": (torch.int64, "S")}
 ROUND_OPERANDS = {**ROUND_INPUTS, **ROUND_STATE, **ROUND_OUTPUTS}
+
+#: the timeline ring's tensors, in ``kernels.timeline_push``'s order
+_TIMELINE = (
+    "tl_t", "tl_rate", "tl_len", "tl_stride", "tl_seen", "tl_last_t", "tl_last_rate",
+)
 
 #: argument types of the kernels' C entry points
 _ARGTYPES = {
     "fused_step_f64": [ctypes.c_void_p] * 26 + [ctypes.c_longlong] * 4
     + [ctypes.c_void_p],
-    "fused_rounds_f64": [ctypes.c_void_p] + [ctypes.c_longlong] * 6
+    "fused_rounds_f64": [ctypes.c_void_p] + [ctypes.c_longlong] * 8
     + [ctypes.c_void_p],
 }
 
@@ -109,12 +123,10 @@ def _entry(name: str):
     return fn
 
 
-def fused_step_plain(
-    act, busy, dead, rem, cap, chunk_of, tick_dt, bw, disk_rate, sat_cc,
-    contention, qoff, qlen, qptr, queue_bytes, fsdt, qsizes,
-):
-    """Plain PyTorch version of the one-step kernel, composed of the fluid
-    kernels."""
+def _advance_plain(act, busy, dead, rem, cap, tick_dt, bw, disk_rate, sat_cc, contention):
+    """The physics half of a step, composed of the fluid kernels: rates,
+    horizon, fluid movement. Returns ``(dt, rate_sum, fin_any, busy, dead,
+    rem, moved)``."""
     transferring = busy & (dead <= _EPS)
     pool = disk_pool(transferring.sum(dim=-1), bw, disk_rate, sat_cc, contention)
     caps = torch.where(transferring, cap, 0.0)
@@ -127,14 +139,23 @@ def fused_step_plain(
     busy2, dead2, rem2, moved, finished = advance_channels(
         act, dt, busy, dead, transferring, rem, rates
     )
+    return dt, rates.sum(dim=-1), finished.any(dim=-1), busy2, dead2, rem2, moved
+
+
+def fused_step_plain(
+    act, busy, dead, rem, cap, chunk_of, tick_dt, bw, disk_rate, sat_cc,
+    contention, qoff, qlen, qptr, queue_bytes, fsdt, qsizes,
+):
+    """Plain PyTorch version of the one-step kernel, composed of the fluid
+    kernels."""
+    dt, rate_sum, fin, busy2, dead2, rem2, moved = _advance_plain(
+        act, busy, dead, rem, cap, tick_dt, bw, disk_rate, sat_cc, contention
+    )
     busy3, dead3, rem3, qptr2, qb2, _ = feed_queues(
         act, chunk_of, busy2, dead2, rem2, qsizes, qoff, qlen, qptr,
         queue_bytes, fsdt,
     )
-    return (
-        dt, rates.sum(dim=-1), finished.any(dim=-1), busy3, dead3, rem3,
-        moved, qptr2, qb2,
-    )
+    return dt, rate_sum, fin, busy3, dead3, rem3, moved, qptr2, qb2
 
 
 def fused_step(
@@ -206,71 +227,74 @@ fused_step.launches = 0
 def fused_rounds_plain(s, max_steps: int = ROUND_CAP):
     """Plain PyTorch version of the loop kernel on the operands ``s`` (a
     mapping of :data:`ROUND_OPERANDS` names to tensors; the outputs may be
-    absent): every iteration is :func:`fused_step_plain` on the rows still
-    running, then the driver's own bookkeeping (clock, event count,
-    ``delivered`` scatter, tick EMA) and the stop test, masked per row.
-    Returns new tensors for every name of :data:`ROUND_STATE` and
+    absent), the kernel's yardstick. Each iteration, on the rows still
+    running: the error test (``t > max_time``, a stranded chunk), then a
+    step (the profile lookup, the physics of :func:`fused_step_plain`, the
+    feed with the resume stack, the timeline push, the clock, the event
+    count, the ``delivered`` scatter), then the capacity guards and
+    :func:`..transition.post_transition`, masked per row. A row stops done,
+    in error, at a guard (the step's transition not taken) or at
+    ``max_steps``. Host reads only skip masked-out work. Returns new
+    tensors for every name of :data:`ROUND_STATE` and
     :data:`ROUND_OUTPUTS`; ``s`` is left as it was."""
-    act = s["act"]
-    t, n_events, fin_any, next_tick = s["t"], s["n_events"], s["fin_any"], s["next_tick"]
-    busy, dead, rem = s["busy"], s["dead"], s["rem"]
-    qptr, qb = s["qptr"], s["queue_bytes"]
-    delivered, dat, rate_est = s["delivered"], s["delivered_at_tick"], s["rate_est"]
-    chunk_of, period = s["chunk_of"], s["tick_period"]
-    promc = s["kind"] == KIND_PROMC
-    K = qptr.shape[-1]
-    steps = torch.zeros_like(n_events)
-    rate_sum = torch.zeros_like(t)
-    t0 = t
-    run = act
-    while bool(run.any()):
-        eff_bw, next_prof = bandwidth_now(s["bw"], s["prof_t"], s["prof_mult"], t)
-        dt, rs, fin, busy, dead, rem, moved, qptr, qb = fused_step_plain(
-            run, busy, dead, rem, s["cap"], chunk_of,
-            torch.minimum(next_tick - t, next_prof - t), eff_bw, s["disk_rate"],
-            s["sat_cc"], s["contention"], s["qoff"], s["qlen"], qptr, qb,
-            s["fsdt"], s["qsizes"],
+    st = dict(s)  # entries are replaced, never written
+    K = st["qptr"].shape[-1]
+    steps = torch.zeros_like(st["n_events"])
+    stop = torch.full_like(steps, transition.STOP_NONE)
+    run = st["act"]
+    while True:
+        err = run & ((st["t"] > st["max_time"]) | transition.stranded(st, run))
+        stop = torch.where(err, transition.STOP_ERROR, stop)
+        run = run & ~err
+        if not bool(run.any()):
+            break
+        t = st["t"]
+        eff_bw, next_prof = bandwidth_now(st["bw"], st["prof_t"], st["prof_mult"], t)
+        dt, rate_sum, fin, st["busy"], st["dead"], st["rem"], moved = _advance_plain(
+            run, st["busy"], st["dead"], st["rem"], st["cap"],
+            torch.minimum(st["next_tick"] - t, next_prof - t), eff_bw,
+            st["disk_rate"], st["sat_cc"], st["contention"],
         )
-        t0 = torch.where(run, t, t0)
-        rate_sum = torch.where(run, rs, rate_sum)
-        t = t + dt  # dt is 0 on rows that do not run
-        n_events = n_events + run.to(torch.int64)
+        transition.feed(st, run)
+        st.update(zip(_TIMELINE, timeline_push(
+            run & st["record_timeline"], t, rate_sum, *(st[k] for k in _TIMELINE)
+        )))
+        st["t"] = t + dt  # dt is 0 on rows that do not run
+        st["n_events"] = st["n_events"] + run.to(torch.int64)
         steps = steps + run.to(torch.int64)
-        fin_any = torch.where(run, fin, fin_any)
-        delivered = TorchOps.chunk_scatter_add(delivered, chunk_of, moved, moved != 0.0)
-        # the stop test: what the host's _post would decide
-        busy_per_chunk = TorchOps.count_by_chunk(chunk_of, busy, K)
-        completes = (
-            ~s["chunk_done"] & (s["qlen"] - qptr == 0) & (busy_per_chunk == 0)
-        ).any(dim=-1)
-        tick = t >= next_tick - _EPS
-        stop = run & (
-            completes | (tick & promc) | ~busy.any(dim=-1) | s["record_timeline"]
-            | (t > s["max_time"]) | (steps >= max_steps)
+        st["fin_any"] = torch.where(run, fin, st["fin_any"])
+        st["delivered"] = TorchOps.chunk_scatter_add(
+            st["delivered"], st["chunk_of"], moved, moved != 0.0
         )
-        # rows that go on take the tick's bookkeeping of _post here
-        ticked = run & ~stop & tick
-        rows = ticked.unsqueeze(-1)
-        ema = tick_ema(rate_est, delivered, dat, period.unsqueeze(-1))
-        rate_est = torch.where(rows, ema, rate_est)
-        dat = torch.where(rows, delivered, dat)
-        next_tick = next_tick + torch.where(ticked, period, 0.0)
-        run = run & ~stop
-    return {
-        "t": t, "n_events": n_events, "fin_any": fin_any, "next_tick": next_tick,
-        "busy": busy, "dead": dead, "rem": rem, "qptr": qptr, "queue_bytes": qb,
-        "delivered": delivered, "delivered_at_tick": dat, "rate_est": rate_est,
-        "steps": steps, "rate_sum": rate_sum, "t0": t0,
-    }
+        # a row at a capacity guard leaves the step's transition to the host
+        completed, tick_hit = transition.completions(st, run)
+        hint = transition.hints(
+            transition.transition_flags(st, completed, tick_hit).tolist(), K
+        )
+        guard = transition.stack_full(st, tick_hit)
+        if hint["ks_sc"]:
+            guard = guard | transition.sc_short(st, completed, hint["ks_sc"])
+        stop = torch.where(guard, transition.STOP_GUARD, stop)
+        go = run & ~guard
+        transition.post_transition(
+            st, go, completed & go.unsqueeze(-1), tick_hit & go, **hint
+        )
+        capped = go & ~st["done"] & (steps >= max_steps)
+        stop = torch.where(go & st["done"], transition.STOP_DONE, stop)
+        stop = torch.where(capped, transition.STOP_CAP, stop)
+        run = go & ~st["done"] & ~capped
+    out = {name: st[name] for name in ROUND_STATE}
+    out.update(steps=steps, stop=stop)
+    return out
 
 
 def fused_rounds(s, max_steps: int = ROUND_CAP):
     """Every active row of ``s`` (a mapping of :data:`ROUND_OPERANDS` names
-    to tensors) takes steps until the host has a decision or ``max_steps``;
-    the state and output tensors are updated in place. Returns
-    ``s["steps"]``. CPU tensors take the plain version; CUDA tensors launch
-    the kernel on the current stream (C and K up to 1024; no launch for
-    zero rows)."""
+    to tensors) takes steps until it is done, errs, meets a capacity guard
+    or has taken ``max_steps``; the state and output tensors are updated
+    in place. Returns ``s["steps"]``. CPU tensors take the plain version;
+    CUDA tensors launch the kernel on the current stream (C and K up to
+    1024; no launch for zero rows)."""
     if max_steps < 1:
         raise ValueError(f"max_steps must be at least 1, got {max_steps}")
     busy = s["busy"]
@@ -284,7 +308,8 @@ def fused_rounds(s, max_steps: int = ROUND_CAP):
         raise ValueError(f"unsupported device {busy.device}")
     S, C = busy.shape
     dims = {"S": S, "C": C, "K": s["qptr"].shape[1], "B": s["prof_t"].shape[1],
-            "Q": s["qsizes"].shape[0]}
+            "Q": s["qsizes"].shape[0], "P": s["prepend_sizes"].shape[-1],
+            "T": s["tl_t"].shape[-1]}
     if C > 1024 or dims["K"] > 1024 or dims["Q"] == 0:
         raise ValueError(
             f"the fused-rounds kernel takes C, K <= 1024 and Q > 0, got {C}, "
@@ -300,7 +325,7 @@ def fused_rounds(s, max_steps: int = ROUND_CAP):
     fn = _entry("fused_rounds_f64")
     with torch.cuda.device(dev):
         err = fn(
-            ptrs, S, C, dims["K"], dims["B"], dims["Q"], max_steps,
+            ptrs, S, C, dims["K"], dims["B"], dims["Q"], dims["P"], dims["T"], max_steps,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:

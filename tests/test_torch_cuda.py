@@ -104,8 +104,8 @@ def test_fused_rounds_matches_its_plain_version_on_the_card(cuda, max_steps, wid
     torch.cuda.synchronize()
     assert fs.fused_rounds.launches == before + 1
     for name, v in want.items():
-        if v.dtype == torch.float64:
-            torch.testing.assert_close(s[name], v, rtol=1e-12, atol=0, msg=name)
+        if v.dtype == torch.float64:  # completion times stay NaN until a chunk completes
+            torch.testing.assert_close(s[name], v, rtol=1e-12, atol=0, equal_nan=True, msg=name)
         else:
             assert torch.equal(s[name], v), name
 

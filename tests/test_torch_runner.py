@@ -90,13 +90,16 @@ def test_reference_plan_columns_drive_the_port_like_the_reference(reference):
         )
 
 
-def test_driver_raises_on_a_row_past_max_time():
+def test_driver_raises_on_a_row_past_max_time(monkeypatch):
+    from repro_torch.eval.fabric import driver
     from repro_torch.eval.fabric.plan import build_plan
 
+    # the default route runs every row to its end in one round unless the
+    # loop's step cap stops it first
+    monkeypatch.setattr(driver, "ROUND_CAP", 4)
     drv = TorchFabricSimulation(build_plan(smoke_matrix()[:3]), device="cpu")
     drv.start()
     drv.step()
-    # the default route runs rows 0 and 1 to their end in its first round
     live = int(torch.nonzero(~drv.done)[0])
     drv.max_time[live] = 0.0
     with pytest.raises(RuntimeError, match="exceeded max_time"):
