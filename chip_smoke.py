@@ -60,9 +60,26 @@ Phases, each printing its own lines:
      (route agreement); rows whose event counts differ are listed, not
      gated; then `python -m repro_torch.eval.difftest --smoke --route
      all --expect-zero-replays` in a subprocess on the card must exit 0;
+  5c. the autotuner on the card: the full-grid oracle (16,675 static rows:
+     64 candidates a context and the Algorithm-1 point) on the loop
+     kernel's route, each context's best throughput within 1e-9 relative
+     of tests/golden/tune_full_oracle.json (the reference's NumPy oracle,
+     written on the CPU by tests/make_tune_golden.py) and its best
+     parameters in the golden's tied set, the regret medians of phase 5's
+     heuristic results within 1e-9 of the golden's; the smoke grid's
+     oracle plane (2,061 rows) on the card against the port's CPU run,
+     every row's events and time equal; successive halving
+     and hill climbing on the smoke and full grids through the object
+     ingest, each context within 0.95 of the card's oracle, their
+     evaluation counts and decision paths the golden's except where a
+     path meets a near-tie (named, its two scores within 1e-9); rows,
+     wall time, plan ingest, host rounds, row steps, host syncs and host
+     transitions (must be 0) of each, beside the card's name and power
+     limit;
   6. profiled runs of the sweep: the default grid on the "rounds" and
-     "kernel" routes and the full grid on "rounds": device busy and idle
-     share, device operations per host round;
+     "kernel" routes, the full grid on "rounds", the full-grid oracle
+     plane and successive halving: device busy and idle share, device
+     operations per host round, plan ingest;
   7. the serving path: rwkv6-3b at full width (32 layers, fp32 weights
      from a seeded generator) serves 8 prompts of 512 tokens and 32 new
      greedy tokens through ``train.serve_step.generate``, with the WKV
@@ -123,6 +140,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 GOLDEN = ROOT / "tests" / "golden" / "eval_matrix.json"
+#: the reference's autotuner over the full and smoke grids, written on the
+#: CPU by tests/make_tune_golden.py (the command is in the file)
+TUNE_GOLDEN = ROOT / "tests" / "golden" / "tune_full_oracle.json"
+#: phase 5c's limits: the card's oracle and regret against the golden, and
+#: the near-tie that alone may change a search's decision path
+TUNE_RTOL = 1e-9
+#: each search's worst context against the card's oracle (the reference's
+#: bar, tests/test_tune.py)
+TUNE_BAR = 0.95
 
 #: H100 SXM data-sheet rates the bounds are computed against
 HBM_BYTES_PER_S = 3.35e12
@@ -1803,17 +1829,30 @@ def sweep_paths(wf, fs, by_path):
     # ---- 5b. the event simulator against every route ----
     event_against_routes(scs, default_res, full, {"rounds": res, "kernel": res_k})
 
+    # ---- 5c. the autotuner on the card ----
+    tune_phase(full, res, fs, by_path, nvidia_smi_line())
+
     # ---- 6. profiled sweeps ----
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.eval import tune
     from repro_torch.eval.fabric.driver import SweepStats
 
-    for label, grid, route in (("default grid", scs, "rounds"), ("default grid", scs, "kernel"),
-                               ("full grid", full, "rounds")):
+    def sweep(grid, route):
+        return lambda st: run_matrix(grid, device="cuda", fused_step=route, stats=st)
+
+    for label, run in (
+        ("default grid, fused_step=rounds", sweep(scs, "rounds")),
+        ("default grid, fused_step=kernel", sweep(scs, "kernel")),
+        ("full grid, fused_step=rounds", sweep(full, "rounds")),
+        ("full-grid oracle plane", lambda st: tune.oracle_search(full, device="cuda", stats=st)),
+        ("full-grid successive halving",
+         lambda st: tune.successive_halving(full, device="cuda", stats=st)),
+    ):
         stp = SweepStats()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            run_matrix(grid, device="cuda", fused_step=route, stats=stp)
+            run(stp)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         avgs = _device_events(prof)
@@ -1823,7 +1862,8 @@ def sweep_paths(wf, fs, by_path):
                 for k in ("fused_rounds_kernel", "fused_step_kernel")}
         n_ops = sum(e.count for e in avgs)
         if busy_s > 0:
-            print(f"[profile] {label}, fused_step={route}, under the profiler: wall {wall:.3f}s, "
+            print(f"[profile] {label}, under the profiler: wall {wall:.3f}s (plan ingest "
+                  f"{stp.ingest_s:.3f}s), "
                   f"device busy {busy_s:.4f}s ({100 * busy_s / wall:.2f}%), idle "
                   f"{100 * (1 - busy_s / wall):.2f}%, {n_ops} device operations in "
                   f"{stp.sweeps} host rounds ({n_ops / stp.sweeps:.1f} a round); device "
@@ -1831,8 +1871,167 @@ def sweep_paths(wf, fs, by_path):
                               for k, (t, n) in kern.items())
                   + f", other {busy_s - sum(t for t, _ in kern.values()):.4f}s", flush=True)
         else:
-            print(f"[profile] {label}, fused_step={route}: wall {wall:.3f}s; device time not "
+            print(f"[profile] {label}: wall {wall:.3f}s; device time not "
                   "measured (the profiler recorded no device activity)", flush=True)
+    return launches
+
+
+def _ctx(key) -> str:
+    return "/".join(str(part) for part in key)
+
+
+def _rel(a, b) -> float:
+    return abs(a - b) / max(abs(b), 1e-300)
+
+
+def sha_path_ties(result, golden_kept):
+    """Contexts whose kept sets leave the golden's: at the first rung that
+    differs, each (card-only, golden-only) survivor pair with its two
+    scores on the card. Returns {context: (rung, pairs)}."""
+    out = {}
+    for key, rungs in result.trace.items():
+        want = golden_kept[_ctx(key)]
+        for r, rung in enumerate(rungs):
+            if r < len(want) and rung["kept"] == want[r]:
+                continue
+            theirs = set(want[r]) if r < len(want) else set()
+            mine = set(rung["kept"]) - theirs
+            sc = rung["scores"]
+            out[key] = (r, [(a, b, sc[a], sc.get(b, float("nan")))
+                            for a in mine for b in theirs - set(rung["kept"])])
+            break
+        else:
+            if len(rungs) != len(want):
+                out[key] = (len(rungs), [])
+    return out
+
+
+def hill_path_ties(result, golden_walk):
+    """Contexts whose climb leaves the golden's: at the first iteration
+    whose next point differs, the card's and the golden's next points with
+    their scores on the card. Returns {context: (iteration, pairs)}."""
+    out = {}
+    for key, its in result.trace.items():
+        want = [tuple(p) for p in golden_walk[_ctx(key)]]
+        mine = [it["current"] for it in its]
+        for j in range(min(len(mine), len(want))):
+            if mine[j] != want[j]:
+                out[key] = (j, [])  # an earlier decision differed unseen
+                break
+            nxt_mine = mine[j + 1] if j + 1 < len(mine) else mine[j]
+            nxt_want = want[j + 1] if j + 1 < len(want) else want[j]
+            if nxt_mine != nxt_want:
+                fr = its[j]["frontier"]
+                out[key] = (j, [(nxt_mine, nxt_want, fr[nxt_mine], fr.get(nxt_want, float("nan")))])
+                break
+    return out
+
+
+def tune_phase(full, full_res, fs, by_path, smi):
+    """Phase 5c: the autotuner on the card. The full-grid oracle (16,675
+    static rows on the loop kernel's route) against the reference's golden
+    (each context's best within 1e-9 relative, its best parameters in the
+    golden's tied set; the regret medians from phase 5's heuristic results
+    within 1e-9), then successive halving and hill climbing on the smoke
+    and full grids through the object ingest, each context within 0.95 of
+    the card's oracle, evaluation counts and decision paths the golden's
+    except at a near-tie (named, its two scores within 1e-9)."""
+    import torch
+
+    from repro_torch.bench.card_vs_cpu import plane_apart
+    from repro_torch.eval import tune
+    from repro_torch.eval.fabric.driver import SweepStats
+    from repro_torch.eval.scenarios import smoke_matrix
+
+    golden = json.loads(TUNE_GOLDEN.read_text())
+    launches = {}
+
+    def timed(label, search, scenarios):
+        stats = SweepStats()
+        fs.fused_rounds.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = search(scenarios, device="cuda", stats=stats)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = fs.fused_rounds.launches
+        print(f"[tune] {label}: {len(result.tables)} contexts, {result.evals} rows "
+              f"({result.equivalent_evals:.1f} at full fidelity) in {secs:.3f}s "
+              f"({result.evals / secs:.1f} rows/s), plan ingest {stats.ingest_s:.3f}s, the "
+              f"rest {secs - stats.ingest_s:.3f}s; {stats.sweeps} host rounds, {stats.steps} row "
+              f"steps, {stats.host_syncs} host syncs, {stats.host_transitions} host "
+              f"transitions, {n} loop launches | {smi}", flush=True)
+        fail_if(stats.host_transitions != 0,
+                f"{label}: {stats.host_transitions} rows left a transition to the host")
+        fail_if(n == 0, f"{label}: the loop kernel was never launched")
+        return result, n
+
+    # ---- the full-grid oracle against the golden ----
+    oracle, launches["tune_oracle"] = timed("oracle, full grid", tune.oracle_search, full)
+    fail_if(oracle.evals != golden["oracle"]["evals"], f"oracle: {oracle.evals} evaluations")
+    worst, off = 0.0, []
+    for key, table in oracle.tables.items():
+        want = golden["oracle"]["contexts"][_ctx(key)]
+        worst = max(worst, _rel(table.best_throughput, want["best_throughput"]))
+        if list(table.best_params) not in want["tied_best"]:
+            off.append((_ctx(key), table.best_params, want["tied_best"]))
+    fail_if(len(oracle.tables) != len(golden["oracle"]["contexts"]), "oracle: contexts")
+    report = tune.regret_report(full, full_res, oracle)
+    medians = {a: (agg["median"], golden["regret"][a]["median"])
+               for a, agg in report.per_algorithm.items()}
+    worst_median = max(_rel(a, b) for a, b in medians.values())
+    print(f"[tune] oracle vs the reference's golden over {len(oracle.tables)} contexts: worst "
+          f"relative difference of the best throughput {worst:.3g} (limit {TUNE_RTOL:g}); "
+          f"{len(off)} contexts whose best parameters leave the golden's tied set: {off[:5]}",
+          flush=True)
+    print(f"[tune] regret medians (card, golden): "
+          + ", ".join(f"{a} {m:.4f} / {g:.4f}" for a, (m, g) in sorted(medians.items()))
+          + f"; worst relative difference {worst_median:.3g}", flush=True)
+    print("[tune] " + report.format_table().replace("\n", "\n[tune] "), flush=True)
+    fail_if(not worst <= TUNE_RTOL, f"oracle: {worst:.3g} from the golden")
+    fail_if(bool(off), f"oracle: best parameters off the golden's tied set in {len(off)} contexts")
+    fail_if(sorted(medians) != sorted(golden["regret"]), "regret: algorithms")
+    fail_if(not worst_median <= TUNE_RTOL, f"regret medians: {worst_median:.3g} from the golden")
+
+    # ---- successive halving and hill climbing, smoke and full grids ----
+    smoke = smoke_matrix()
+    smoke_oracle, _ = timed("oracle, smoke grid", tune.oracle_search, smoke)
+    # the plain loop on the CPU sums the water level in the kernel's order:
+    # the smoke plane's rows count the card's events, times bit for bit
+    t0 = time.perf_counter()
+    plane, apart = plane_apart()
+    print(f"[tune] smoke oracle plane, {len(plane)} rows, card vs the port's CPU run "
+          f"({time.perf_counter() - t0:.1f}s): {len(apart)} rows count other events or "
+          f"times: {[(sc.name, a, b) for sc, a, b in apart[:8]]}", flush=True)
+    fail_if(bool(apart), f"smoke oracle plane: {len(apart)} rows part from the CPU run")
+    for grid, scs, orc in (("smoke", smoke, smoke_oracle), ("full", full, oracle)):
+        best = {e.context: e.best_throughput for e in orc.entries}
+        want = golden[grid]
+        for name, search, ties_of, path, counts in (
+            ("sha", tune.successive_halving, sha_path_ties, "kept", ("evals", "equivalent_evals")),
+            ("hill", tune.hill_climb, hill_path_ties, "walk", ("evals",)),
+        ):
+            result, n = timed(f"{name}, {grid} grid", search, scs)
+            launches[f"tune_{name}"] = launches.get(f"tune_{name}", 0) + n
+            ratios = [e.best_throughput / best[e.context] for e in result.entries]
+            ties = ties_of(result, want[name][path])
+            got = {"evals": result.evals, "equivalent_evals": result.equivalent_evals}
+            print(f"[tune] {name}, {grid} grid: " + ", ".join(
+                f"{c} {got[c]:g} (golden {want[name][c]:g})" for c in counts)
+                + f"; worst context {min(ratios):.5f} of the card's oracle (golden "
+                f"{want[name]['worst_vs_oracle']:.5f} of the reference's; bar {TUNE_BAR}); "
+                f"{len(ties)} contexts leave the golden's path: "
+                + "; ".join(f"{_ctx(k)} at {j}: {p}" for k, (j, p) in ties.items()), flush=True)
+            fail_if(min(ratios) < TUNE_BAR, f"{name}, {grid} grid: a context below {TUNE_BAR}")
+            for key, (j, pairs) in ties.items():
+                fail_if(not pairs or not all(_rel(x, y) <= TUNE_RTOL for _, _, x, y in pairs),
+                        f"{name}, {grid} grid, {_ctx(key)}: the path leaves the golden's at "
+                        f"{j} off a near-tie: {pairs}")
+            if not ties:
+                for c in counts:
+                    fail_if(_rel(got[c], want[name][c]) > 1e-12,
+                            f"{name}, {grid} grid: {c} {got[c]} against {want[name][c]}")
+    by_path["fused_rounds"].update(launches)
     return launches
 
 

@@ -61,14 +61,11 @@ from . import kernels, transition
 from .bucketing import COMPACT_FLOOR, PROFILE_PAD_FLOOR, bucket, qsizes_pad
 from .kernels.fused_step import ROUND_CAP, ROUND_OPERANDS, fused_rounds, fused_step
 from .kernels.waterfill_bisect import waterfill_bisect
-from .plan import PLAN_C_FLOOR, PLAN_PROFILED_C_FLOOR
+from .plan import MAX_TIME, PLAN_C_FLOOR, PLAN_PROFILED_C_FLOOR, PROMC_PATIENCE, PROMC_RATIO
 from .shim import NO_CHUNK, TorchOps
 from .transition import KIND_TRIVIAL, STOP_GUARD, STOP_NONE
 
 _EPS = 1e-12
-
-#: default scenario wall-clock guard (seconds of simulated time)
-_DEFAULT_MAX_TIME = 48 * 3600.0
 
 #: timeline samples kept per recording scenario (uniform-stride
 #: decimation past it)
@@ -105,7 +102,10 @@ class SweepStats:
     the device (``steps``, the sum of the rows' event counts; on the
     ``"rounds"`` route a round takes many), and rows whose loop stopped at
     a capacity guard and left a step's transition to the host
-    (``host_transitions``; 0 wherever the plan's bounds size C and P)."""
+    (``host_transitions``; 0 wherever the plan's bounds size C and P).
+    The runner adds the host seconds it spent building the chunks' plans
+    (``ingest_s``: the columnar build, or the object ingest's Simulations
+    and columns)."""
 
     sweeps: int = 0
     fused: int = 0
@@ -113,6 +113,7 @@ class SweepStats:
     host_syncs: int = 0
     steps: int = 0
     host_transitions: int = 0
+    ingest_s: float = 0.0
 
 
 class _PlanRuntime:
@@ -246,7 +247,7 @@ class TorchFabricSimulation:
             "n_events": (np.zeros(S, dtype=np.int64), i8),
             "finish_t": (np.zeros(S), f8),
             "fin_any": (np.zeros(S, dtype=bool), b1),
-            "max_time": (np.full(S, _DEFAULT_MAX_TIME), f8),
+            "max_time": (np.full(S, MAX_TIME), f8),
             "record_timeline": (record, b1),
             "trivial_complete": (plan.trivial_complete, b1),
             "kind": (kind, i8),
@@ -275,8 +276,8 @@ class TorchFabricSimulation:
             "streak": (np.zeros(S, dtype=np.int64), i8),
             "pair_fast": (np.full(S, -1, dtype=np.int64), i8),
             "pair_slow": (np.full(S, -1, dtype=np.int64), i8),
-            "promc_ratio": (np.full(S, 2.0), f8),
-            "promc_patience": (np.full(S, 3, dtype=np.int64), i8),
+            "promc_ratio": (np.full(S, PROMC_RATIO), f8),
+            "promc_patience": (np.full(S, PROMC_PATIENCE, dtype=np.int64), i8),
             "sc_cursor": (np.zeros(S, dtype=np.int64), i8),
             "sc_order": (plan.sc_order[:, :K], i8),
             "conc": (plan.conc[:, :K], i8),

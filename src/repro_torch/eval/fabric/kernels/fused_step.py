@@ -47,7 +47,7 @@ from . import (
     advance_channels, bandwidth_now, disk_pool, event_horizon, feed_queues,
     timeline_push,
 )
-from .waterfill_bisect import bisect_level
+from .waterfill_bisect import bisect_level, lane_sum
 
 _EPS = 1e-12
 
@@ -139,7 +139,7 @@ def _advance_plain(act, busy, dead, rem, cap, tick_dt, bw, disk_rate, sat_cc, co
     busy2, dead2, rem2, moved, finished = advance_channels(
         act, dt, busy, dead, transferring, rem, rates
     )
-    return dt, rates.sum(dim=-1), finished.any(dim=-1), busy2, dead2, rem2, moved
+    return dt, lane_sum(rates), finished.any(dim=-1), busy2, dead2, rem2, moved
 
 
 def fused_step_plain(

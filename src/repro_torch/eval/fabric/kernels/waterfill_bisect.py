@@ -43,17 +43,45 @@ def _entry():
 def bisect_level(caps, pool):
     """The bisected water level (S,) of ``caps`` (S, C) for ``pool`` (S,):
     the upper end of the bracket after :data:`BISECT_ITERS` halvings,
-    keeping ``sum(min(caps, hi)) >= min(pool, sum(caps))``."""
-    total = caps.sum(dim=-1)
-    pool_eff = torch.clamp(torch.minimum(pool, total), min=0.0)
+    keeping ``sum(min(caps, hi)) >= min(pool, sum(caps))``, each sum in the
+    kernels' order (:func:`lane_sum`), so that the level is theirs bit for
+    bit on any device."""
+    lanes = _lane_layout(caps)
+    pool_eff = torch.clamp(torch.minimum(pool, _lane_fold(lanes)), min=0.0)
     hi = caps.amax(dim=-1)
     lo = torch.zeros_like(hi)
     for _ in range(BISECT_ITERS):
         mid = 0.5 * (lo + hi)
-        low = torch.minimum(caps, mid.unsqueeze(-1)).sum(dim=-1) < pool_eff
+        low = _lane_fold(torch.minimum(lanes, mid.unsqueeze(-1))) < pool_eff
         lo = torch.where(low, mid, lo)
         hi = torch.where(low, hi, mid)
     return hi
+
+
+def lane_sum(x):
+    """The sum over the last axis in the kernels' order: column c sits on
+    lane c % 32 of tile c // 32, each lane adds its tiles in turn, and the
+    32 lanes then add in the warp butterfly's pairing (:func:`fold`). A
+    plain ``sum`` takes another order on the CPU, and at a near-tie of
+    ``sum < pool`` its level parts from the kernel's in the last bit."""
+    return _lane_fold(_lane_layout(x))
+
+
+def _lane_layout(x):
+    """``x`` with zero columns up to a power of two of at most 32 columns
+    (the butterfly's levels above it add only zeros), or up to whole
+    32-lane tiles."""
+    C = x.shape[-1]
+    width = 1 << max(C - 1, 0).bit_length() if C <= 32 else 32 * -(-C // 32)
+    return x if width == C else torch.nn.functional.pad(x, (0, width - C))
+
+
+def _lane_fold(x):
+    """:func:`lane_sum` of a tensor in :func:`_lane_layout`."""
+    acc = x[..., :32]
+    for lo in range(32, x.shape[-1], 32):
+        acc = acc + x[..., lo:lo + 32]
+    return fold(acc)
 
 
 #: halvings a round of the kernel's 32-way descent (rows of C <= 32)

@@ -15,16 +15,25 @@ This is host-side numpy; the driver uploads the columns to its device.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import netmodel, testbeds
-from repro_torch.core.baselines import GLOBUS_PRESETS, globus_class
+from repro_torch.core.baselines import GLOBUS_PRESETS, StaticParamsScheduler, globus_class
 from repro_torch.core.chunking import _CLASS_LABELS, size_thresholds
+from repro_torch.core.netmodel import channel_rate_cap, file_start_dead_time
 from repro_torch.core.params import MAX_PIPELINING
+from repro_torch.core.schedulers import (
+    MultiChunkScheduler,
+    Open,
+    ProActiveMultiChunkScheduler,
+    Scheduler,
+    SingleChunkScheduler,
+)
 from repro_torch.core.types import (
     MC_ROUND_ROBIN_ORDER,
     PROMC_DELTA,
@@ -71,6 +80,20 @@ _TRIVIAL_OF = {
 }
 
 _SCHED_NAME_OF = {_KIND_SC: "SC", _KIND_MC: "MC", _KIND_PROMC: "ProMC"}
+
+#: driver kind of each built-in controller class (exact class)
+_KIND_OF_CLASS = {
+    SingleChunkScheduler: _KIND_SC,
+    MultiChunkScheduler: _KIND_MC,
+    ProActiveMultiChunkScheduler: _KIND_PROMC,
+    StaticParamsScheduler: _KIND_STATIC,
+}
+
+#: what the driver holds fixed for every row: the wall-clock guard
+#: (``Simulation(max_time=)``'s default) and the ProMC check (Alg. 3)
+MAX_TIME = 48 * 3600.0
+PROMC_RATIO = 2.0
+PROMC_PATIENCE = 3
 
 #: round-robin service rank by int ChunkType (Alg. 2 order H,S,L,M,A)
 _RR_RANK_BY_CT = np.zeros(len(ChunkType), dtype=np.int64)
@@ -562,6 +585,169 @@ def build_plan(scenarios: Sequence) -> ScenarioPlan:
         trivial_complete=trivial[:, 1],
         tick_period=tick_period,
         record_timeline=record_timeline,
+        max_cc=max_cc,
+        eff_cc=eff_cc,
+        total_bytes=total_bytes,
+        n_files=n_files,
+        n_chunks=n_chunks,
+        cap_need=cap_need,
+        qoff=qoff,
+        qlen=qlen,
+        queue_bytes=queue_bytes,
+        avg_fs_k=avg_fs_k,
+        conc=conc,
+        par=par,
+        cap_k=cap_k,
+        fsdt=fsdt,
+        sc_order=sc_order,
+        open_n=open_n,
+        visit_rank=visit_rank,
+    )
+
+
+def _scheduler_kind(scheduler) -> int:
+    """Driver kind of a scheduler: the built-in classes by exact class, a
+    class that acts only at t=0 (no ``on_tick`` / ``on_chunk_complete``
+    of its own) as trivial. Any other controller has no plan column."""
+    cls = type(scheduler)
+    kind = _KIND_OF_CLASS.get(cls)
+    if kind is not None:
+        return kind
+    if cls.on_tick is Scheduler.on_tick and cls.on_chunk_complete is Scheduler.on_chunk_complete:
+        return _KIND_TRIVIAL
+    raise NotImplementedError(
+        f"field 'scheduler': custom controller {cls.__name__} has no plan column"
+    )
+
+
+def from_simulations(sims: Sequence, names: Optional[Sequence[str]] = None) -> ScenarioPlan:
+    """Object ingest: the plan of prebuilt, not yet started event
+    Simulations (sweeps that are not Scenarios, such as the autotuner's
+    sketch file sets).
+
+    Per-chunk columns come from each Simulation's own chunks and scheduler:
+    files in queue order into ``qsizes``, ``chunk.params`` for the
+    concurrency, parallelism, rate cap and dead time, the SC transfer
+    order, and the scheduler's initial actions as the t=0 channel layout.
+    Empty chunks stay (the columnar :func:`build_plan` drops empty size
+    classes). ``cap_need`` is the closed-form bound on simultaneously open
+    channels: SC the ``1 + n_empty`` widest waves (each empty chunk's
+    completion can start one more wave while earlier ones run), MC /
+    ProMC ``max(maxCC, n_nonempty)``, the rest their concurrency sum.
+
+    Raises ``ValueError`` for what the plan has no column for (a
+    ``max_time`` other than :data:`MAX_TIME`, a ProMC ``ratio`` or
+    ``patience`` other than :data:`PROMC_RATIO` / :data:`PROMC_PATIENCE`,
+    initial actions other than one ``Open`` a chunk) and
+    ``NotImplementedError`` for custom controllers."""
+    S = len(sims)
+    names = [f"scenario{i}" for i in range(S)] if names is None else list(names)
+    if len(names) != S:
+        raise ValueError(f"{len(names)} names for {S} simulations")
+    K = bucket(max((len(sim.states) for sim in sims), default=1))
+    networks: List[NetworkSpec] = []
+    net_of: Dict[NetworkSpec, int] = {}
+    sizes: List[float] = []
+    net_idx = np.zeros(S, dtype=np.int64)
+    kind = np.zeros(S, dtype=np.int64)
+    max_cc = np.zeros(S, dtype=np.int64)
+    eff_cc = np.zeros(S, dtype=np.int64)
+    total_bytes = np.zeros(S, dtype=np.float64)
+    n_files = np.zeros(S, dtype=np.int64)
+    n_chunks = np.zeros(S, dtype=np.int64)
+    cap_need = np.zeros(S, dtype=np.int64)
+    qoff = np.zeros((S, K), dtype=np.int64)
+    qlen = np.zeros((S, K), dtype=np.int64)
+    queue_bytes = np.zeros((S, K), dtype=np.float64)
+    avg_fs_k = np.ones((S, K), dtype=np.float64)
+    conc = np.zeros((S, K), dtype=np.int64)
+    par = np.ones((S, K), dtype=np.int64)
+    cap_k = np.zeros((S, K), dtype=np.float64)
+    fsdt = np.zeros((S, K), dtype=np.float64)
+    sc_order = np.zeros((S, K), dtype=np.int64)
+    open_n = np.zeros((S, K), dtype=np.int64)
+    visit_rank = np.tile(np.arange(K, dtype=np.int64), (S, 1))
+    sched_names: List[str] = []
+    chunk_names: List[tuple] = []
+
+    for i, (sim, name) in enumerate(zip(sims, names)):
+        sched = sim.scheduler
+        kd = _scheduler_kind(sched)
+        if sim.max_time != MAX_TIME:
+            raise ValueError(
+                f"{name}: field 'max_time' is {sim.max_time!r}; the plan holds {MAX_TIME}"
+            )
+        if kd == _KIND_PROMC and (sched.ratio, sched.patience) != (PROMC_RATIO, PROMC_PATIENCE):
+            raise ValueError(
+                f"{name}: fields 'ratio' / 'patience' are {sched.ratio!r} / {sched.patience!r}; "
+                f"the plan holds {PROMC_RATIO} / {PROMC_PATIENCE}"
+            )
+        net = sim.network
+        if net not in net_of:
+            net_of[net] = len(networks)
+            networks.append(net)
+        chunks = [st.chunk for st in sim.states]
+        nk = len(chunks)
+        net_idx[i] = net_of[net]
+        kind[i] = kd
+        max_cc[i] = sched.max_cc
+        eff_cc[i] = sched.params.concurrency if kd == _KIND_STATIC else sched.max_cc
+        n_chunks[i] = nk
+        sched_names.append(sched.name)
+        chunk_names.append(tuple(c.name for c in chunks))
+        for k, c in enumerate(chunks):
+            qoff[i, k] = len(sizes)
+            qlen[i, k] = len(c.files)
+            sizes.extend(float(f.size) for f in c.files)
+            queue_bytes[i, k] = c.total_bytes
+            avg_fs_k[i, k] = max(c.avg_file_size, 1.0)
+            conc[i, k] = c.params.concurrency
+            par[i, k] = c.params.parallelism
+            cap_k[i, k] = channel_rate_cap(net, c.params.parallelism)
+            fsdt[i, k] = file_start_dead_time(net, c.params)
+        total_bytes[i] = float(sum(c.total_bytes for c in chunks))
+        n_files[i] = int(qlen[i].sum())
+        if kd == _KIND_SC:
+            ctypes = torch.tensor([int(c.ctype) for c in chunks], dtype=torch.int64)
+            sc_order[i, :nk] = _np(sc_chunk_order(ctypes))
+        # t=0 layout: the driver lays each chunk's channels after those of
+        # the chunks that rank before it. Ranks follow build_plan's (MC's
+        # service order, else the index), with the opened chunks' own
+        # ranks dealt out in the order of the actions
+        base = np.arange(nk, dtype=np.int64)
+        if kd == _KIND_MC:
+            key = _RR_RANK_BY_CT[[int(c.ctype) for c in chunks]] * nk + base
+            base = np.argsort(np.argsort(key))
+        visit_rank[i, :nk] = base
+        opened: List[int] = []
+        for act in copy.copy(sched).initial_actions(None):
+            if not isinstance(act, Open) or act.chunk in opened:
+                raise ValueError(f"{name}: initial action {act!r} has no plan column")
+            open_n[i, act.chunk] = act.n
+            opened.append(act.chunk)
+        visit_rank[i, opened] = np.sort(base[opened])
+        waves = sorted((c.params.concurrency for c in chunks if len(c.files)), reverse=True)
+        if kd == _KIND_SC:
+            cap_need[i] = max(1, sum(waves[: 1 + nk - len(waves)]))
+        elif kd in (_KIND_MC, _KIND_PROMC):
+            cap_need[i] = max(1, sched.max_cc, len(waves))
+        else:
+            cap_need[i] = max(1, sum(waves))
+
+    trivial = np.array([_TRIVIAL_OF[int(k)] for k in kind], dtype=bool).reshape(S, 2)
+    return ScenarioPlan(
+        K=K,
+        networks=networks,
+        qsizes=np.asarray(sizes, dtype=np.float64),
+        names=names,
+        sched_names=sched_names,
+        chunk_names=chunk_names,
+        net_idx=net_idx,
+        kind=kind,
+        trivial_tick=trivial[:, 0],
+        trivial_complete=trivial[:, 1],
+        tick_period=np.array([sim.tick_period for sim in sims], dtype=np.float64),
+        record_timeline=np.array([sim.record_timeline for sim in sims], dtype=bool),
         max_cc=max_cc,
         eff_cc=eff_cc,
         total_bytes=total_bytes,

@@ -5,12 +5,14 @@ Two backends:
 
   - ``batch`` (the default): the columnar plan through
     :class:`TorchFabricSimulation`, on the card unless the caller passes
-    ``device="cpu"``;
+    ``device="cpu"``; prebuilt Simulations (:func:`run_built`,
+    :func:`run_simulations`) reach it through the object ingest
+    :func:`repro_torch.eval.fabric.plan.from_simulations`;
   - ``event``: one :class:`repro_torch.core.simulator.Simulation` per
     row (``build_simulation(sc).run()``), a scalar loop on the host, the
     semantics the sweep is held to (:mod:`repro_torch.eval.difftest`).
 
-Rows run in chunks of :data:`CHUNK_SIZE` scenarios ordered by the plan's cost
+Rows run in chunks of :data:`CHUNK_SIZE` scenarios ordered by a cost
 proxy, so each chunk is cost-homogeneous and a long straggler does not
 pin the whole matrix's sweep width; results come back in input order.
 Golden snapshots map scenario names to throughput, completion time,
@@ -19,21 +21,31 @@ reference implementation (``tests/golden/``)::
 
     python -m repro_torch.eval.runner --matrix default \\
         --out tests/golden/eval_matrix.json
+    python -m repro_torch.eval.runner --matrix full --tune oracle
+
+``--refresh-golden`` writes the snapshot to ``--out`` instead of comparing;
+``--tune {oracle,sha,hill}`` searches the static (pipelining,
+parallelism, concurrency) space over the matrix (:mod:`.tune`) and prints
+every heuristic's regret against the result.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Dict, Iterable, List, Optional, Sequence
+import os
+import time
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
+from repro_torch.core import netmodel, testbeds
 from repro_torch.core.device import resolve_device
 from repro_torch.core.simulator import SimResult, Simulation
 
 from .fabric.bucketing import chunk_spans
 from .fabric.driver import SweepStats, TorchFabricSimulation
-from .fabric.plan import build_plan, plan_supported
+from .fabric.plan import build_plan, from_simulations, plan_supported
 from .scenarios import (
     Scenario,
+    build_files,
     build_simulation,
     default_matrix,
     full_matrix,
@@ -49,36 +61,62 @@ MATRIX_NAMES = ("default", "smoke", "full")
 BACKENDS = ("batch", "event")
 
 
-def _check_backend(backend: str) -> None:
+def _check_backend(backend: str, device) -> None:
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; options: {BACKENDS}")
+    if backend == "event" and device is not None:
+        raise ValueError("the event backend runs on the host; it takes no device")
 
 
-def _no_object_ingest():
-    return NotImplementedError(
-        "the batched backend ingests columnar plans only; prebuilt "
-        "Simulations run on backend='event'"
+def cost_estimate(network, files, concurrency: int, tick_period: float) -> float:
+    """Cheap event-count estimate for cost-homogeneous chunking: the
+    transfer duration at the achievable rate (window-limited streams on
+    lossy paths run far below line rate) in ticks, plus the file count.
+    The same doubles as :meth:`ScenarioPlan.cost_proxy`; the autotuner's
+    explicit file-set rows (successive halving's sketch rungs) use it."""
+    total = sum(f.size for f in files)
+    est_rate = min(
+        network.bandwidth,
+        network.disk.streaming_rate,
+        max(1, concurrency) * netmodel.channel_rate_cap(network, 4),
+    )
+    duration = total / max(est_rate, 1.0)
+    return duration / max(tick_period, 1e-9) + len(files)
+
+
+def _effective_cc(scenario: Scenario) -> int:
+    # static candidate rows run at their own fixed concurrency, not the
+    # heuristics' maxCC budget
+    return scenario.static_params[2] if scenario.static_params is not None else scenario.max_cc
+
+
+def _cost_proxy(scenario: Scenario) -> float:
+    return cost_estimate(
+        testbeds.TESTBEDS[scenario.network], build_files(scenario),
+        _effective_cc(scenario), scenario.tick_period,
     )
 
 
-def run_plan(
-    plan,
-    device=None,
-    fused_step: str = "rounds",
-    waterfill_impl: str = "kernel",
-    stats: Optional[SweepStats] = None,
+def _run_chunks(
+    n: int,
+    costs,
+    make_plan: Callable,
+    device,
+    fused_step: str,
+    waterfill_impl: str,
+    stats: Optional[SweepStats],
+    chunk_size: int,
 ) -> List[SimResult]:
-    """Run every row of ``plan``, serially chunk by chunk, on ``device``
-    (default: the card). ``stats``, when given, accumulates every
-    chunk's sweep counts."""
+    """Rows ordered by ``costs`` (input order without), cut into spans of
+    ``chunk_size``; each span's plan (``make_plan(rows)``) runs as one
+    driver, serially. Results in input order."""
     dev = resolve_device(device)
-    costs = plan.cost_proxy()
-    order = sorted(range(plan.n_rows), key=lambda i: costs[i])
-    results: List[Optional[SimResult]] = [None] * plan.n_rows
-    for lo, hi in chunk_spans(len(order), CHUNK_SIZE):
+    order = list(range(n)) if costs is None else sorted(range(n), key=lambda i: costs[i])
+    results: List[Optional[SimResult]] = [None] * n
+    for lo, hi in chunk_spans(n, chunk_size):
         part = order[lo:hi]
         drv = TorchFabricSimulation(
-            plan.take(part), device=dev, fused_step=fused_step,
+            make_plan(part), device=dev, fused_step=fused_step,
             waterfill_impl=waterfill_impl,
         )
         for i, res in zip(part, drv.run()):
@@ -89,6 +127,23 @@ def run_plan(
     return results  # type: ignore[return-value]
 
 
+def run_plan(
+    plan,
+    device=None,
+    fused_step: str = "rounds",
+    waterfill_impl: str = "kernel",
+    stats: Optional[SweepStats] = None,
+    chunk_size: int = CHUNK_SIZE,
+) -> List[SimResult]:
+    """Run every row of ``plan``, serially chunk by chunk in cost order, on
+    ``device`` (default: the card). ``stats``, when given, accumulates
+    every chunk's sweep counts."""
+    return _run_chunks(
+        plan.n_rows, plan.cost_proxy(), plan.take, device, fused_step,
+        waterfill_impl, stats, chunk_size,
+    )
+
+
 def run_matrix(
     scenarios: Sequence[Scenario],
     device=None,
@@ -96,22 +151,25 @@ def run_matrix(
     waterfill_impl: str = "kernel",
     stats: Optional[SweepStats] = None,
     backend: str = "batch",
+    chunk_size: int = CHUNK_SIZE,
 ) -> List[SimResult]:
     """Run every scenario; results in input order. The batched backend
     runs the columnar plan on ``device`` (default: the card; it raises
     without one); the event backend runs one event simulation a row on
     the host and takes no device."""
-    _check_backend(backend)
+    _check_backend(backend, device)
     if backend == "event":
-        if device is not None:
-            raise ValueError("the event backend runs on the host; it takes no device")
         return [build_simulation(sc).run() for sc in scenarios]
     dev = resolve_device(device)
     if not plan_supported(scenarios):
         raise ValueError("every scenario needs a built-in algorithm")
+    t0 = time.perf_counter()
+    plan = build_plan(scenarios)
+    if stats is not None:
+        stats.ingest_s += time.perf_counter() - t0
     return run_plan(
-        build_plan(scenarios), device=dev, fused_step=fused_step,
-        waterfill_impl=waterfill_impl, stats=stats,
+        plan, device=dev, fused_step=fused_step, waterfill_impl=waterfill_impl,
+        stats=stats, chunk_size=chunk_size,
     )
 
 
@@ -120,23 +178,55 @@ def run_scenario(scenario: Scenario, backend: str = "event", device=None) -> Sim
     return run_matrix([scenario], device=device, backend=backend)[0]
 
 
-def run_built(builders: Sequence, backend: str = "event") -> List[SimResult]:
+def run_built(
+    builders: Sequence[Callable[[], Simulation]],
+    names: Sequence[str],
+    costs: Optional[Sequence[float]] = None,
+    backend: str = "batch",
+    device=None,
+    chunk_size: int = CHUNK_SIZE,
+    stats: Optional[SweepStats] = None,
+) -> List[SimResult]:
     """Run lazily built Simulations: ``builders[i]`` is a zero-argument
-    callable returning a fresh one (schedulers are stateful). Only the
-    event backend runs them."""
-    _check_backend(backend)
-    if backend != "event":
-        raise _no_object_ingest()
-    return [b().run() for b in builders]
+    callable returning a fresh one (schedulers are stateful). On the
+    batched backend rows run in the order and spans of :func:`run_plan`
+    (by ``costs``, input order without); a chunk's Simulations are built
+    only when it runs, then ingested with :func:`from_simulations`, so
+    memory holds one chunk's queues. This is the primitive the autotuner's
+    rungs sweep through: their sketch file sets are not Scenarios."""
+    _check_backend(backend, device)
+    if len(names) != len(builders):
+        raise ValueError(f"{len(names)} names for {len(builders)} builders")
+    if backend == "event":
+        return [b().run() for b in builders]
+
+    def ingest(part):
+        t0 = time.perf_counter()
+        plan = from_simulations([builders[i]() for i in part], [names[i] for i in part])
+        if stats is not None:
+            stats.ingest_s += time.perf_counter() - t0
+        return plan
+
+    return _run_chunks(
+        len(builders), costs, ingest, device, "rounds", "kernel", stats, chunk_size
+    )
 
 
-def run_simulations(sims: Sequence[Simulation], backend: str = "event") -> List[SimResult]:
-    """Run prebuilt Simulations (sweeps that do not fit the Scenario
-    grid); only the event backend runs them."""
-    _check_backend(backend)
-    if backend != "event":
-        raise _no_object_ingest()
-    return [sim.run() for sim in sims]
+def run_simulations(
+    sims: Sequence[Simulation],
+    names: Optional[Sequence[str]] = None,
+    backend: str = "batch",
+    device=None,
+    stats: Optional[SweepStats] = None,
+) -> List[SimResult]:
+    """Run prebuilt, not yet started Simulations (sweeps that do not fit
+    the Scenario grid), in input order."""
+    if names is None:
+        names = [f"scenario{i}" for i in range(len(sims))]
+    return run_built(
+        [(lambda sim=sim: sim) for sim in sims], names, backend=backend,
+        device=device, stats=stats,
+    )
 
 
 def build_matrix(name: str) -> List[Scenario]:
@@ -166,6 +256,13 @@ def metrics_snapshot(
             "n_moves": int(r.n_moves),
         }
     return snap
+
+
+def save_golden(path: str, snapshot: Dict[str, Dict[str, float]]) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(snapshot, f, indent=1, sort_keys=True)
+        f.write("\n")
 
 
 def load_golden(path: str) -> Dict[str, Dict[str, float]]:
@@ -206,19 +303,87 @@ def compare_golden(
     return out
 
 
+def run_tune(args, scenarios: Sequence[Scenario]) -> int:
+    """The ``--tune`` subcommand: search the static knob space over the
+    matrix, then print every heuristic's regret against the result, the
+    search's wall time and its sweep counts."""
+    from . import tune
+
+    history = tune.HistoryStore(args.history) if args.history else None
+    searchers = {
+        "oracle": tune.oracle_search,
+        "sha": tune.successive_halving,
+        "hill": tune.hill_climb,
+    }
+    device = args.device if args.backend == "batch" else None
+    stats = SweepStats()
+    t0 = time.perf_counter()
+    result = searchers[args.tune](
+        scenarios, backend=args.backend, device=device,
+        n_candidates=args.candidates, history=history, stats=stats,
+    )
+    search_s = time.perf_counter() - t0
+    heuristics = run_matrix(scenarios, device=device, backend=args.backend)
+    report = tune.regret_report(scenarios, heuristics, result)
+    print(
+        f"tune[{args.tune}]: {len(scenarios)} scenarios, {len(result.tables)} contexts, "
+        f"{result.evals} candidate evaluations "
+        f"({result.equivalent_evals:.1f} full-fidelity-equivalent)"
+    )
+    print(
+        f"search on {args.backend} ({device or 'host'}): {search_s:.3f}s wall, "
+        f"{stats.ingest_s:.3f}s plan ingest; {stats.sweeps} host rounds, "
+        f"{stats.steps} row steps, {stats.host_syncs} host syncs, "
+        f"{stats.host_transitions} host transitions"
+    )
+    print(f"regret = heuristic_throughput / {args.tune}_throughput:")
+    print(report.format_table())
+    if history is not None:
+        history.save()
+        print(f"warm-start history ({len(history)} winners) -> {args.history}")
+    if args.regret_out:
+        tune.save_report(args.regret_out, report, result)
+        print(f"regret report -> {args.regret_out}")
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--matrix", choices=MATRIX_NAMES, default="default")
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--backend", choices=BACKENDS, default="batch")
+    ap.add_argument("--device", default="cuda", help="the batched backend's device")
     ap.add_argument("--out", default="tests/golden/eval_matrix.json")
+    ap.add_argument("--refresh-golden", action="store_true",
+                    help="write the snapshot to --out instead of comparing")
+    ap.add_argument(
+        "--tune", choices=("oracle", "sha", "hill"), default=None,
+        help="search the static (pipelining, parallelism, concurrency) "
+        "space over the matrix (exhaustive grid / successive halving / "
+        "hill climbing) and report per-algorithm regret vs the result",
+    )
+    ap.add_argument("--candidates", type=int, default=64,
+                    help="--tune: candidate-grid budget per scenario context")
+    ap.add_argument("--history", default=None, metavar="PATH",
+                    help="--tune: JSON warm-start store; read to seed the search, "
+                    "updated with the winners afterwards")
+    ap.add_argument("--regret-out", default=None, metavar="PATH",
+                    help="--tune: write the regret report + search tables as JSON")
     args = ap.parse_args(argv)
 
     scenarios = build_matrix(args.matrix)
+    if args.tune:
+        return run_tune(args, scenarios)
+    device = args.device if args.backend == "batch" else None
     stats = SweepStats()
-    results = run_matrix(scenarios, device=args.device, stats=stats)
-    devs = compare_golden(load_golden(args.out), metrics_snapshot(scenarios, results))
+    results = run_matrix(scenarios, device=device, stats=stats, backend=args.backend)
+    snap = metrics_snapshot(scenarios, results)
+    if args.refresh_golden:
+        save_golden(args.out, snap)
+        print(f"wrote {len(snap)} scenario metrics to {args.out}")
+        return 0
+    devs = compare_golden(load_golden(args.out), snap)
     for d in devs[:20]:
         print(f"DEVIATION {d.scenario} {d.field}: golden={d.golden} observed={d.observed}")
     print(

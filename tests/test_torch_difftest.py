@@ -117,22 +117,29 @@ def test_cli_fails_on_a_violation(monkeypatch):
 
 def test_event_legs_of_the_runner():
     scs = smoke_matrix()[:5]
+    names = [sc.name for sc in scs]
     direct = [build_simulation(sc).run() for sc in scs]
     for out in (
         run_matrix(scs, backend="event"),
         [run_scenario(sc) for sc in scs],
-        run_built([(lambda sc=sc: build_simulation(sc)) for sc in scs]),
-        run_simulations([build_simulation(sc) for sc in scs]),
+        run_built([(lambda sc=sc: build_simulation(sc)) for sc in scs], names, backend="event"),
+        run_simulations([build_simulation(sc) for sc in scs], backend="event"),
     ):
         assert [(r.n_events, r.total_time, r.throughput) for r in out] == [
             (r.n_events, r.total_time, r.throughput) for r in direct
         ]
     batch = run_scenario(scs[0], backend="batch", device="cpu")
     assert abs(batch.throughput - direct[0].throughput) <= 1e-12 * direct[0].throughput
-    with pytest.raises(NotImplementedError, match="columnar plans only"):
-        run_built([lambda: build_simulation(scs[0])], backend="batch")
-    with pytest.raises(NotImplementedError, match="columnar plans only"):
-        run_simulations([build_simulation(scs[0])], backend="batch")
+    # prebuilt Simulations reach the batched backend through the object ingest
+    for out in (
+        run_built([(lambda sc=sc: build_simulation(sc)) for sc in scs], names, device="cpu"),
+        run_simulations([build_simulation(sc) for sc in scs], names, device="cpu"),
+    ):
+        for o, d in zip(out, direct):
+            assert abs(o.throughput - d.throughput) <= 1e-12 * d.throughput
+            assert o.total_bytes == d.total_bytes
+    with pytest.raises(ValueError, match="takes no device"):
+        run_built([lambda: build_simulation(scs[0])], names[:1], backend="event", device="cpu")
     with pytest.raises(ValueError, match="takes no device"):
         run_matrix(scs, device="cpu", backend="event")
     with pytest.raises(ValueError, match="unknown backend"):

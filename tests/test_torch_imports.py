@@ -113,6 +113,29 @@ def test_difftest_needs_the_card_unless_asked_for_the_cpu(monkeypatch):
     assert difftest.main(["--smoke", "--device", "cpu", "--sample", "3"]) == 0
 
 
+def test_tune_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """The searchers, ``run_built`` / ``run_simulations`` on the batched
+    backend and the ``--tune`` CLI raise without a card; ``device="cpu"``
+    runs them on the plain versions, and the event backend needs none."""
+    from repro_torch.eval import runner, tune
+    from repro_torch.eval.scenarios import build_simulation, smoke_matrix
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scs = smoke_matrix()[:1]
+    for search in (tune.oracle_search, tune.successive_halving, tune.hill_climb):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            search(scs, n_candidates=4)
+        assert search(scs, n_candidates=4, device="cpu").evals > 0
+        assert search(scs, n_candidates=4, backend="event").evals > 0
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runner.run_built([lambda: build_simulation(scs[0])], [scs[0].name])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runner.run_simulations([build_simulation(scs[0])])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runner.main(["--tune", "oracle", "--matrix", "smoke", "--candidates", "4"])
+    assert len(runner.run_simulations([build_simulation(scs[0])], device="cpu")) == 1
+
+
 def test_model_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
     from repro_torch.configs import get_config
     from repro_torch.models.config import reduce_for_smoke

@@ -110,6 +110,34 @@ def test_descent_mirror_is_the_butterfly_halving_chain_bit_for_bit(C, seed):
     assert torch.equal(out, _butterfly_chain(_t(caps), _t(pool)))
 
 
+def _tied_pools(caps):
+    """Pools at the sum of ``min(caps, c)`` for a cap c of the row, and one
+    ulp either side: the near-ties where the order of a sum decides
+    ``sum < pool``."""
+    level = caps.max(axis=1, keepdims=True) * 0.37
+    exact = np.minimum(caps, level).sum(axis=1)
+    return np.concatenate([exact, np.nextafter(exact, np.inf), np.nextafter(exact, 0)])
+
+
+@pytest.mark.parametrize("C", [3, 8, 16, 17, 32, 40, 64])
+def test_plain_level_sums_in_the_kernels_order(C):
+    """``bisect_level`` (the water level of every plain step) sums in the
+    kernels' order (``lane_sum``: tiles of 32 lanes in turn, then the warp
+    butterfly), so on rows of C <= 32 it is the descent's level bit for bit
+    and on wider rows the one-at-a-time chain of the kernels' butterfly
+    sums, on any device. A plain ``sum`` in the CPU's order parts from it
+    at near-tie pools."""
+    caps, _ = _draw(C, seed=700 + C, S=256)
+    pool = _tied_pools(caps)
+    caps = np.concatenate([caps] * 3)
+    out = wf.waterfill_bisect_plain(_t(caps), _t(pool))
+    lanes = torch.nn.functional.pad(_t(caps), (0, 64 - C)).unflatten(-1, (2, 32))
+    assert torch.equal(wf.lane_sum(_t(caps)), wf.fold(lanes[:, 0] + lanes[:, 1]))
+    if C <= 32:
+        assert torch.equal(out, wf.waterfill_descent_plain(_t(caps), _t(pool)))
+        assert torch.equal(out, _butterfly_chain(_t(caps), _t(pool)))
+
+
 @pytest.mark.parametrize("C", [1, 3, 16, 17, 32])
 def test_descent_mirror_matches_interpreted_pallas_kernel(C):
     caps, pool = _draw(C, seed=400 + C)
