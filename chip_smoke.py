@@ -21,7 +21,14 @@ Phases, each printing its own lines:
      on the default grid with 32 and 64 channel columns (the wide rows'
      one-halving-at-a-time water level) and on a live full-grid chunk, then
      on that chunk at the main path's cap of 2,048 steps, timed (per launch
-     and per step of the longest row), the WKV-6 kernel at the serving
+     and per step of the longest row), the coupled loop kernel
+     (fused_rounds_coupled, one block a fabric group) against its plain
+     version bit for bit on a live tenant-smoke state at caps of 1, 16, 256
+     and 2,048 steps, with members pushed to max_time and to the SC guard
+     (their groups stop with them), on the default grid's uncoupled rows as
+     groups of one (bit for bit the uncoupled loop kernel) and on the live
+     206-row tenant matrix at 64 steps, timed (the bound counts the Jacobi
+     sweeps the kernel ran), the WKV-6 kernel at the serving
      run's prefill and decode
      shapes and a long prompt (rtol = atol = 1e-4, fp32), the RG-LRU
      kernel at recurrentgemma-9b's prefill, decode and long-prompt shapes,
@@ -76,10 +83,24 @@ Phases, each printing its own lines:
      wall time, plan ingest, host rounds, row steps, host syncs and host
      transitions (must be 0) of each, beside the card's name and power
      limit;
+  5d. shared fabrics: the 206-row tenant matrix on the "rounds" route (the
+     coupled loop kernel, launch counts zeroed just before and read just
+     after) and the "none" route, each timed (host rounds, row steps, host
+     syncs, host transitions (must be 0), plan build, rows/s, the kernel's
+     time); both paired with the coupled event leg (the group's
+     Simulations in lockstep, on the host) through eval.difftest, limits
+     2% and 1e-6, and with each other (1e-6), rows whose event counts
+     differ listed; `python -m repro_torch.eval.difftest --matrix
+     tenant-smoke --route all --expect-zero-replays` in a subprocess must
+     exit 0; single tenants (SC, MC, ProMC, static) on generous links bit
+     for bit their uncoupled twins on both routes; the contention report on
+     tenant-smoke and on the whole tenant matrix, each within 1e-9 of
+     tests/golden/contention_tenant.json (the reference's NumPy reports,
+     written by tests/make_contention_golden.py), with its wall time;
   6. profiled runs of the sweep: the default grid on the "rounds" and
-     "kernel" routes, the full grid on "rounds", the full-grid oracle
-     plane and successive halving: device busy and idle share, device
-     operations per host round, plan ingest;
+     "kernel" routes, the full grid on "rounds", the tenant matrix on
+     "rounds", the full-grid oracle plane and successive halving: device
+     busy and idle share, device operations per host round, plan ingest;
   7. the serving path: rwkv6-3b at full width (32 layers, fp32 weights
      from a seeded generator) serves 8 prompts of 512 tokens and 32 new
      greedy tokens through ``train.serve_step.generate``, with the WKV
@@ -1470,6 +1491,11 @@ def dense_card_against_cpu(fa):
 
 #: step caps of phase 3's loop-kernel checks on the live default-grid state
 ROUND_CHECK_STEPS = (1, 16, 256, 2048)
+#: group steps of the coupled loop kernel's timed launch on the whole
+#: tenant matrix: its plain version there takes some 30 ms a step on the card
+COUPLED_TIMING_STEPS = 64
+#: comparators of the smallest sorting networks of 0..8 keys
+SORT_COMPARATORS = (0, 0, 1, 3, 5, 9, 12, 16, 19)
 
 
 def live_round_state(scenarios, sweeps, widen=0):
@@ -1674,6 +1700,157 @@ def rounds_checks(fs, default_state, chunk_state):
     return row
 
 
+def live_coupled_state(scenarios, sweeps):
+    """The coupled loop kernel's operands (cloned) and fabric of a driver
+    on the card, ``sweeps`` split sweeps into its run."""
+    from repro_torch.eval.fabric.driver import TorchFabricSimulation
+    from repro_torch.eval.fabric.plan import build_plan
+
+    drv = TorchFabricSimulation(build_plan(scenarios), device="cuda", fused_step="none")
+    drv.start()
+    for _ in range(sweeps):
+        drv.step()
+    ops = {k: v.clone() for k, v in drv.round_operands(~drv.done).items()}
+    return ops, drv._fab
+
+
+def identical(outs, refs, label):
+    """Hold kernel outputs to the plain version's bit for bit (NaN equal
+    to NaN); returns 0.0, the max abs error."""
+    import torch
+
+    for (name, o), r in zip(outs.items(), refs):
+        fail_if(o.shape != r.shape or o.dtype != r.dtype, f"{label}: {name} shape/dtype")
+        same = (o == r) | (torch.isnan(o) & torch.isnan(r)) if o.is_floating_point() else o == r
+        fail_if(not bool(same.all()), f"{label}: {name} differs from the plain version "
+                f"(max abs error {abs_err(o, r) if o.is_floating_point() else 'int'})")
+    return 0.0
+
+
+def coupling_ops(sweeps, lay) -> int:
+    """Floating-point operations of the group solves of a launch: each
+    Jacobi sweep a block ran (the kernel's count, ``sweeps`` (G,)) solves
+    each of its links over the link's m rows: a sort (the smallest sorting
+    network's comparators, a min and a max each), m prefix sums and m
+    candidate tests (5 operations each)."""
+    sweeps = sweeps.cpu().numpy()
+    mask = lay["mask"].cpu().numpy()
+    ops = 0
+    for g in range(mask.shape[0]):
+        per_sweep = sum(2 * SORT_COMPARATORS[m] + 6 * m
+                        for m in (bin(int(x)).count("1") for x in mask[g]))
+        ops += int(sweeps[g]) * per_sweep
+    return ops
+
+
+def coupled_rounds_checks(fs, smoke_state, tenant_state, default_state):
+    """Phase 3, the coupled loop kernel: against its plain version on the
+    card, bit for bit, on the live tenant-smoke state at each cap of
+    ROUND_CHECK_STEPS, with members pushed to max_time and to the SC guard
+    (their groups stop with them), on the default grid's uncoupled rows as
+    groups of one (equal to the uncoupled loop kernel), and on the live
+    206-row tenant matrix at COUPLED_TIMING_STEPS group steps, timed there
+    against the plain version and the bound. Returns the timing row."""
+    import numpy as np
+    import torch
+
+    from repro_torch.eval.fabric import transition as tr
+
+    ops0, fab0 = smoke_state
+    cases = [(f"live tenant-smoke, cap {n}", ops0, fab0, n, ("done",) if n == 2048 else ())
+             for n in ROUND_CHECK_STEPS]
+    pushed_err = {k: v.clone() for k, v in ops0.items()}
+    pushed_err["max_time"][::5] = pushed_err["t"][::5] + 1.0
+    cases.append(("tenant-smoke, every fifth row pushed to max_time, cap 256", pushed_err,
+                  fab0, 256, ("error", "group")))
+    pushed_sc = {k: v.clone() for k, v in ops0.items()}
+    sc = pushed_sc["kind"] == tr.KIND_SC
+    pushed_sc["conc"][sc] = pushed_sc["busy"].shape[1] + 1
+    cases.append(("tenant-smoke, SC waves wider than the channel axis, cap 2048", pushed_sc,
+                  fab0, 2048, ("guard", "group")))
+    worst = 0.0
+    for label, s0, fab, max_steps, must in cases:
+        want = fs.fused_rounds_coupled_plain(s0, fab, max_steps)
+        got = {k: v.clone() for k, v in s0.items()}
+        before = fs.fused_rounds_coupled.launches
+        fs.fused_rounds_coupled(got, fab, max_steps)
+        torch.cuda.synchronize()
+        fail_if(fs.fused_rounds_coupled.launches != before + 1,
+                f"fused_rounds_coupled {label}: no launch")
+        worst = max(worst, identical({k: got[k] for k in want}, list(want.values()),
+                                     f"fused_rounds_coupled {label}"))
+        ev = round_events(s0, want)
+        ev["group"] = int(torch.sum(s0["act"] & (want["stop"] == tr.STOP_GROUP)))
+        missing = [m for m in must if ev[m] == 0]
+        fail_if(bool(missing), f"fused_rounds_coupled {label}: no row met {missing}")
+        print(f"[kernels] fused_rounds_coupled {label}: S={s0['act'].shape[0]} "
+              f"C={s0['busy'].shape[1]} K={s0['qptr'].shape[1]}; {int(want['steps'].sum())} row "
+              f"steps (longest {int(want['steps'].max())}); rows by stop and event {ev}; bit for "
+              "bit the plain version", flush=True)
+
+    # rows outside every group: groups of one, the uncoupled loop kernel's results
+    S = default_state["act"].shape[0]
+    solo = fs.fabric_operands(np.full(S, -1), np.zeros((0, S), dtype=bool), np.zeros(0), "cuda")
+    a = {k: v.clone() for k, v in default_state.items()}
+    b = {k: v.clone() for k, v in default_state.items()}
+    fs.fused_rounds(a, 256)
+    fs.fused_rounds_coupled(b, solo, 256)
+    torch.cuda.synchronize()
+    identical({k: b[k] for k in a}, list(a.values()),
+              "fused_rounds_coupled on uncoupled rows against fused_rounds")
+    print(f"[kernels] fused_rounds_coupled on the live default grid's {S} uncoupled rows (one "
+          "block each), cap 256: bit for bit the uncoupled loop kernel", flush=True)
+
+    # timing on the live tenant matrix
+    s0, fab = tenant_state
+    cap = COUPLED_TIMING_STEPS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = fs.fused_rounds_coupled_plain(s0, fab, cap)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = {k: v.clone() for k, v in s0.items()}
+    fs.fused_rounds_coupled(got, fab, cap)
+    torch.cuda.synchronize()
+    sweeps = fs.fused_rounds_coupled.sweeps
+    identical({k: got[k] for k in want}, list(want.values()),
+              f"fused_rounds_coupled tenant matrix, cap {cap}")
+    steps = int(want["steps"].sum())
+    longest = int(want["steps"].max())
+    S, C = s0["busy"].shape
+    fed = int((want["qptr"] - s0["qptr"]).sum())
+    ev = round_events(s0, want)
+    lay = fab["layout"]
+    nbytes = sum(v.numel() * v.element_size() for k, v in s0.items() if k != "qsizes")
+    nbytes += sum(v.numel() * v.element_size() for v in want.values()) + 8 * fed
+    nbytes += sum(v.numel() * v.element_size() for v in lay.values())
+    n_sweeps = int(sweeps.sum())
+    rows_of = lay["rows"].cpu().numpy()
+    steps_of = want["steps"].cpu().numpy()
+    group_steps = sum(int(steps_of[r[r >= 0]].max()) for r in rows_of)
+    ops = 2 * 80 * C * steps + coupling_ops(sweeps, lay)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP64_FLOPS * 1e3
+    ms = device_ms(lambda: fs.fused_rounds_coupled({k: v.clone() for k, v in s0.items()}, fab,
+                                                   cap), 5, "fused_rounds_coupled_kernel")
+    fail_if(ms <= 0.0, "fused_rounds_coupled: profiler recorded no device time")
+    row = {
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "row_steps": steps, "longest": longest,
+        "groups": int(lay["rows"].shape[0]), "jacobi_sweeps": n_sweeps,
+        "ptxas": ptxas_of("fused_step", "fused_rounds_coupled_kernel"),
+    }
+    print(f"[kernels] fused_rounds_coupled tenant matrix S={S} C={C} in {row['groups']} blocks, "
+          f"cap {cap}: {steps} row steps, longest row {longest}, {n_sweeps} Jacobi sweeps "
+          f"over {group_steps} group steps ({n_sweeps / max(group_steps, 1):.3f} a step); rows by "
+          f"stop and event {ev}; "
+          f"bit for bit the plain version | device {ms:.4f} ms a launch, "
+          f"{ms / longest * 1e3:.3f} us a group step of the longest | plain {plain_ms:.1f} ms | "
+          f"bound {row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}: {nbytes / 1e6:.2f} MB, "
+          f"{ops / 1e9:.4f} GFLOP) | ptxas {row['ptxas']}", flush=True)
+    return row
+
+
 def live_default_state():
     """A default-grid driver state a few sweeps in, as fused-step operands."""
     import torch
@@ -1705,7 +1882,7 @@ def run_grid(scenarios, device, fused_step, wf, fs):
 
     stats = SweepStats()
     counters = {"waterfill": wf.waterfill_bisect, "fused_step": fs.fused_step,
-                "fused_rounds": fs.fused_rounds}
+                "fused_rounds": fs.fused_rounds, "fused_rounds_coupled": fs.fused_rounds_coupled}
     for c in counters.values():
         c.launches = 0
     torch.cuda.synchronize()
@@ -1766,6 +1943,8 @@ def sweep_paths(wf, fs, by_path):
     # hold resume files, which the loop kernel feeds itself
     launches["fused_step"] = launches_k["fused_step"]
     launches["waterfill"] = launches_k["waterfill"]
+    # the full grid has no shared fabric: the coupled kernel's path is phase 5d's
+    fail_if(launches.pop("fused_rounds_coupled") != 0, "full grid: the coupled kernel launched")
     worst_route, differ = 0.0, []
     for i, (a, b) in enumerate(zip(res, res_k)):
         fail_if(a.total_bytes != b.total_bytes, f"full grid row {i}: total_bytes by route")
@@ -1832,11 +2011,15 @@ def sweep_paths(wf, fs, by_path):
     # ---- 5c. the autotuner on the card ----
     tune_phase(full, res, fs, by_path, nvidia_smi_line())
 
+    # ---- 5d. shared fabrics: the tenant matrix and the contention report ----
+    launches["fused_rounds_coupled"] = tenant_phase(wf, fs, by_path, nvidia_smi_line())
+
     # ---- 6. profiled sweeps ----
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.eval import tune
     from repro_torch.eval.fabric.driver import SweepStats
+    from repro_torch.eval.scenarios import tenant_matrix
 
     def sweep(grid, route):
         return lambda st: run_matrix(grid, device="cuda", fused_step=route, stats=st)
@@ -1845,6 +2028,7 @@ def sweep_paths(wf, fs, by_path):
         ("default grid, fused_step=rounds", sweep(scs, "rounds")),
         ("default grid, fused_step=kernel", sweep(scs, "kernel")),
         ("full grid, fused_step=rounds", sweep(full, "rounds")),
+        ("tenant matrix, fused_step=rounds", sweep(tenant_matrix(), "rounds")),
         ("full-grid oracle plane", lambda st: tune.oracle_search(full, device="cuda", stats=st)),
         ("full-grid successive halving",
          lambda st: tune.successive_halving(full, device="cuda", stats=st)),
@@ -1859,7 +2043,8 @@ def sweep_paths(wf, fs, by_path):
         busy_s = sum(_self_device_us(e) for e in avgs) / 1e6
         kern = {k: (sum(_self_device_us(e) for e in avgs if k in e.key) / 1e6,
                     sum(e.count for e in avgs if k in e.key))
-                for k in ("fused_rounds_kernel", "fused_step_kernel")}
+                for k in ("fused_rounds_kernel", "fused_step_kernel",
+                          "fused_rounds_coupled_kernel")}
         n_ops = sum(e.count for e in avgs)
         if busy_s > 0:
             print(f"[profile] {label}, under the profiler: wall {wall:.3f}s (plan ingest "
@@ -2084,6 +2269,169 @@ def event_against_routes(scs, default_res, full, full_res):
     fail_if(out.returncode != 0, f"the difftest CLI failed: {out.stderr[-2000:]}")
 
 
+#: the reference's contention reports on tenant matrices, written on the
+#: CPU by tests/make_contention_golden.py (the command is in the file)
+CONTENTION_GOLDEN = ROOT / "tests" / "golden" / "contention_tenant.json"
+#: phase 5d's limit on the card's contention reports against the golden
+CONTENTION_RTOL = 1e-9
+
+
+def contention_against_golden(report, case, label):
+    """The largest relative difference of a contention report's aggregate,
+    per-algorithm and per-group numbers from the golden ``case``; the
+    oracle's evaluation count and chosen settings must be the golden's."""
+    a, b = report.to_json(), case["report"]
+    fail_if(a["aggregate"]["oracle_evals"] != b["aggregate"]["oracle_evals"],
+            f"{label}: {a['aggregate']['oracle_evals']} oracle evaluations, the golden's "
+            f"{b['aggregate']['oracle_evals']}")
+    pairs = [(a["aggregate"][k], b["aggregate"][k]) for k in b["aggregate"]]
+    for algo, agg in b["per_algorithm"].items():
+        pairs += [(a["per_algorithm"][algo][k], agg[k]) for k in agg]
+    for x, y in zip(a["per_group"], b["per_group"]):
+        fail_if(x["group"] != y["group"] or x["oracle_params"] != y["oracle_params"],
+                f"{label}: group {y['group']}'s oracle settings differ from the golden's")
+        pairs += [(x[k], y[k]) for k in ("heuristic_bps", "oracle_bps", "isolated_bps",
+                                         "regret", "contention_factor")]
+    return max(abs(x - y) / max(abs(y), 1e-300) for x, y in pairs)
+
+
+def tenant_phase(wf, fs, by_path, smi):
+    """Phase 5d: shared fabrics on the card. The 206-row tenant matrix on
+    the "rounds" route (the coupled loop kernel; launch counts zeroed just
+    before, read just after) and the "none" route, then each against the
+    coupled event leg on the host and against each other; the difftest CLI
+    on tenant-smoke; single tenants on generous links against their
+    uncoupled twins; the contention report on tenant-smoke against the
+    golden, and on the whole tenant matrix. Returns the coupled kernel's
+    launches on its path."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.eval import difftest
+    from repro_torch.eval.fabric.driver import SweepStats, TorchFabricSimulation
+    from repro_torch.eval.fabric.plan import build_plan
+    from repro_torch.eval.fabric.shared import SharedFabric
+    from repro_torch.eval.runner import run_matrix
+    from repro_torch.eval.scenarios import tenant_matrix
+    from repro_torch.eval.tune import contention_report
+
+    ten = tenant_matrix()
+    res, launches = {}, {}
+    for route in ("rounds", "none"):
+        out, st, lc, secs = run_grid(ten, "cuda", route, wf, fs)
+        res[route] = out
+        for k in lc:
+            by_path[k][f"tenant_{route}"] = lc[k]
+        launches[route] = lc
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run_matrix(ten, device="cuda", fused_step=route)
+            torch.cuda.synchronize()
+        kern = sum(_self_device_us(e) for e in _device_events(prof)
+                   if "fused_rounds_coupled_kernel" in e.key) / 1e3
+        print(f"[tenant] fused_step={route}: {len(ten)} rows in {secs:.3f}s "
+              f"({len(ten) / secs:.1f} rows/s; plan build {st.ingest_s:.3f}s), {st.sweeps} host "
+              f"rounds, {st.steps} row steps, {st.host_syncs} host syncs, {st.host_transitions} "
+              f"host transitions, launches {lc}; coupled loop kernel {kern:.3f} ms (a second "
+              f"run, profiled) | {smi}", flush=True)
+        fail_if(st.host_transitions != 0,
+                f"tenant matrix ({route}): {st.host_transitions} rows left a transition to the host")
+        if route == "rounds":
+            # the launch's least time: its row steps' halvings and the
+            # Jacobi sweeps its blocks ran (the profiled run's count)
+            drv = TorchFabricSimulation(build_plan(ten), device="cuda")
+            sweeps = fs.fused_rounds_coupled.sweeps
+            ops = 2 * 80 * drv.C * st.steps + coupling_ops(sweeps, drv._fab["layout"])
+            print(f"[tenant] the coupled loop kernel's launch: {int(sweeps.sum())} Jacobi sweeps "
+                  f"in {sweeps.numel()} blocks; bound {ops / FP64_FLOPS * 1e6:.3f} us "
+                  f"(operations: {st.steps} row steps x 80 halvings x {drv.C} channels x 2 and "
+                  f"the sweeps' solves, {ops / 1e9:.4f} GFLOP)", flush=True)
+    fail_if(launches["rounds"]["fused_rounds_coupled"] == 0,
+            "tenant matrix: the coupled loop kernel was never launched on its path")
+    fail_if(launches["rounds"]["fused_rounds"] != 0,
+            "tenant matrix: coupled rows reached the uncoupled loop kernel")
+
+    t0 = time.perf_counter()
+    event = run_matrix(ten, backend="event")
+    secs = time.perf_counter() - t0
+    print(f"[tenant] coupled event leg: {len(ten)} rows, {sum(r.n_events for r in event)} events "
+          f"in {secs:.3f}s on the host", flush=True)
+    for route, out in res.items():
+        reports = difftest.pair_results(ten, event, out, "event", route)
+        worst = max(r.rel_err for r in reports)
+        differ = difftest.event_count_differences(ten, event, out)
+        print(f"[tenant] route {route} vs the coupled event leg: worst relative throughput "
+              f"error {worst:.3e} (limits {difftest.DEFAULT_RTOL:g} and {EVENT_ROUTE_TOL:g}); "
+              f"{len(differ)} rows count other events (event, {route}): {differ[:20]}", flush=True)
+        try:
+            difftest.assert_agreement(reports)
+        except AssertionError as exc:
+            raise SmokeFailure(f"tenant matrix, route {route}: {exc}") from None
+        fail_if(not worst <= EVENT_ROUTE_TOL,
+                f"tenant matrix, route {route}: {worst:.3g} from the coupled event leg")
+    agree = max(abs(a.throughput - b.throughput) / b.throughput
+                for a, b in zip(res["rounds"], res["none"]))
+    print(f"[tenant] rounds vs none over {len(ten)} rows: worst relative throughput difference "
+          f"{agree:.3e} (limit {EVENT_ROUTE_TOL:g})", flush=True)
+    fail_if(not agree <= EVENT_ROUTE_TOL, f"tenant matrix: the routes differ ({agree:.3g})")
+
+    cmd = [sys.executable, "-m", "repro_torch.eval.difftest", "--matrix", "tenant-smoke",
+           "--route", "all", "--expect-zero-replays"]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=str(ROOT), env=env, capture_output=True, text=True, timeout=600)
+    for line in out.stdout.splitlines():
+        print(f"[difftest] {line}", flush=True)
+    print(f"[difftest] {' '.join(cmd[1:])}: exit {out.returncode} in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    fail_if(out.returncode != 0, f"the tenant difftest CLI failed: {out.stderr[-2000:]}")
+
+    # single tenants on generous links against their uncoupled twins
+    smoke = tenant_matrix(n_groups=6)
+    picks = {}
+    for sc in smoke:
+        picks.setdefault(sc.algorithm, sc)
+    twins = [dataclasses.replace(sc, shared_fabric=None) for sc in picks.values()]
+    solos = [dataclasses.replace(sc, shared_fabric=SharedFabric(
+        group=f"solo{i}", links=("bb",), capacity=(1e15,), tenant="t0"))
+        for i, sc in enumerate(twins)]
+    for route in ("rounds", "none"):
+        a = run_matrix(twins, device="cuda", fused_step=route)
+        b = run_matrix(solos, device="cuda", fused_step=route)
+        for x, y, sc in zip(a, b, twins):
+            fail_if((x.total_time, x.throughput, x.n_events, x.n_moves, x.per_chunk_bytes)
+                    != (y.total_time, y.throughput, y.n_events, y.n_moves, y.per_chunk_bytes),
+                    f"{sc.name} on a generous link ({route}) differs from its uncoupled twin")
+        print(f"[tenant] single tenants on generous links ({', '.join(picks)}), route {route}: "
+              "bit for bit their uncoupled twins", flush=True)
+
+    golden = json.loads(CONTENTION_GOLDEN.read_text())["cases"]
+    for case, matrix in (("tenant-smoke", smoke), ("full", ten)):
+        st = SweepStats()
+        t0 = time.perf_counter()
+        report = contention_report(matrix, device="cuda", stats=st,
+                                   n_candidates=golden.get(case, golden["tenant-smoke"])["n_candidates"])
+        secs = time.perf_counter() - t0
+        agg = report.aggregate
+        line = (f"[contention] {case}: {len(matrix)} rows, {secs:.3f}s on the card "
+                f"({st.sweeps} host rounds, {st.steps} row steps, {st.host_transitions} host "
+                f"transitions, plan build {st.ingest_s:.3f}s); regret median "
+                f"{agg['regret_median']!r}, mean {agg['regret_mean']!r}, min "
+                f"{agg['regret_min']!r}, contention factor median "
+                f"{agg['contention_factor_median']!r}, {agg['oracle_evals']} oracle evaluations; "
+                f"by algorithm { {a: v['median'] for a, v in report.per_algorithm.items()} }")
+        if case in golden:
+            worst = contention_against_golden(report, golden[case], f"contention {case}")
+            print(f"{line}; against the golden (the reference's NumPy run, "
+                  f"{golden[case]['wall_s']:.1f}s on a CPU): worst relative {worst:.3e} "
+                  f"(limit {CONTENTION_RTOL:g}) | {smi}", flush=True)
+            fail_if(not worst <= CONTENTION_RTOL, f"contention {case}: {worst:.3g} from the golden")
+        else:
+            print(f"{line}; no golden (not gated) | {smi}", flush=True)
+    return launches["rounds"]["fused_rounds_coupled"]
+
+
 def main(argv) -> int:
     quick = "--quick" in argv
     t_start = time.perf_counter()
@@ -2104,7 +2452,7 @@ def main(argv) -> int:
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import rwkv6_scan as wk
     from repro_torch.kernels.ref import flash_attention_ref, rglru_scan_ref, rwkv6_scan_ref
-    from repro_torch.eval.scenarios import default_matrix
+    from repro_torch.eval.scenarios import default_matrix, tenant_matrix
 
     # ---- 1. environment ----
     smi = nvidia_smi_line()
@@ -2141,14 +2489,20 @@ def main(argv) -> int:
     rows = kernel_checks(wf, fs, None if quick else live_default_state())
     chunk_state = live_round_state(full_chunk(), 8)
     rows["fused_rounds"] = {"chunk": None}
-    rows["fused_rounds"]["chunk"] = rounds_checks(
-        fs, live_round_state(default_matrix(), 20), chunk_state)
+    default_state = live_round_state(default_matrix(), 20)
+    rows["fused_rounds"]["chunk"] = rounds_checks(fs, default_state, chunk_state)
     del chunk_state
     rows["rwkv6_scan"] = wkv_checks(wk, rwkv6_scan_ref)
     rows["rglru_scan"] = rglru_checks(rg, rglru_scan_ref)
     fa_rows = flash_checks(fa, flash_attention_ref)
     rows["flash_attention_sm90"] = fa_rows[fa.TENSOR_CORES]
     rows["flash_attention"] = fa_rows[fa.CUDA_CORES]
+    # the coupled loop's plain version launches millions of small kernels
+    # on the card; the profiled launch counts of the model kernels come first
+    rows["fused_rounds_coupled"] = {"tenant": coupled_rounds_checks(
+        fs, live_coupled_state(tenant_matrix(n_groups=6), 10),
+        live_coupled_state(tenant_matrix(), 10), default_state)}
+    del default_state
 
     launches = {k: 0 for k in rows}
     by_path = {k: {} for k in rows}
@@ -2192,6 +2546,8 @@ def main(argv) -> int:
          "src/repro/eval/fabric/kernels/fused_step_pallas.py:37", JSON_SHAPE, "SCKQ"),
         ("fused_rounds", "src/repro_torch/eval/fabric/csrc/fused_step.cu",
          "src/repro/eval/fabric/kernels/fused_step_pallas.py:37", "chunk", None),
+        ("fused_rounds_coupled", "src/repro_torch/eval/fabric/csrc/fused_step.cu",
+         "src/repro/eval/fabric/kernels/fused_step_pallas.py:37", "tenant", None),
         ("rwkv6_scan", "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
          "src/repro/kernels/rwkv6_scan.py:26", WKV_SHAPES[0], "BHTD"),
         ("rglru_scan", "src/repro_torch/kernels/csrc/rglru_scan.cu",
@@ -2213,6 +2569,12 @@ def main(argv) -> int:
                 "full_grid_chunk_rows": 1024, "max_steps": fs.ROUND_CAP,
                 "row_steps": row["row_steps"], "longest_row_steps": row["longest"]},
         })
+        if name == "fused_rounds_coupled":
+            kernels[-1]["shape"] = {"tenant_matrix_rows": 206, "groups": row["groups"],
+                                    "max_steps": COUPLED_TIMING_STEPS,
+                                    "row_steps": row["row_steps"],
+                                    "longest_row_steps": row["longest"],
+                                    "jacobi_sweeps": row["jacobi_sweeps"]}
         if name.startswith("flash_attention"):
             kernels[-1]["shape"].update(window=pick[7], dtype=pick[9])
         if name == "rwkv6_scan":  # the model's call, (B, T, H, D) in place

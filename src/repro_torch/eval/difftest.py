@@ -32,9 +32,14 @@ the reference's NumPy driver does the same).
 ``--expect-zero-replays`` fails the run unless every leg run through the
 loop kernel (:data:`LOOP_LEGS`) left no transition to the host
 (``SweepStats.host_transitions``, the rows a capacity guard stopped: the
-counterpart of the reference's parked-row replays). The shared-fabric
-``tenant`` matrices of the reference harness are left out (the plan
-raises on coupled rows).
+counterpart of the reference's parked-row replays).
+
+The shared-fabric matrices (``--matrix tenant``, ``tenant-smoke``) pair
+the routes that take coupled rows, ``rounds`` (the coupled loop kernel)
+and ``none``, with the coupled event leg (the group's Simulations in
+lockstep); ``kernel`` has no coupled form and is left out there::
+
+    python -m repro_torch.eval.difftest --matrix tenant-smoke --route all --device cpu
 """
 from __future__ import annotations
 
@@ -44,7 +49,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core.device import resolve_device
 
-from .runner import build_matrix, run_matrix
+from .runner import MATRIX_NAMES, build_matrix, run_matrix
 from .scenarios import Scenario
 
 DEFAULT_RTOL = 0.02
@@ -54,6 +59,9 @@ ROUTES = ("rounds", "kernel", "none")
 
 #: the legs that run through the loop kernel
 LOOP_LEGS = ("rounds",)
+
+#: the routes that take rows of shared fabrics
+COUPLED_ROUTES = ("rounds", "none")
 
 #: leg name -> (fused_step, waterfill_impl) of the batched driver
 SWEEP_LEGS: Dict[str, Tuple[str, str]] = {
@@ -192,7 +200,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--route", choices=ROUTES + ("all",), default="rounds")
-    ap.add_argument("--matrix", choices=("smoke", "default", "full"), default="full")
+    ap.add_argument("--matrix", choices=MATRIX_NAMES, default="full")
     ap.add_argument("--smoke", action="store_true", help="shorthand for --matrix smoke")
     ap.add_argument(
         "--closed", action="store_true",
@@ -220,6 +228,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         scenarios = random.Random(args.sample_seed).sample(scenarios, args.sample)
         matrix = f"{matrix}[sample {args.sample}]"
     legs = list(ROUTES if args.route == "all" else (args.route,))
+    if any(sc.shared_fabric is not None for sc in scenarios) and "kernel" in legs:
+        print(f"route kernel has no coupled form: not run on matrix {matrix}, whose rows "
+              f"share fabrics (coupled routes: {', '.join(COUPLED_ROUTES)})")
+        legs.remove("kernel")
     if args.closed:
         legs.append("none-closed")
 

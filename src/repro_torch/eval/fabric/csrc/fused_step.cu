@@ -265,17 +265,15 @@ __device__ __forceinline__ void feed_row(Channels<T>& c, bool enabled, const Que
   __syncwarp();
 }
 
-// One step of a row: the channels in `c` advance and are fed in place,
-// `moved` gets each column's moved bytes, the chunk queues in `q` advance.
-template <int T, int CW>
-__device__ __forceinline__ Step row_step(Channels<T>& c, double (&moved)[T], bool enabled,
-                                         double tick_dt, const Link& link, const Queues& q,
-                                         const double* qsizes, long long Q, int K,
-                                         const WarpSmem& sm, int lane) {
-  bool tr[T];
-  double caps[T];
+// A step's first part (read only): the transferring channels, their caps,
+// their total (summed lane by lane, then the butterfly) and largest cap, and
+// the row's rate pool (disk_pool).
+template <int T>
+__device__ __forceinline__ double row_load(const Channels<T>& c, const Link& link, bool (&tr)[T],
+                                           double (&caps)[T], double& total, double& hi) {
   long long n_t = 0;
-  double total = 0.0, hi = 0.0;
+  total = 0.0;
+  hi = 0.0;
 #pragma unroll
   for (int t = 0; t < T; ++t) {
     tr[t] = c.busy[t] && c.dead[t] <= kEps;
@@ -291,13 +289,22 @@ __device__ __forceinline__ Step row_step(Channels<T>& c, double (&moved)[T], boo
   // ---- disk_pool ----
   const long long over = n_t - link.sat_cc > 0 ? n_t - link.sat_cc : 0;
   const double agg = link.disk_rate / (1.0 + link.contention * (double)over);
-  const double pool = n_t > 0 ? fmin(link.bw, agg) : 0.0;
+  return n_t > 0 ? fmin(link.bw, agg) : 0.0;
+}
 
+// A step's second part: the rates under `pool` (the water-fill) and their
+// sum, and the row's horizon dt (event_horizon; 0 when not enabled).
+template <int T, int CW>
+__device__ __forceinline__ double row_rates(const Channels<T>& c, const bool (&tr)[T],
+                                            const double (&caps)[T], double total, double hi,
+                                            double pool, bool enabled, double tick_dt,
+                                            double (&rate)[T], double& rsum, double* col_f,
+                                            int lane) {
   // ---- water-fill ----
   const double level =
-      water_level<T, CW>(caps, hi, fmax(fmin(pool, total), 0.0), sm.col_f, lane);
-  double rate[T];
-  double rsum = 0.0, horizon = INFINITY;
+      water_level<T, CW>(caps, hi, fmax(fmin(pool, total), 0.0), col_f, lane);
+  double horizon = INFINITY;
+  rsum = 0.0;
 #pragma unroll
   for (int t = 0; t < T; ++t) {
     rate[t] = enabled ? fmin(caps[t], level) : 0.0;
@@ -310,9 +317,19 @@ __device__ __forceinline__ Step row_step(Channels<T>& c, double (&moved)[T], boo
   }
   rsum = warp_sum(rsum);
   horizon = warp_min(horizon);
-  double dt = fmin(tick_dt, horizon);
-  dt = enabled ? fmax(dt, 0.0) : 0.0;
+  const double dt = fmin(tick_dt, horizon);
+  return enabled ? fmax(dt, 0.0) : 0.0;
+}
 
+// A step's last part: the channels advance by dt at `rate` and are fed in
+// place, `moved` gets each column's moved bytes, the chunk queues in `q`
+// advance.
+template <int T, int CW>
+__device__ __forceinline__ Step row_advance(Channels<T>& c, const bool (&tr)[T],
+                                            const double (&rate)[T], double dt, double rsum,
+                                            bool enabled, double (&moved)[T], const Queues& q,
+                                            const double* qsizes, long long Q, int K,
+                                            const WarpSmem& sm, int lane) {
   // ---- advance_channels ----
   bool fin_any = false;
 #pragma unroll
@@ -332,6 +349,22 @@ __device__ __forceinline__ Step row_step(Channels<T>& c, double (&moved)[T], boo
   // ---- feed ----
   feed_row<T, CW>(c, enabled, q, qsizes, Q, K, sm, lane);
   return {dt, rsum, fin_any};
+}
+
+// One step of a row: the channels in `c` advance and are fed in place,
+// `moved` gets each column's moved bytes, the chunk queues in `q` advance.
+template <int T, int CW>
+__device__ __forceinline__ Step row_step(Channels<T>& c, double (&moved)[T], bool enabled,
+                                         double tick_dt, const Link& link, const Queues& q,
+                                         const double* qsizes, long long Q, int K,
+                                         const WarpSmem& sm, int lane) {
+  bool tr[T];
+  double caps[T], rate[T];
+  double total, hi, rsum;
+  const double pool = row_load<T>(c, link, tr, caps, total, hi);
+  const double dt =
+      row_rates<T, CW>(c, tr, caps, total, hi, pool, enabled, tick_dt, rate, rsum, sm.col_f, lane);
+  return row_advance<T, CW>(c, tr, rate, dt, rsum, enabled, moved, q, qsizes, Q, K, sm, lane);
 }
 
 template <int T>
@@ -700,30 +733,45 @@ __device__ __forceinline__ long long sc_advance(long long cursor, const ChunkSme
   return cursor;
 }
 
-template <int T, int CW>
-__global__ void fused_rounds_kernel(RoundArgs a) {
-  extern __shared__ __align__(8) unsigned char smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long row = (long long)blockIdx.x * a.warps + warp;
-  if (row >= a.S) return;  // uniform across the warp
-  if (!a.act[row]) {
-    if (lane == 0) {
-      a.steps[row] = 0;
-      a.stop[row] = 0;
-    }
-    return;
-  }
+// A row's scalar loop state, in registers for the whole launch.
+struct RowLoop {
+  double t, next_tick, finish_t, tl_last_t, tl_last_rate;
+  long long n_events, cursor, streak, pair_fast, pair_slow, n_moves;
+  long long tl_len, tl_stride, tl_seen, steps;
+  bool fin_any;
+};
+
+// What a row's loop reads: its constants, its queues (per-chunk state in
+// shared memory), its resume stack, timeline ring and profile.
+struct RowEnv {
+  RowConst rc;
+  Queues q;
+  double* psizes;
+  double* tl_t;
+  double* tl_rate;
+  const double* prof_t;
+  const double* prof_mult;
+  const double* qsizes;
+  long long Q;
+  double period, max_time;
+  bool record, trivial_complete;
+  int C, K, B, P, TL;
+};
+
+// Carve a warp's shared memory at `w` (round_warp_bytes(T, K) bytes), load
+// row `row`'s per-chunk state into it and its channels into `c`.
+template <int T>
+__device__ __forceinline__ void setup_row(const RoundArgs& a, long long row, unsigned char* w,
+                                          WarpSmem& sm, ChunkSmem& ck, Channels<T>& c,
+                                          RowEnv& env, RowLoop& st, int lane) {
   const int C = a.C, K = a.K, B = a.B, P = a.P, TL = a.TL;
   const long long rc_ = row * C, rk = row * K, rb = row * B;
 
   // shared memory: 8-byte arrays first, then 4-byte ones
-  double* f8 = reinterpret_cast<double*>(smem + warp * round_warp_bytes(T, K));
-  WarpSmem sm;
+  double* f8 = reinterpret_cast<double*>(w);
   sm.col_f = f8;
   sm.col_g = sm.col_f + 32 * T;
   sm.col_h = sm.col_g + 32 * T;
-  ChunkSmem ck;
   ck.qoff = reinterpret_cast<long long*>(sm.col_h + 32 * T);
   ck.qlen = ck.qoff + K;
   ck.qptr = ck.qlen + K;
@@ -773,389 +821,54 @@ __global__ void fused_rounds_kernel(RoundArgs a) {
   }
   __syncwarp();
 
-  Channels<T> c = load_channels<T>(a.busy + rc_, a.dead + rc_, a.rem + rc_, a.cap + rc_,
-                                   a.chunk_of + rc_, C, lane);
-  const Queues q{ck.qoff, ck.qlen, ck.fsdt, ck.qptr, ck.qb, ck.qptr, ck.qb, ck.pn,
+  c = load_channels<T>(a.busy + rc_, a.dead + rc_, a.rem + rc_, a.cap + rc_, a.chunk_of + rc_, C,
+                       lane);
+  env.q = Queues{ck.qoff, ck.qlen, ck.fsdt, ck.qptr, ck.qb, ck.qptr, ck.qb, ck.pn,
                  a.prepend_sizes + rk * P, P};
-  double* const psizes = a.prepend_sizes + rk * P;
-  double* const tl_t = a.tl_t + row * TL;
-  double* const tl_rate = a.tl_rate + row * TL;
-  const RowConst rc{a.kind[row], a.n_chunks[row], a.sat_cc[row], a.promc_patience[row],
+  env.psizes = a.prepend_sizes + rk * P;
+  env.tl_t = a.tl_t + row * TL;
+  env.tl_rate = a.tl_rate + row * TL;
+  env.prof_t = a.prof_t + rb;
+  env.prof_mult = a.prof_mult + rb;
+  env.qsizes = a.qsizes;
+  env.Q = a.Q;
+  env.rc = RowConst{a.kind[row], a.n_chunks[row], a.sat_cc[row], a.promc_patience[row],
                     a.bw[row], a.disk_rate[row], a.contention[row], a.setup_cost[row],
                     a.promc_ratio[row]};
-  Link link{rc.bw, rc.disk_rate, rc.contention, rc.sat_cc};
-  const double period = a.tick_period[row];
-  const double max_time = a.max_time[row];
-  const bool record = a.record[row];
-  const bool trivial_complete = a.trivial_complete[row];
-  double t = a.t[row];
-  double next_tick = a.next_tick[row];
-  double finish_t = a.finish_t[row];
-  long long n_events = a.n_events[row];
-  long long cursor = a.sc_cursor[row], streak = a.streak[row];
-  long long pair_fast = a.pair_fast[row], pair_slow = a.pair_slow[row];
-  long long n_moves = a.n_moves[row];
-  long long tl_len = a.tl_len[row], tl_stride = a.tl_stride[row], tl_seen = a.tl_seen[row];
-  double tl_last_t = a.tl_last_t[row], tl_last_rate = a.tl_last_rate[row];
-  bool fin_any = a.fin_any[row];
-  bool row_done = false;
-  long long steps = 0, stop = 0;
+  env.period = a.tick_period[row];
+  env.max_time = a.max_time[row];
+  env.record = a.record[row];
+  env.trivial_complete = a.trivial_complete[row];
+  env.C = C;
+  env.K = K;
+  env.B = B;
+  env.P = P;
+  env.TL = TL;
+  st.t = a.t[row];
+  st.next_tick = a.next_tick[row];
+  st.finish_t = a.finish_t[row];
+  st.n_events = a.n_events[row];
+  st.cursor = a.sc_cursor[row];
+  st.streak = a.streak[row];
+  st.pair_fast = a.pair_fast[row];
+  st.pair_slow = a.pair_slow[row];
+  st.n_moves = a.n_moves[row];
+  st.tl_len = a.tl_len[row];
+  st.tl_stride = a.tl_stride[row];
+  st.tl_seen = a.tl_seen[row];
+  st.tl_last_t = a.tl_last_t[row];
+  st.tl_last_rate = a.tl_last_rate[row];
+  st.fin_any = a.fin_any[row];
+  st.steps = 0;
+}
 
-  for (;;) {
-    // (0) the error test: past max_time, or a live chunk holding no channel
-    // while no channel is busy
-    if (t > max_time) {
-      stop = kStopError;
-      break;
-    }
-    bool any_busy = false;
-#pragma unroll
-    for (int tt = 0; tt < T; ++tt) any_busy = any_busy || c.busy[tt];
-    if (!__any_sync(kFull, any_busy)) {
-      count_open<T, CW>(c, ck, sm, K, lane);
-      bool str = false;
-      for (int k = lane; k < K; k += 32) str = str || (!ck.done[k] && ck.nch[k] == 0);
-      if (__any_sync(kFull, str)) {
-        stop = kStopError;
-        break;
-      }
-    }
-    // (a) the bandwidth profile at t: the last step at or before t, and
-    // the time of the next one (inf past the last)
-    double next_prof = INFINITY;
-    link.bw = rc.bw;
-    if (B > 1) {
-      int at = -1;
-      for (int b0 = 0; b0 < B; b0 += 32) {
-        const int b = b0 + lane;
-        const double pt = b < B ? a.prof_t[rb + b] : INFINITY;
-        at += __popc(__ballot_sync(kFull, pt <= t));
-        next_prof = fmin(next_prof, pt > t ? pt : INFINITY);
-      }
-      next_prof = warp_min(next_prof);
-      const double mult = a.prof_mult[rb + (at < 0 ? 0 : at)];
-      link.bw = rc.bw * (at >= 0 ? mult : 1.0);
-    }
-    // (b) one step: physics, then the feed with the resume stack
-    double moved[T];
-    const Step s = row_step<T, CW>(c, moved, true, fmin(next_tick - t, next_prof - t), link, q,
-                                   a.qsizes, a.Q, K, sm, lane);
-    // (c) the timeline ring (kernels.timeline_push) at the step's start
-    if (record) {
-      const long long st_safe = tl_stride > 1 ? tl_stride : 1;
-      if (tl_seen % st_safe == 0 && tl_len >= TL) {
-        // keep every other sample; the stride doubles
-        const int half = (TL + 1) / 2;
-        for (int j0 = 0; j0 < half; j0 += 32) {
-          const int j = j0 + lane;
-          double vt = 0.0, vr = 0.0;
-          if (j < half) {
-            vt = tl_t[2 * j];
-            vr = tl_rate[2 * j];
-          }
-          __syncwarp();
-          if (j < half) {
-            tl_t[j] = vt;
-            tl_rate[j] = vr;
-          }
-          __syncwarp();
-        }
-        for (int j = half + lane; j < TL; j += 32) {
-          tl_t[j] = 0.0;
-          tl_rate[j] = 0.0;
-        }
-        __syncwarp();
-        tl_len = (tl_len + 1) / 2;
-        tl_stride = st_safe * 2;
-      }
-      const long long st2 = tl_stride > 1 ? tl_stride : 1;
-      if (tl_seen % st2 == 0 && tl_len < TL) {
-        if (lane == 0) {
-          tl_t[tl_len] = t;
-          tl_rate[tl_len] = s.rate_sum;
-        }
-        ++tl_len;
-      }
-      ++tl_seen;
-      tl_last_t = t;
-      tl_last_rate = s.rate_sum;
-      __syncwarp();
-    }
-    // (d) the clock; moved bytes into the chunks' totals, in column order;
-    // busy channels per chunk and the chunks that complete
-    t = t + s.dt;
-    ++n_events;
-    ++steps;
-    fin_any = s.fin;
-#pragma unroll
-    for (int tt = 0; tt < T; ++tt) {
-      const int col = tt * 32 + lane;
-      sm.col_f[col] = moved[tt];
-      sm.col_k[col] = moved[tt] != 0.0 ? c.ch[tt] : -1;
-      sm.col_b[col] = c.busy[tt] ? c.ch[tt] : -1;
-    }
-    __syncwarp();
-    bool comp_any = false, full = false;
-    for (int k = lane; k < K; k += 32) {
-      double d = ck.deliv[k];
-      int n_busy = 0;
-#pragma unroll 8
-      for (int col = 0; col < (kLoopCols<T, CW>); ++col) {
-        if (sm.col_k[col] == k) d += sm.col_f[col];
-        n_busy += sm.col_b[col] == k ? 1 : 0;
-      }
-      ck.deliv[k] = d;
-      const bool cmp = !ck.done[k] && ck.qlen[k] - ck.qptr[k] + ck.pn[k] == 0 && n_busy == 0;
-      ck.comp[k] = cmp;
-      comp_any = comp_any || cmp;
-      full = full || ck.pn[k] >= P;
-    }
-    comp_any = __any_sync(kFull, comp_any);
-    const bool tick_hit = t >= next_tick - kEps;
-    // (e) the capacity guards: the row stops with its transition pending
-    // for the host, which grows the axis
-    bool guard = tick_hit && rc.kind == kKindPromc && __any_sync(kFull, full);
-    if (!guard && rc.kind == kKindSc && comp_any) {
-      // SC's handlers walked over column counts: free columns at each open
-      const int n_open = count_open<T, CW>(c, ck, sm, K, lane);
-      int short_ = 0;
-      if (lane == 0) {
-        long long cur = cursor;
-        long long free_ = C - n_open;
-        for (int k = 0; k < K; ++k) {
-          if (!ck.comp[k]) continue;
-          free_ += ck.nch[k];
-          ck.nch[k] = 0;
-          cur = sc_advance(cur, ck, rc.n_chunks, K);
-          if (cur < rc.n_chunks) {
-            const int nxt = ck.order[cur];
-            const long long no = ck.conc[nxt];
-            short_ |= free_ < no ? 1 : 0;
-            free_ -= no;
-            ck.nch[nxt] += (int)no;
-          }
-        }
-      }
-      guard = __shfl_sync(kFull, short_, 0) != 0;
-      __syncwarp();
-    }
-    if (guard) {
-      stop = kStopGuard;
-      break;
-    }
-    // (f) the transition (transition.post_transition): completions
-    if (comp_any && (trivial_complete || rc.kind >= kKindSc)) {
-      for (int k = lane; k < K; k += 32) {
-        if (ck.comp[k]) {
-          ck.done[k] = 1;
-          ck.qb[k] = 0.0;
-          ck.cat[k] = t;
-        }
-      }
-      __syncwarp();
-    }
-    const bool ctrl = comp_any && rc.kind >= kKindSc;
-    if (ctrl && rc.kind == kKindPromc) {  // ProMC drops its streak evidence
-      streak = 0;
-      pair_fast = -1;
-      pair_slow = -1;
-    }
-    // each completed chunk's handler in index order, a re-feed after each
-    for (int k = 0; ctrl && k < K; ++k) {
-      if (!ck.comp[k]) continue;
-      bool fed = false;
-      if (rc.kind == kKindSc) {
-        // close chunk k, advance the cursor past empty classes, open the
-        // next class's channels at the lowest free columns
-        bool sel[T];
-#pragma unroll
-        for (int tt = 0; tt < T; ++tt) sel[tt] = c.ch[tt] == k;
-        close_compact<T>(c, sel, sm, lane);
-        cursor = sc_advance(cursor, ck, rc.n_chunks, K);
-        const int nxt = ck.order[cursor < 0 ? 0 : (cursor > K - 1 ? K - 1 : cursor)];
-        const int n_open = cursor < rc.n_chunks ? ck.conc[nxt] : 0;
-        const double cap_n = ck.capk[nxt];
-        const double sc = rc.setup_cost;
-        open_free<T>(c, n_open, C, lane, [&](int, int& ch, double& dead, double& cp) {
-          ch = nxt;
-          dead = sc;
-          cp = cap_n;
-        });
-        fed = true;
-      } else if (rc.kind == kKindMc || rc.kind == kKindPromc) {
-        // freed channels to the largest-ETA laggards (laggard_grants), in
-        // first-grant order onto the lowest free columns (apply_grants)
-        row_views<T, CW>(c, ck, rc, sm, K, lane);
-        int total = 0;
-        if (lane == 0) {
-          bool any_live = false;
-          for (int j = 0; j < K; ++j) {
-            ck.grants[j] = 0;
-            ck.egr[j] = ck.eta[j];
-            any_live = any_live || (!ck.done[j] && j != k && ck.brem[j] > 0.0);
-          }
-          const int freed = ck.nch[k];
-          int n_ord = 0;
-          for (int i = 0; any_live && i < freed; ++i) {
-            double cur = -INFINITY;
-            for (int j = 0; j < K; ++j) {
-              if (!ck.done[j] && j != k && ck.brem[j] > 0.0) cur = fmax(cur, ck.egr[j]);
-            }
-            int dst = 0;
-            for (int j = 0; j < K; ++j) {
-              if (!ck.done[j] && j != k && ck.brem[j] > 0.0 && ck.egr[j] == cur) {
-                dst = j;
-                break;
-              }
-            }
-            if (ck.grants[dst] == 0) ck.ord[n_ord++] = dst;
-            ++ck.grants[dst];
-            ++total;
-            const long long n = (long long)ck.nch[dst] + ck.grants[dst];
-            const double nf = (double)n;
-            const double factor = n > 1 ? (nf - 1.0) / fmax(nf, 1.0) : 0.5;
-            if (isfinite(ck.egr[dst])) ck.egr[dst] = ck.egr[dst] * factor;
-          }
-          int r = 0;
-          for (int o = 0; o < n_ord; ++o) {
-            const int d = ck.ord[o];
-            for (int g = 0; g < ck.grants[d]; ++g) sm.col_s[r++] = d;
-          }
-        }
-        total = __shfl_sync(kFull, total, 0);
-        __syncwarp();
-        if (total > 0) {
-          bool sel[T];
-#pragma unroll
-          for (int tt = 0; tt < T; ++tt) sel[tt] = c.ch[tt] == k;
-          close_compact<T>(c, sel, sm, lane);
-          const int par_src = ck.par[k];
-          const double sc = rc.setup_cost;
-          open_free<T>(c, total, C, lane, [&](int rank, int& ch, double& dead, double& cp) {
-            const int d = sm.col_s[rank];
-            ch = d;
-            dead = ck.par[d] == par_src ? 0.25 * sc : sc;
-            cp = ck.capk[d];
-          });
-          n_moves += total;
-          fed = true;
-        }
-      }
-      if (fed) feed_row<T, CW>(c, true, q, a.qsizes, a.Q, K, sm, lane);
-    }
-    // the tick: the rate EMA, then ProMC's check and move
-    if (tick_hit) {
-      for (int k = lane; k < K; k += 32) {
-        const double inst = (ck.deliv[k] - ck.dat[k]) / period;
-        ck.rate[k] = ck.rate[k] == 0.0 ? inst : 0.5 * ck.rate[k] + 0.5 * inst;
-        ck.dat[k] = ck.deliv[k];
-      }
-      __syncwarp();
-      if (rc.kind == kKindPromc) {
-        // controllers.promc_tick over the post-handler views (every lane)
-        row_views<T, CW>(c, ck, rc, sm, K, lane);
-        int nlv = 0;
-        double mn = INFINITY, mx = -INFINITY;
-        for (int k = 0; k < K; ++k) {
-          if (!ck.done[k] && ck.brem[k] > 0.0 && ck.nch[k] > 0) {
-            ++nlv;
-            mn = fmin(mn, ck.eta[k]);
-            mx = fmax(mx, ck.eta[k]);
-          }
-        }
-        int fast = -1, slow = -1;
-        for (int k = 0; k < K; ++k) {
-          const bool lv = !ck.done[k] && ck.brem[k] > 0.0 && ck.nch[k] > 0;
-          if (fast < 0 && lv && ck.eta[k] == mn) fast = k;
-          if (slow < 0 && lv && ck.eta[k] == mx) slow = k;
-        }
-        fast = fast < 0 ? 0 : fast;
-        slow = slow < 0 ? 0 : slow;
-        const double eta_f = ck.eta[fast], eta_s = ck.eta[slow];
-        const bool few = nlv < 2;
-        const bool wait_meas = !few && !isfinite(eta_s) && ck.rate[slow] == 0.0;
-        const bool imb = eta_s >= rc.ratio * eta_f && fast != slow && ck.nch[fast] > 1;
-        const bool same = fast == pair_fast && slow == pair_slow;
-        const long long upd = imb && same ? streak + 1 : (imb ? 1 : 0);
-        const bool fire = !few && !wait_meas && imb && upd >= rc.patience;
-        const bool reset = few || fire;
-        const bool pair_ok = !wait_meas && !reset && imb;
-        streak = wait_meas ? streak : (reset ? 0 : upd);
-        pair_fast = wait_meas ? pair_fast : (pair_ok ? fast : -1);
-        pair_slow = wait_meas ? pair_slow : (pair_ok ? slow : -1);
-        __syncwarp();
-        if (fire) {
-          // controllers.move_channel: the source's idle-first lowest column
-          // closes (a busy victim pushes ceil(rem) on the resume stack),
-          // the lowest free column opens for the destination
-          const int src = fast, dst = slow;
-          bool sel[T];
-#pragma unroll
-          for (int tt = 0; tt < T; ++tt) sel[tt] = c.ch[tt] == src && !c.busy[tt];
-          int victim = lowest<T>(sel);
-          if (victim < 0) {
-#pragma unroll
-            for (int tt = 0; tt < T; ++tt) sel[tt] = c.ch[tt] == src && c.busy[tt];
-            victim = lowest<T>(sel);
-          }
-          victim = victim < 0 ? 0 : victim;
-          double vrem = 0.0;
-          bool vbusy = false;
-#pragma unroll
-          for (int tt = 0; tt < T; ++tt) {
-            sel[tt] = tt * 32 + lane == victim;
-            if (tt == victim >> 5) {
-              vrem = __shfl_sync(kFull, c.rem[tt], victim & 31);
-              vbusy = __shfl_sync(kFull, c.busy[tt] ? 1 : 0, victim & 31) != 0;
-            }
-          }
-          if (vbusy && vrem > 0.0 && lane == 0) {
-            const double size = ceil(vrem);
-            ck.qb[src] = ck.qb[src] + size;
-            const long long d = ck.pn[src] < 0 ? 0 : (ck.pn[src] > P - 1 ? P - 1 : ck.pn[src]);
-            psizes[(long long)src * P + d] = size;
-            ck.pn[src] += 1;
-          }
-          __syncwarp();
-          close_compact<T>(c, sel, sm, lane);
-#pragma unroll
-          for (int tt = 0; tt < T; ++tt) sel[tt] = c.ch[tt] < 0 && tt * 32 + lane < C;
-          int fcol = lowest<T>(sel);
-          fcol = fcol < 0 ? 0 : fcol;
-          const double sc = rc.setup_cost;
-          const double cost = ck.par[src] == ck.par[dst] ? 0.25 * sc : sc;
-          const double cap_d = ck.capk[dst];
-#pragma unroll
-          for (int tt = 0; tt < T; ++tt) {
-            if (tt * 32 + lane == fcol) {
-              c.ch[tt] = dst;
-              c.dead[tt] = cost;
-              c.cap[tt] = cap_d;
-            }
-          }
-          ++n_moves;
-          feed_row<T, CW>(c, true, q, a.qsizes, a.Q, K, sm, lane);
-        }
-      }
-      next_tick = next_tick + period;
-    }
-    // (g) the done test, then the step cap
-    bool all_done = true;
-    for (int k = lane; k < K; k += 32) all_done = all_done && ck.done[k] != 0;
-    if (__all_sync(kFull, all_done) && (fin_any || comp_any)) {
-      finish_t = t;
-      row_done = true;
-      stop = kStopDone;
-      break;
-    }
-    if (steps >= a.max_steps) {
-      stop = kStopCap;
-      break;
-    }
-    __syncwarp();
-  }
-  __syncwarp();
-
+// Write row `row`'s state back to the driver's tensors.
+template <int T>
+__device__ __forceinline__ void store_row(const RoundArgs& a, long long row, const Channels<T>& c,
+                                          const ChunkSmem& ck, const RowLoop& st, bool row_done,
+                                          long long stop, int lane) {
+  const int C = a.C, K = a.K;
+  const long long rc_ = row * C, rk = row * K;
 #pragma unroll
   for (int tt = 0; tt < T; ++tt) {
     const int col = tt * 32 + lane;
@@ -1178,24 +891,685 @@ __global__ void fused_rounds_kernel(RoundArgs a) {
     a.rate_est[rk + k] = ck.rate[k];
   }
   if (lane == 0) {
-    a.t[row] = t;
-    a.n_events[row] = n_events;
-    a.fin_any[row] = fin_any;
-    a.next_tick[row] = next_tick;
+    a.t[row] = st.t;
+    a.n_events[row] = st.n_events;
+    a.fin_any[row] = st.fin_any;
+    a.next_tick[row] = st.next_tick;
     a.done[row] = a.done[row] || row_done;
-    a.finish_t[row] = finish_t;
-    a.sc_cursor[row] = cursor;
-    a.streak[row] = streak;
-    a.pair_fast[row] = pair_fast;
-    a.pair_slow[row] = pair_slow;
-    a.n_moves[row] = n_moves;
-    a.tl_len[row] = tl_len;
-    a.tl_stride[row] = tl_stride;
-    a.tl_seen[row] = tl_seen;
-    a.tl_last_t[row] = tl_last_t;
-    a.tl_last_rate[row] = tl_last_rate;
-    a.steps[row] = steps;
+    a.finish_t[row] = st.finish_t;
+    a.sc_cursor[row] = st.cursor;
+    a.streak[row] = st.streak;
+    a.pair_fast[row] = st.pair_fast;
+    a.pair_slow[row] = st.pair_slow;
+    a.n_moves[row] = st.n_moves;
+    a.tl_len[row] = st.tl_len;
+    a.tl_stride[row] = st.tl_stride;
+    a.tl_seen[row] = st.tl_seen;
+    a.tl_last_t[row] = st.tl_last_t;
+    a.tl_last_rate[row] = st.tl_last_rate;
+    a.steps[row] = st.steps;
     a.stop[row] = stop;
+  }
+}
+
+// The error test: past max_time, or a live chunk holding no channel while
+// no channel is busy.
+template <int T, int CW>
+__device__ __forceinline__ bool row_error(const Channels<T>& c, const ChunkSmem& ck,
+                                          const WarpSmem& sm, const RowEnv& env,
+                                          const RowLoop& st, int lane) {
+  if (st.t > env.max_time) return true;
+  bool any_busy = false;
+#pragma unroll
+  for (int tt = 0; tt < T; ++tt) any_busy = any_busy || c.busy[tt];
+  if (!__any_sync(kFull, any_busy)) {
+    count_open<T, CW>(c, ck, sm, env.K, lane);
+    bool str = false;
+    for (int k = lane; k < env.K; k += 32) str = str || (!ck.done[k] && ck.nch[k] == 0);
+    if (__any_sync(kFull, str)) return true;
+  }
+  return false;
+}
+
+// The bandwidth profile at t: link.bw under the last step at or before t;
+// returns the time of the next step (inf past the last).
+__device__ __forceinline__ double row_profile(const RowEnv& env, double t, Link& link, int lane) {
+  double next_prof = INFINITY;
+  link.bw = env.rc.bw;
+  if (env.B > 1) {
+    int at = -1;
+    for (int b0 = 0; b0 < env.B; b0 += 32) {
+      const int b = b0 + lane;
+      const double pt = b < env.B ? env.prof_t[b] : INFINITY;
+      at += __popc(__ballot_sync(kFull, pt <= t));
+      next_prof = fmin(next_prof, pt > t ? pt : INFINITY);
+    }
+    next_prof = warp_min(next_prof);
+    const double mult = env.prof_mult[at < 0 ? 0 : at];
+    link.bw = env.rc.bw * (at >= 0 ? mult : 1.0);
+  }
+  return next_prof;
+}
+
+// What follows a step before its transition: the timeline ring
+// (kernels.timeline_push) at the step's start, the clock and the event
+// count, the moved bytes into the chunks' totals in column order, the
+// chunks that complete, whether the tick is due, and the capacity guards.
+// Returns true at a guard (the row stops with its transition pending for
+// the host, which grows the axis).
+template <int T, int CW>
+__device__ __forceinline__ bool row_after_step(const Channels<T>& c, const double (&moved)[T],
+                                               const Step& s, const RowEnv& env, RowLoop& st,
+                                               const ChunkSmem& ck, const WarpSmem& sm,
+                                               bool& comp_any, bool& tick_hit, int lane) {
+  const int K = env.K, TL = env.TL;
+  if (env.record) {
+    const long long st_safe = st.tl_stride > 1 ? st.tl_stride : 1;
+    if (st.tl_seen % st_safe == 0 && st.tl_len >= TL) {
+      // keep every other sample; the stride doubles
+      const int half = (TL + 1) / 2;
+      for (int j0 = 0; j0 < half; j0 += 32) {
+        const int j = j0 + lane;
+        double vt = 0.0, vr = 0.0;
+        if (j < half) {
+          vt = env.tl_t[2 * j];
+          vr = env.tl_rate[2 * j];
+        }
+        __syncwarp();
+        if (j < half) {
+          env.tl_t[j] = vt;
+          env.tl_rate[j] = vr;
+        }
+        __syncwarp();
+      }
+      for (int j = half + lane; j < TL; j += 32) {
+        env.tl_t[j] = 0.0;
+        env.tl_rate[j] = 0.0;
+      }
+      __syncwarp();
+      st.tl_len = (st.tl_len + 1) / 2;
+      st.tl_stride = st_safe * 2;
+    }
+    const long long st2 = st.tl_stride > 1 ? st.tl_stride : 1;
+    if (st.tl_seen % st2 == 0 && st.tl_len < TL) {
+      if (lane == 0) {
+        env.tl_t[st.tl_len] = st.t;
+        env.tl_rate[st.tl_len] = s.rate_sum;
+      }
+      ++st.tl_len;
+    }
+    ++st.tl_seen;
+    st.tl_last_t = st.t;
+    st.tl_last_rate = s.rate_sum;
+    __syncwarp();
+  }
+  st.t = st.t + s.dt;
+  ++st.n_events;
+  ++st.steps;
+  st.fin_any = s.fin;
+#pragma unroll
+  for (int tt = 0; tt < T; ++tt) {
+    const int col = tt * 32 + lane;
+    sm.col_f[col] = moved[tt];
+    sm.col_k[col] = moved[tt] != 0.0 ? c.ch[tt] : -1;
+    sm.col_b[col] = c.busy[tt] ? c.ch[tt] : -1;
+  }
+  __syncwarp();
+  comp_any = false;
+  bool full = false;
+  for (int k = lane; k < K; k += 32) {
+    double d = ck.deliv[k];
+    int n_busy = 0;
+#pragma unroll 8
+    for (int col = 0; col < (kLoopCols<T, CW>); ++col) {
+      if (sm.col_k[col] == k) d += sm.col_f[col];
+      n_busy += sm.col_b[col] == k ? 1 : 0;
+    }
+    ck.deliv[k] = d;
+    const bool cmp = !ck.done[k] && ck.qlen[k] - ck.qptr[k] + ck.pn[k] == 0 && n_busy == 0;
+    ck.comp[k] = cmp;
+    comp_any = comp_any || cmp;
+    full = full || ck.pn[k] >= env.P;
+  }
+  comp_any = __any_sync(kFull, comp_any);
+  tick_hit = st.t >= st.next_tick - kEps;
+  bool guard = tick_hit && env.rc.kind == kKindPromc && __any_sync(kFull, full);
+  if (!guard && env.rc.kind == kKindSc && comp_any) {
+    // SC's handlers walked over column counts: free columns at each open
+    const int n_open = count_open<T, CW>(c, ck, sm, K, lane);
+    int short_ = 0;
+    if (lane == 0) {
+      long long cur = st.cursor;
+      long long free_ = env.C - n_open;
+      for (int k = 0; k < K; ++k) {
+        if (!ck.comp[k]) continue;
+        free_ += ck.nch[k];
+        ck.nch[k] = 0;
+        cur = sc_advance(cur, ck, env.rc.n_chunks, K);
+        if (cur < env.rc.n_chunks) {
+          const int nxt = ck.order[cur];
+          const long long no = ck.conc[nxt];
+          short_ |= free_ < no ? 1 : 0;
+          free_ -= no;
+          ck.nch[nxt] += (int)no;
+        }
+      }
+    }
+    guard = __shfl_sync(kFull, short_, 0) != 0;
+    __syncwarp();
+  }
+  return guard;
+}
+
+// The transition (transition.post_transition): completions, each completed
+// chunk's handler in index order with a re-feed after each, the tick (the
+// rate EMA, then ProMC's check and move), and the done test. Returns true
+// when the row is done (st.finish_t set).
+template <int T, int CW>
+__device__ __forceinline__ bool row_transition(Channels<T>& c, bool comp_any, bool tick_hit,
+                                               const RowEnv& env, RowLoop& st,
+                                               const ChunkSmem& ck, const WarpSmem& sm,
+                                               int lane) {
+  const RowConst& rc = env.rc;
+  const Queues& q = env.q;
+  const int C = env.C, K = env.K, P = env.P;
+  if (comp_any && (env.trivial_complete || rc.kind >= kKindSc)) {
+    for (int k = lane; k < K; k += 32) {
+      if (ck.comp[k]) {
+        ck.done[k] = 1;
+        ck.qb[k] = 0.0;
+        ck.cat[k] = st.t;
+      }
+    }
+    __syncwarp();
+  }
+  const bool ctrl = comp_any && rc.kind >= kKindSc;
+  if (ctrl && rc.kind == kKindPromc) {  // ProMC drops its streak evidence
+    st.streak = 0;
+    st.pair_fast = -1;
+    st.pair_slow = -1;
+  }
+  // each completed chunk's handler in index order, a re-feed after each
+  for (int k = 0; ctrl && k < K; ++k) {
+    if (!ck.comp[k]) continue;
+    bool fed = false;
+    if (rc.kind == kKindSc) {
+      // close chunk k, advance the cursor past empty classes, open the
+      // next class's channels at the lowest free columns
+      bool sel[T];
+#pragma unroll
+      for (int tt = 0; tt < T; ++tt) sel[tt] = c.ch[tt] == k;
+      close_compact<T>(c, sel, sm, lane);
+      st.cursor = sc_advance(st.cursor, ck, rc.n_chunks, K);
+      const long long cursor = st.cursor;
+      const int nxt = ck.order[cursor < 0 ? 0 : (cursor > K - 1 ? K - 1 : cursor)];
+      const int n_open = cursor < rc.n_chunks ? ck.conc[nxt] : 0;
+      const double cap_n = ck.capk[nxt];
+      const double sc = rc.setup_cost;
+      open_free<T>(c, n_open, C, lane, [&](int, int& ch, double& dead, double& cp) {
+        ch = nxt;
+        dead = sc;
+        cp = cap_n;
+      });
+      fed = true;
+    } else if (rc.kind == kKindMc || rc.kind == kKindPromc) {
+      // freed channels to the largest-ETA laggards (laggard_grants), in
+      // first-grant order onto the lowest free columns (apply_grants)
+      row_views<T, CW>(c, ck, rc, sm, K, lane);
+      int total = 0;
+      if (lane == 0) {
+        bool any_live = false;
+        for (int j = 0; j < K; ++j) {
+          ck.grants[j] = 0;
+          ck.egr[j] = ck.eta[j];
+          any_live = any_live || (!ck.done[j] && j != k && ck.brem[j] > 0.0);
+        }
+        const int freed = ck.nch[k];
+        int n_ord = 0;
+        for (int i = 0; any_live && i < freed; ++i) {
+          double cur = -INFINITY;
+          for (int j = 0; j < K; ++j) {
+            if (!ck.done[j] && j != k && ck.brem[j] > 0.0) cur = fmax(cur, ck.egr[j]);
+          }
+          int dst = 0;
+          for (int j = 0; j < K; ++j) {
+            if (!ck.done[j] && j != k && ck.brem[j] > 0.0 && ck.egr[j] == cur) {
+              dst = j;
+              break;
+            }
+          }
+          if (ck.grants[dst] == 0) ck.ord[n_ord++] = dst;
+          ++ck.grants[dst];
+          ++total;
+          const long long n = (long long)ck.nch[dst] + ck.grants[dst];
+          const double nf = (double)n;
+          const double factor = n > 1 ? (nf - 1.0) / fmax(nf, 1.0) : 0.5;
+          if (isfinite(ck.egr[dst])) ck.egr[dst] = ck.egr[dst] * factor;
+        }
+        int r = 0;
+        for (int o = 0; o < n_ord; ++o) {
+          const int d = ck.ord[o];
+          for (int g = 0; g < ck.grants[d]; ++g) sm.col_s[r++] = d;
+        }
+      }
+      total = __shfl_sync(kFull, total, 0);
+      __syncwarp();
+      if (total > 0) {
+        bool sel[T];
+#pragma unroll
+        for (int tt = 0; tt < T; ++tt) sel[tt] = c.ch[tt] == k;
+        close_compact<T>(c, sel, sm, lane);
+        const int par_src = ck.par[k];
+        const double sc = rc.setup_cost;
+        open_free<T>(c, total, C, lane, [&](int rank, int& ch, double& dead, double& cp) {
+          const int d = sm.col_s[rank];
+          ch = d;
+          dead = ck.par[d] == par_src ? 0.25 * sc : sc;
+          cp = ck.capk[d];
+        });
+        st.n_moves += total;
+        fed = true;
+      }
+    }
+    if (fed) feed_row<T, CW>(c, true, q, env.qsizes, env.Q, K, sm, lane);
+  }
+  // the tick: the rate EMA, then ProMC's check and move
+  if (tick_hit) {
+    for (int k = lane; k < K; k += 32) {
+      const double inst = (ck.deliv[k] - ck.dat[k]) / env.period;
+      ck.rate[k] = ck.rate[k] == 0.0 ? inst : 0.5 * ck.rate[k] + 0.5 * inst;
+      ck.dat[k] = ck.deliv[k];
+    }
+    __syncwarp();
+    if (rc.kind == kKindPromc) {
+      // controllers.promc_tick over the post-handler views (every lane)
+      row_views<T, CW>(c, ck, rc, sm, K, lane);
+      int nlv = 0;
+      double mn = INFINITY, mx = -INFINITY;
+      for (int k = 0; k < K; ++k) {
+        if (!ck.done[k] && ck.brem[k] > 0.0 && ck.nch[k] > 0) {
+          ++nlv;
+          mn = fmin(mn, ck.eta[k]);
+          mx = fmax(mx, ck.eta[k]);
+        }
+      }
+      int fast = -1, slow = -1;
+      for (int k = 0; k < K; ++k) {
+        const bool lv = !ck.done[k] && ck.brem[k] > 0.0 && ck.nch[k] > 0;
+        if (fast < 0 && lv && ck.eta[k] == mn) fast = k;
+        if (slow < 0 && lv && ck.eta[k] == mx) slow = k;
+      }
+      fast = fast < 0 ? 0 : fast;
+      slow = slow < 0 ? 0 : slow;
+      const double eta_f = ck.eta[fast], eta_s = ck.eta[slow];
+      const bool few = nlv < 2;
+      const bool wait_meas = !few && !isfinite(eta_s) && ck.rate[slow] == 0.0;
+      const bool imb = eta_s >= rc.ratio * eta_f && fast != slow && ck.nch[fast] > 1;
+      const bool same = fast == st.pair_fast && slow == st.pair_slow;
+      const long long upd = imb && same ? st.streak + 1 : (imb ? 1 : 0);
+      const bool fire = !few && !wait_meas && imb && upd >= rc.patience;
+      const bool reset = few || fire;
+      const bool pair_ok = !wait_meas && !reset && imb;
+      st.streak = wait_meas ? st.streak : (reset ? 0 : upd);
+      st.pair_fast = wait_meas ? st.pair_fast : (pair_ok ? fast : -1);
+      st.pair_slow = wait_meas ? st.pair_slow : (pair_ok ? slow : -1);
+      __syncwarp();
+      if (fire) {
+        // controllers.move_channel: the source's idle-first lowest column
+        // closes (a busy victim pushes ceil(rem) on the resume stack),
+        // the lowest free column opens for the destination
+        const int src = fast, dst = slow;
+        bool sel[T];
+#pragma unroll
+        for (int tt = 0; tt < T; ++tt) sel[tt] = c.ch[tt] == src && !c.busy[tt];
+        int victim = lowest<T>(sel);
+        if (victim < 0) {
+#pragma unroll
+          for (int tt = 0; tt < T; ++tt) sel[tt] = c.ch[tt] == src && c.busy[tt];
+          victim = lowest<T>(sel);
+        }
+        victim = victim < 0 ? 0 : victim;
+        double vrem = 0.0;
+        bool vbusy = false;
+#pragma unroll
+        for (int tt = 0; tt < T; ++tt) {
+          sel[tt] = tt * 32 + lane == victim;
+          if (tt == victim >> 5) {
+            vrem = __shfl_sync(kFull, c.rem[tt], victim & 31);
+            vbusy = __shfl_sync(kFull, c.busy[tt] ? 1 : 0, victim & 31) != 0;
+          }
+        }
+        if (vbusy && vrem > 0.0 && lane == 0) {
+          const double size = ceil(vrem);
+          ck.qb[src] = ck.qb[src] + size;
+          const long long d = ck.pn[src] < 0 ? 0 : (ck.pn[src] > P - 1 ? P - 1 : ck.pn[src]);
+          env.psizes[(long long)src * P + d] = size;
+          ck.pn[src] += 1;
+        }
+        __syncwarp();
+        close_compact<T>(c, sel, sm, lane);
+#pragma unroll
+        for (int tt = 0; tt < T; ++tt) sel[tt] = c.ch[tt] < 0 && tt * 32 + lane < C;
+        int fcol = lowest<T>(sel);
+        fcol = fcol < 0 ? 0 : fcol;
+        const double sc = rc.setup_cost;
+        const double cost = ck.par[src] == ck.par[dst] ? 0.25 * sc : sc;
+        const double cap_d = ck.capk[dst];
+#pragma unroll
+        for (int tt = 0; tt < T; ++tt) {
+          if (tt * 32 + lane == fcol) {
+            c.ch[tt] = dst;
+            c.dead[tt] = cost;
+            c.cap[tt] = cap_d;
+          }
+        }
+        ++st.n_moves;
+        feed_row<T, CW>(c, true, q, env.qsizes, env.Q, K, sm, lane);
+      }
+    }
+    st.next_tick = st.next_tick + env.period;
+  }
+  // the done test
+  bool all_done = true;
+  for (int k = lane; k < K; k += 32) all_done = all_done && ck.done[k] != 0;
+  if (__all_sync(kFull, all_done) && (st.fin_any || comp_any)) {
+    st.finish_t = st.t;
+    return true;
+  }
+  return false;
+}
+
+template <int T, int CW>
+__global__ void fused_rounds_kernel(RoundArgs a) {
+  extern __shared__ __align__(8) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long row = (long long)blockIdx.x * a.warps + warp;
+  if (row >= a.S) return;  // uniform across the warp
+  if (!a.act[row]) {
+    if (lane == 0) {
+      a.steps[row] = 0;
+      a.stop[row] = 0;
+    }
+    return;
+  }
+  WarpSmem sm;
+  ChunkSmem ck;
+  Channels<T> c;
+  RowEnv env;
+  RowLoop st;
+  setup_row<T>(a, row, smem + warp * round_warp_bytes(T, a.K), sm, ck, c, env, st, lane);
+  Link link{env.rc.bw, env.rc.disk_rate, env.rc.contention, env.rc.sat_cc};
+  bool row_done = false;
+  long long stop = 0;
+
+  for (;;) {
+    // (0) the error test
+    if (row_error<T, CW>(c, ck, sm, env, st, lane)) {
+      stop = kStopError;
+      break;
+    }
+    // (a) the bandwidth profile at t
+    const double next_prof = row_profile(env, st.t, link, lane);
+    // (b) one step: physics, then the feed with the resume stack
+    double moved[T];
+    const Step s = row_step<T, CW>(c, moved, true, fmin(st.next_tick - st.t, next_prof - st.t),
+                                   link, env.q, env.qsizes, env.Q, env.K, sm, lane);
+    // (c)-(e) the timeline, the clock, the chunk totals and the guards
+    bool comp_any, tick_hit;
+    if (row_after_step<T, CW>(c, moved, s, env, st, ck, sm, comp_any, tick_hit, lane)) {
+      stop = kStopGuard;
+      break;
+    }
+    // (f) the transition and (g) the done test, then the step cap
+    if (row_transition<T, CW>(c, comp_any, tick_hit, env, st, ck, sm, lane)) {
+      row_done = true;
+      stop = kStopDone;
+      break;
+    }
+    if (st.steps >= a.max_steps) {
+      stop = kStopCap;
+      break;
+    }
+    __syncwarp();
+  }
+  __syncwarp();
+  store_row<T>(a, row, c, ck, st, row_done, stop, lane);
+}
+
+// ---------------------------------------------------------------------------
+// fused_rounds_coupled_f64: the loop for batches with shared fabrics
+// ---------------------------------------------------------------------------
+
+constexpr int kGroupRows = 8;    // rows (warps) a group may have
+constexpr int kGroupLinks = 4;   // links a group may have
+constexpr int kCoupledIters = 12;  // Jacobi sweeps (kernels.COUPLED_ITERS)
+constexpr long long kStopGroup = 5;
+
+// The fabric layout (kernels.fused_step.fabric_layout): one block a group.
+struct CoupledArgs {
+  const long long* rows;  // (G, R): the block's rows, -1 past them
+  const long long* mask;  // (G, kGroupLinks): bit j = the block's row j rides the link
+  const double* cap;      // (G, kGroupLinks): link capacities
+  long long* sweeps;      // (G,): the Jacobi sweeps the block ran
+  long long G;
+  int R;
+};
+
+// A block's shared exchange: per member warp its demand, grant and horizon,
+// and its flags for the block's uniform decisions.
+struct GroupSmem {
+  double dem[kGroupRows], grant[kGroupRows], gdt[kGroupRows];
+  int err[kGroupRows], live[kGroupRows], guard[kGroupRows];
+};
+constexpr size_t kGroupBytes = (sizeof(GroupSmem) + 7) / 8 * 8;
+
+__device__ __forceinline__ void cmpswap(double& x, double& y) {
+  const double lo = fmin(x, y), hi = fmax(x, y);
+  x = lo;
+  y = hi;
+}
+
+// The group's link grants (kernels.waterfill_coupled), on one warp: lane
+// l * 8 + j holds link l and, in each sweep, the cap of the group's row j
+// on it, then sorted position j. Per sweep each lane takes row j's lowest
+// level among its other links (a shuffle a link), caps it at its demand
+// (0 off the link), sorts link l's R caps (every lane of the link the same
+// network), sums the sorted prefix before position j in order (cumsum's),
+// and tests the candidate level (pool_eff - prefix) / (R - j) against the
+// sorted cap; the link's first valid position gives its level, +inf where
+// the link's capacity covers the total. A sweep whose levels equal the last
+// is the fixed point: the sweeps stop there, as 12 would end. Lanes 0..R-1
+// write grant[j] = min(demand_j, the lowest level of row j's links).
+// Returns the sweeps run.
+__device__ __forceinline__ int coupled_shares(GroupSmem& gs, const long long (&m)[kGroupLinks],
+                                              double capl, int R, int lane) {
+  const int l = lane >> 3, j = lane & 7;
+  const bool rowj = j < R;
+  const double dj = rowj ? gs.dem[j] : 0.0;
+  const bool mem = rowj && ((m[l] >> j) & 1);
+  double level = INFINITY;
+  int it = 0;
+  while (it < kCoupledIters) {
+    double ex = INFINITY;
+#pragma unroll
+    for (int l2 = 0; l2 < kGroupLinks; ++l2) {
+      const double lv = __shfl_sync(kFull, level, l2 * 8);
+      if (l2 != l && ((m[l2] >> j) & 1)) ex = fmin(ex, lv);
+    }
+    const double cap = mem ? fmin(dj, ex) : 0.0;
+    double v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const double x = __shfl_sync(kFull, cap, (l << 3) + i);
+      v[i] = i < R ? x : INFINITY;
+    }
+    cmpswap(v[0], v[2]); cmpswap(v[1], v[3]); cmpswap(v[4], v[6]); cmpswap(v[5], v[7]);
+    cmpswap(v[0], v[4]); cmpswap(v[1], v[5]); cmpswap(v[2], v[6]); cmpswap(v[3], v[7]);
+    cmpswap(v[0], v[1]); cmpswap(v[2], v[3]); cmpswap(v[4], v[5]); cmpswap(v[6], v[7]);
+    cmpswap(v[2], v[4]); cmpswap(v[3], v[5]);
+    cmpswap(v[1], v[4]); cmpswap(v[3], v[6]);
+    cmpswap(v[1], v[2]); cmpswap(v[3], v[4]); cmpswap(v[5], v[6]);
+    double prev = 0.0, total = 0.0, vj = 0.0, vlast = 0.0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (i < j) prev = prev + v[i];
+      if (i < R) total = total + v[i];
+      if (i == j) vj = v[i];
+      if (i == R - 1) vlast = v[i];
+    }
+    const double pool_eff = fmax(fmin(capl, total), 0.0);
+    const double lam = (pool_eff - prev) / (double)(R - j);
+    const bool valid = rowj && lam <= vj + 1e-9 * fmax(vj, 1.0);
+    const unsigned vb = (__ballot_sync(kFull, valid) >> (l << 3)) & 0xffu;
+    const int k = vb ? __ffs(vb) - 1 : 0;
+    const double lk = __shfl_sync(kFull, lam, (l << 3) + k);
+    const double next = capl >= total ? INFINITY : (vb ? lk : vlast);
+    const bool same = __all_sync(kFull, next == level);
+    level = next;
+    ++it;
+    if (same) break;
+  }
+  double row_lvl = INFINITY;
+#pragma unroll
+  for (int l2 = 0; l2 < kGroupLinks; ++l2) {
+    const double lv = __shfl_sync(kFull, level, l2 * 8);
+    if ((m[l2] >> j) & 1) row_lvl = fmin(row_lvl, lv);
+  }
+  if (lane < R) gs.grant[lane] = fmin(dj, row_lvl);
+  return it;
+}
+
+// One block a fabric group, one warp a member row (R warps, the widest
+// group's; a block's warps past its rows take part in its barriers only).
+// Every group step: (1) each live member's error test, profile and demand,
+// min(pool, total); a barrier; a member in error stops the group before the
+// step; (2) warp 0 solves the link grants; a barrier; (3) each live member's
+// rates under its grant (a row outside every group: its pool) and its own
+// horizon; a barrier; (4) each live member advances by the least horizon of
+// the group's live members and takes what follows the step; a barrier; a
+// member at a capacity guard stops the group after every other member's
+// transition. A finished member stays in the block with zero demand. The
+// group stops when every member is done or after max_steps group steps.
+// Every loop condition around a barrier is read from shared memory after a
+// barrier, so it is uniform across the block.
+template <int CW>
+__global__ void __launch_bounds__(32 * kGroupRows) fused_rounds_coupled_kernel(RoundArgs a,
+                                                                               CoupledArgs f) {
+  constexpr int T = 1;
+  extern __shared__ __align__(8) unsigned char smem[];
+  GroupSmem& gs = *reinterpret_cast<GroupSmem*>(smem);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long g = blockIdx.x;
+  const long long row = f.rows[g * f.R + warp];
+  const bool act = row >= 0 && a.act[row];
+  int nrows = 0;
+  for (int i = 0; i < f.R; ++i) nrows += f.rows[g * f.R + i] >= 0 ? 1 : 0;
+  long long m[kGroupLinks];
+  bool has_links = false;
+#pragma unroll
+  for (int l = 0; l < kGroupLinks; ++l) {
+    m[l] = f.mask[g * kGroupLinks + l];
+    has_links = has_links || m[l] != 0;
+  }
+  const double capl = f.cap[g * kGroupLinks + (lane >> 3)];
+
+  WarpSmem sm{};
+  ChunkSmem ck{};
+  Channels<T> c{};
+  RowEnv env{};
+  RowLoop st{};
+  if (act) {
+    setup_row<T>(a, row, smem + kGroupBytes + warp * round_warp_bytes(T, a.K), sm, ck, c, env,
+                 st, lane);
+  }
+  Link link{env.rc.bw, env.rc.disk_rate, env.rc.contention, env.rc.sat_cc};
+  bool live = act, row_done = false;
+  long long stop = 0, gsteps = 0, nsweeps = 0;
+
+  for (;;) {
+    // (0) the group's step cap
+    if (gsteps >= a.max_steps) {
+      if (live) stop = kStopCap;
+      break;
+    }
+    // (1) the error test, the profile and the demand
+    int err = 0;
+    bool tr[T];
+    double caps[T];
+    double pool = 0.0, total = 0.0, hi = 0.0, next_prof = INFINITY;
+    if (live) {
+      err = row_error<T, CW>(c, ck, sm, env, st, lane) ? 1 : 0;
+      if (!err) {
+        next_prof = row_profile(env, st.t, link, lane);
+        pool = row_load<T>(c, link, tr, caps, total, hi);
+      }
+    }
+    if (lane == 0) {
+      gs.err[warp] = err;
+      gs.live[warp] = live && !err ? 1 : 0;
+      gs.dem[warp] = live && !err ? fmin(pool, total) : 0.0;
+    }
+    __syncthreads();
+    int any_err = 0, any_live = 0;
+    for (int w = 0; w < f.R; ++w) {
+      any_err |= gs.err[w];
+      any_live |= gs.live[w];
+    }
+    if (any_err) {
+      if (live) stop = err ? kStopError : kStopGroup;
+      break;
+    }
+    if (!any_live) break;
+    // (2) the group's link grants
+    if (has_links && warp == 0) nsweeps += coupled_shares(gs, m, capl, nrows, lane);
+    __syncthreads();
+    // (3) the rates under the grant and the row's own horizon
+    double rate[T];
+    double rsum = 0.0, dt = 0.0;
+    if (live) {
+      dt = row_rates<T, CW>(c, tr, caps, total, hi, has_links ? gs.grant[warp] : pool, true,
+                            fmin(st.next_tick - st.t, next_prof - st.t), rate, rsum, sm.col_f,
+                            lane);
+    }
+    if (lane == 0) gs.gdt[warp] = live ? dt : INFINITY;
+    __syncthreads();
+    double gdt = INFINITY;
+    for (int w = 0; w < f.R; ++w) gdt = fmin(gdt, gs.gdt[w]);
+    // (4) the step at the group's dt, then what follows it
+    int guard = 0;
+    bool comp_any = false, tick_hit = false;
+    if (live) {
+      double moved[T];
+      const Step s = row_advance<T, CW>(c, tr, rate, fmin(dt, gdt), rsum, true, moved, env.q,
+                                        env.qsizes, env.Q, env.K, sm, lane);
+      guard = row_after_step<T, CW>(c, moved, s, env, st, ck, sm, comp_any, tick_hit, lane) ? 1
+                                                                                           : 0;
+    }
+    if (lane == 0) gs.guard[warp] = guard;
+    ++gsteps;
+    __syncthreads();
+    int any_guard = 0;
+    for (int w = 0; w < f.R; ++w) any_guard |= gs.guard[w];
+    if (live && !guard && row_transition<T, CW>(c, comp_any, tick_hit, env, st, ck, sm, lane)) {
+      row_done = true;
+      live = false;
+      stop = kStopDone;
+    }
+    if (any_guard) {
+      if (live) stop = guard ? kStopGuard : kStopGroup;
+      break;
+    }
+    __syncwarp();
+  }
+  __syncwarp();
+  if (warp == 0 && lane == 0) f.sweeps[g] = nsweeps;
+  if (act) {
+    store_row<T>(a, row, c, ck, st, row_done, stop, lane);
+  } else if (row >= 0 && lane == 0) {
+    a.steps[row] = 0;
+    a.stop[row] = 0;
   }
 }
 
@@ -1244,6 +1618,89 @@ cudaError_t launch_rounds(const RoundArgs& a, cudaStream_t stream) {
   if ((C) <= 512) return (int)LAUNCH<16, 0>(ARGS, STREAM);       \
   if ((C) <= 1024) return (int)LAUNCH<32, 0>(ARGS, STREAM);      \
   return (int)cudaErrorInvalidValue
+
+// The coupled loop over f.G blocks of f.R warps.
+template <int CW>
+cudaError_t launch_coupled(const RoundArgs& a, const CoupledArgs& f, cudaStream_t stream) {
+  const size_t smem = kGroupBytes + (size_t)f.R * round_warp_bytes(1, a.K);
+  if (smem > kSmemMax) return cudaErrorInvalidValue;
+  if (smem > kSmemDefault) {
+    const cudaError_t e = cudaFuncSetAttribute(fused_rounds_coupled_kernel<CW>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  fused_rounds_coupled_kernel<CW><<<(unsigned)f.G, 32 * f.R, smem, stream>>>(a, f);
+  return cudaGetLastError();
+}
+
+// Fill `a` from `ptrs`, the kRoundOperands operands in RoundArgs order;
+// false if the count is off.
+bool round_args(void* const* ptrs, RoundArgs& a) {
+  int i = 0;
+  auto next = [&]() { return ptrs[i++]; };
+  a.act = static_cast<const bool*>(next());
+  a.tick_period = static_cast<const double*>(next());
+  a.max_time = static_cast<const double*>(next());
+  a.record = static_cast<const bool*>(next());
+  a.kind = static_cast<const long long*>(next());
+  a.trivial_complete = static_cast<const bool*>(next());
+  a.n_chunks = static_cast<const long long*>(next());
+  a.bw = static_cast<const double*>(next());
+  a.disk_rate = static_cast<const double*>(next());
+  a.sat_cc = static_cast<const long long*>(next());
+  a.contention = static_cast<const double*>(next());
+  a.setup_cost = static_cast<const double*>(next());
+  a.promc_ratio = static_cast<const double*>(next());
+  a.promc_patience = static_cast<const long long*>(next());
+  a.prof_t = static_cast<const double*>(next());
+  a.prof_mult = static_cast<const double*>(next());
+  a.qoff = static_cast<const long long*>(next());
+  a.qlen = static_cast<const long long*>(next());
+  a.fsdt = static_cast<const double*>(next());
+  a.nfiles = static_cast<const long long*>(next());
+  a.sc_order = static_cast<const long long*>(next());
+  a.conc = static_cast<const long long*>(next());
+  a.par = static_cast<const long long*>(next());
+  a.cap_k = static_cast<const double*>(next());
+  a.avg_fs_k = static_cast<const double*>(next());
+  a.qsizes = static_cast<const double*>(next());
+  a.t = static_cast<double*>(next());
+  a.n_events = static_cast<long long*>(next());
+  a.fin_any = static_cast<bool*>(next());
+  a.next_tick = static_cast<double*>(next());
+  a.done = static_cast<bool*>(next());
+  a.finish_t = static_cast<double*>(next());
+  a.sc_cursor = static_cast<long long*>(next());
+  a.streak = static_cast<long long*>(next());
+  a.pair_fast = static_cast<long long*>(next());
+  a.pair_slow = static_cast<long long*>(next());
+  a.n_moves = static_cast<long long*>(next());
+  a.busy = static_cast<bool*>(next());
+  a.dead = static_cast<double*>(next());
+  a.rem = static_cast<double*>(next());
+  a.cap = static_cast<double*>(next());
+  a.chunk_of = static_cast<long long*>(next());
+  a.qptr = static_cast<long long*>(next());
+  a.queue_bytes = static_cast<double*>(next());
+  a.prepend_n = static_cast<long long*>(next());
+  a.chunk_done = static_cast<bool*>(next());
+  a.completed_at = static_cast<double*>(next());
+  a.delivered = static_cast<double*>(next());
+  a.delivered_at_tick = static_cast<double*>(next());
+  a.rate_est = static_cast<double*>(next());
+  a.prepend_sizes = static_cast<double*>(next());
+  a.tl_t = static_cast<double*>(next());
+  a.tl_rate = static_cast<double*>(next());
+  a.tl_len = static_cast<long long*>(next());
+  a.tl_stride = static_cast<long long*>(next());
+  a.tl_seen = static_cast<long long*>(next());
+  a.tl_last_t = static_cast<double*>(next());
+  a.tl_last_rate = static_cast<double*>(next());
+  a.steps = static_cast<long long*>(next());
+  a.stop = static_cast<long long*>(next());
+  return i == kRoundOperands;
+}
 
 }  // namespace
 
@@ -1310,69 +1767,7 @@ extern "C" int fused_rounds_f64(void* const* ptrs, long long S, long long C, lon
     return (int)cudaErrorInvalidValue;
   }
   RoundArgs a;
-  int i = 0;
-  auto next = [&]() { return ptrs[i++]; };
-  a.act = static_cast<const bool*>(next());
-  a.tick_period = static_cast<const double*>(next());
-  a.max_time = static_cast<const double*>(next());
-  a.record = static_cast<const bool*>(next());
-  a.kind = static_cast<const long long*>(next());
-  a.trivial_complete = static_cast<const bool*>(next());
-  a.n_chunks = static_cast<const long long*>(next());
-  a.bw = static_cast<const double*>(next());
-  a.disk_rate = static_cast<const double*>(next());
-  a.sat_cc = static_cast<const long long*>(next());
-  a.contention = static_cast<const double*>(next());
-  a.setup_cost = static_cast<const double*>(next());
-  a.promc_ratio = static_cast<const double*>(next());
-  a.promc_patience = static_cast<const long long*>(next());
-  a.prof_t = static_cast<const double*>(next());
-  a.prof_mult = static_cast<const double*>(next());
-  a.qoff = static_cast<const long long*>(next());
-  a.qlen = static_cast<const long long*>(next());
-  a.fsdt = static_cast<const double*>(next());
-  a.nfiles = static_cast<const long long*>(next());
-  a.sc_order = static_cast<const long long*>(next());
-  a.conc = static_cast<const long long*>(next());
-  a.par = static_cast<const long long*>(next());
-  a.cap_k = static_cast<const double*>(next());
-  a.avg_fs_k = static_cast<const double*>(next());
-  a.qsizes = static_cast<const double*>(next());
-  a.t = static_cast<double*>(next());
-  a.n_events = static_cast<long long*>(next());
-  a.fin_any = static_cast<bool*>(next());
-  a.next_tick = static_cast<double*>(next());
-  a.done = static_cast<bool*>(next());
-  a.finish_t = static_cast<double*>(next());
-  a.sc_cursor = static_cast<long long*>(next());
-  a.streak = static_cast<long long*>(next());
-  a.pair_fast = static_cast<long long*>(next());
-  a.pair_slow = static_cast<long long*>(next());
-  a.n_moves = static_cast<long long*>(next());
-  a.busy = static_cast<bool*>(next());
-  a.dead = static_cast<double*>(next());
-  a.rem = static_cast<double*>(next());
-  a.cap = static_cast<double*>(next());
-  a.chunk_of = static_cast<long long*>(next());
-  a.qptr = static_cast<long long*>(next());
-  a.queue_bytes = static_cast<double*>(next());
-  a.prepend_n = static_cast<long long*>(next());
-  a.chunk_done = static_cast<bool*>(next());
-  a.completed_at = static_cast<double*>(next());
-  a.delivered = static_cast<double*>(next());
-  a.delivered_at_tick = static_cast<double*>(next());
-  a.rate_est = static_cast<double*>(next());
-  a.prepend_sizes = static_cast<double*>(next());
-  a.tl_t = static_cast<double*>(next());
-  a.tl_rate = static_cast<double*>(next());
-  a.tl_len = static_cast<long long*>(next());
-  a.tl_stride = static_cast<long long*>(next());
-  a.tl_seen = static_cast<long long*>(next());
-  a.tl_last_t = static_cast<double*>(next());
-  a.tl_last_rate = static_cast<double*>(next());
-  a.steps = static_cast<long long*>(next());
-  a.stop = static_cast<long long*>(next());
-  if (i != kRoundOperands) return (int)cudaErrorInvalidValue;
+  if (!round_args(ptrs, a)) return (int)cudaErrorInvalidValue;
   a.S = S;
   a.Q = Q;
   a.max_steps = max_steps;
@@ -1383,4 +1778,44 @@ extern "C" int fused_rounds_f64(void* const* ptrs, long long S, long long C, lon
   a.TL = (int)TL;
   a.warps = 0;
   FUSED_DISPATCH(launch_rounds, a, C, static_cast<cudaStream_t>(stream));
+}
+
+// `ptrs` as fused_rounds_f64's; `rows` (G, R) int64, `mask` (G, 4) int64
+// and `cap` (G, 4) float64 the fabric layout, one block a group (R <= 8
+// rows, C <= 32 columns); `sweeps` (G,) int64 receives each block's Jacobi
+// sweeps. Each active row takes 0 to max_steps steps, its group's steps in
+// lockstep. Returns the launch's cudaError_t.
+extern "C" int fused_rounds_coupled_f64(void* const* ptrs, const void* rows, const void* mask,
+                                        const void* cap, void* sweeps, long long S, long long C,
+                                        long long K, long long B, long long Q, long long P,
+                                        long long TL, long long G, long long R,
+                                        long long max_steps, void* stream) {
+  if (S <= 0 || G <= 0) return (int)cudaSuccess;
+  if (C <= 0 || C > 32 || K <= 0 || K > 1024 || B <= 0 || Q <= 0 || P <= 0 || TL <= 0 ||
+      R <= 0 || R > kGroupRows || max_steps < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  RoundArgs a;
+  if (!round_args(ptrs, a)) return (int)cudaErrorInvalidValue;
+  a.S = S;
+  a.Q = Q;
+  a.max_steps = max_steps;
+  a.C = (int)C;
+  a.K = (int)K;
+  a.B = (int)B;
+  a.P = (int)P;
+  a.TL = (int)TL;
+  a.warps = (int)R;
+  CoupledArgs f;
+  f.rows = static_cast<const long long*>(rows);
+  f.mask = static_cast<const long long*>(mask);
+  f.cap = static_cast<const double*>(cap);
+  f.sweeps = static_cast<long long*>(sweeps);
+  f.G = G;
+  f.R = (int)R;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C <= 4) return (int)launch_coupled<4>(a, f, st);
+  if (C <= 8) return (int)launch_coupled<8>(a, f, st);
+  if (C <= 16) return (int)launch_coupled<16>(a, f, st);
+  return (int)launch_coupled<32>(a, f, st);
 }

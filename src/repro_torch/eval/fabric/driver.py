@@ -31,10 +31,19 @@ version share. Three routes:
   fire on the grids.
 * ``fused_step="kernel"``: one launch of the one-step fused kernel per
   sweep while no resume file exists in the batch, then :meth:`_post` on
-  the host.
+  the host. It has no coupling and raises on a plan with shared fabrics.
 * ``fused_step="none"``: every sweep split, whose water-fill is the
   bisected CUDA kernel (``waterfill_impl="kernel"``) or the sort-based
   closed form (``"closed"``), then :meth:`_post`.
+
+Rows of a shared-fabric group (the plan's ``fabrics`` column,
+:mod:`.shared`) are coupled: each step their demands become link grants
+(``kernels.waterfill_coupled``) that replace their rate pools, and the
+group advances in lockstep by its members' least horizon (a
+``scatter_reduce("amin")`` over group ids). On ``"rounds"`` the coupled
+loop kernel does this inside the launch (one block a group); on
+``"none"`` the host's sweep does it in torch. A coupled batch never
+compacts: a finished tenant offers zero demand and so releases its share.
 
 On the CPU the same routes run the kernels' plain PyTorch versions. The
 controllers run as masked tensor code batched over S; the host reads back
@@ -43,7 +52,7 @@ limits, which handlers and axes a host transition needs) and nothing per
 row.
 
 Only the built-in controllers of a plan are supported; custom scheduler
-rows and coupled shared-fabric rows raise.
+rows raise.
 """
 from __future__ import annotations
 
@@ -59,9 +68,13 @@ from repro_torch.core.simulator import SimResult
 
 from . import kernels, transition
 from .bucketing import COMPACT_FLOOR, PROFILE_PAD_FLOOR, bucket, qsizes_pad
-from .kernels.fused_step import ROUND_CAP, ROUND_OPERANDS, fused_rounds, fused_step
-from .kernels.waterfill_bisect import waterfill_bisect
+from .kernels.fused_step import (
+    ROUND_CAP, ROUND_OPERANDS, fabric_operands, fused_rounds,
+    fused_rounds_coupled, fused_step,
+)
+from .kernels.waterfill_bisect import lane_sum, waterfill_bisect
 from .plan import MAX_TIME, PLAN_C_FLOOR, PLAN_PROFILED_C_FLOOR, PROMC_PATIENCE, PROMC_RATIO
+from .shared import resolve_fabric
 from .shim import NO_CHUNK, TorchOps
 from .transition import KIND_TRIVIAL, STOP_GUARD, STOP_NONE
 
@@ -163,12 +176,18 @@ class TorchFabricSimulation:
             )
         if (np.asarray(plan.kind) < KIND_TRIVIAL).any():
             raise NotImplementedError("custom scheduler rows are not supported")
+        if fused_step == "kernel" and any(f is not None for f in plan.fabrics):
+            raise ValueError(
+                'fused_step="kernel" has no coupling: a plan with shared fabrics runs on '
+                '"rounds" or "none"'
+            )
         self.device = resolve_device(device)
         self.fused_step = fused_step
         self.waterfill_impl = waterfill_impl
         self.stats = SweepStats()
         self._started = False
         self._init_from_plan(plan)
+        self._set_fabric(plan)
 
     # ------------------------------------------------------------------ #
     # construction
@@ -303,6 +322,15 @@ class TorchFabricSimulation:
         for name, (arr, dtype) in host.items():
             setattr(self, name, self._up(arr, dtype))
 
+    def _set_fabric(self, plan) -> None:
+        """Lower the plan's fabric column into the coupling tensors
+        (``self.coupled`` False when no row rides a fabric)."""
+        fab = resolve_fabric(plan.fabrics)
+        self.coupled = fab.coupled
+        if self.coupled:
+            self._fab = fabric_operands(fab.group_id, fab.member, fab.link_cap, self.device,
+                                        names=plan.names)
+
     def _up(self, arr, dtype) -> torch.Tensor:
         """A new device tensor (never a view of the plan's arrays: the
         fused-rounds kernel updates state in place)."""
@@ -395,14 +423,18 @@ class TorchFabricSimulation:
             self.stop = torch.where(pending, STOP_NONE, self.stop)
             act = ~self.done
         # amortized compaction: rebuild once half of a wide batch is done
-        if self.S > COMPACT_FLOOR and (self.S - n_act) * 2 >= self.S:
+        # (a coupled batch keeps its rows: done tenants offer zero demand)
+        if not self.coupled and self.S > COMPACT_FLOOR and (self.S - n_act) * 2 >= self.S:
             self._compact(act)
             act = ~self.done
         self.stats.sweeps += 1
         if self.fused_step == "rounds":
             self.stats.fused += 1
             # counts the rows' events and takes their transitions itself
-            fused_rounds(self.round_operands(act), ROUND_CAP)
+            if self.coupled:
+                fused_rounds_coupled(self.round_operands(act), self._fab, ROUND_CAP)
+            else:
+                fused_rounds(self.round_operands(act), ROUND_CAP)
             return True
         self.n_events = self.n_events + act.to(torch.int64)
         if self.fused_step == "kernel" and n_pre == 0:
@@ -438,7 +470,8 @@ class TorchFabricSimulation:
         )
 
     def _advance(self, act) -> None:
-        """Split physics half of a sweep: rates, horizon, fluid movement."""
+        """Split physics half of a sweep: rates, horizon, fluid movement;
+        with shared fabrics, the coupling step around them."""
         transferring = self.busy & (self.dead <= _EPS)
         eff_bw, next_prof = self._bandwidth_now()
         pool = kernels.disk_pool(
@@ -446,6 +479,12 @@ class TorchFabricSimulation:
             self.contention,
         )
         caps = torch.where(transferring, self.cap, 0.0)
+        if self.coupled:
+            # a demand's total is summed in the order of the water-fill that
+            # follows, so an unsaturated grant leaves its level unchanged
+            total = lane_sum(caps) if self.waterfill_impl == "kernel" else kernels.caps_total(caps)
+            pool, sweeps = kernels.coupled_pool(pool, total, act, self._fab)
+            self.stats.host_syncs += sweeps  # each sweep's fixed-point test
         rates = torch.where(act.unsqueeze(-1), self._waterfill(caps, pool), 0.0)
         if self._any_record:
             self._record(act, rates.sum(dim=-1))
@@ -454,6 +493,8 @@ class TorchFabricSimulation:
             self.busy, self.dead, transferring, self.rem, rates,
         )
         dt = torch.where(act, dt, 0.0)
+        if self.coupled:  # a fabric group shares one clock
+            dt = kernels.lockstep_dt(dt, act, self._fab["group_id"], self._fab["n_groups"])
         self.t = self.t + dt
         self.busy, self.dead, self.rem, moved, finished = kernels.advance_channels(
             act, dt, self.busy, self.dead, transferring, self.rem, rates

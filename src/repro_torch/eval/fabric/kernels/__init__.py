@@ -24,28 +24,47 @@ _EPS = 1e-12
 _INF = math.inf
 
 
-def _sorted_levels(caps, pool):
-    """Shared core of :func:`waterfill` / :func:`waterfill_level`: the
-    sorted caps, their prefix sums and the chosen water level."""
-    C = caps.shape[-1]
-    caps_sorted = torch.sort(caps, dim=-1).values
-    prefix = torch.cumsum(caps_sorted, dim=-1)
+def _ordered_prefix(caps_sorted, width: int):
+    """``cumsum`` of non-negative sorted rows whose nonzero entries lie in
+    the last ``width`` columns, summed in order on any device (the columns
+    before hold 0, so the sums there are 0 and the first nonzero one is
+    exact); a CUDA ``cumsum`` may associate the sums otherwise."""
+    C = caps_sorted.shape[-1]
+    acc = torch.zeros_like(caps_sorted[..., 0])
+    tail = []
+    for j in range(C - width, C):
+        acc = acc + caps_sorted[..., j]
+        tail.append(acc)
+    return torch.cat([torch.zeros_like(caps_sorted[..., : C - width]),
+                      torch.stack(tail, dim=-1)], dim=-1)
+
+
+def _level_of_prefix(caps_sorted, prefix, pool):
+    """The water level of sorted caps with their prefix sums."""
+    C = caps_sorted.shape[-1]
     pool_eff = torch.clamp(torch.minimum(pool, prefix[..., -1]), min=0.0)
     # candidate level if the k smallest caps are filled outright:
     #   lam_k = (pool_eff - prefix[k-1]) / (C - k); valid when lam_k <= c_(k)
     prev = torch.cat(
         [torch.zeros_like(prefix[..., :1]), prefix[..., :-1]], dim=-1
     )
-    ks = torch.arange(C, dtype=torch.int64, device=caps.device)
-    denom = (C - ks).to(caps.dtype)
+    ks = torch.arange(C, dtype=torch.int64, device=caps_sorted.device)
+    denom = (C - ks).to(caps_sorted.dtype)
     lam_k = (pool_eff.unsqueeze(-1) - prev) / denom
     valid = lam_k <= caps_sorted + 1e-9 * torch.clamp(caps_sorted, min=1.0)
     # first valid k; rows with no valid candidate take the largest cap
     k = torch.argmax(valid.to(torch.uint8), dim=-1, keepdim=True)
     no_valid = ~valid.any(dim=-1)
     lam = torch.gather(lam_k, -1, k).squeeze(-1)
-    lam = torch.where(no_valid, caps_sorted[..., -1], lam)
-    return prefix, lam
+    return torch.where(no_valid, caps_sorted[..., -1], lam)
+
+
+def _sorted_levels(caps, pool):
+    """Shared core of :func:`waterfill` / :func:`waterfill_level`: the
+    sorted caps, their prefix sums and the chosen water level."""
+    caps_sorted = torch.sort(caps, dim=-1).values
+    prefix = torch.cumsum(caps_sorted, dim=-1)
+    return prefix, _level_of_prefix(caps_sorted, prefix, pool)
 
 
 def waterfill(caps, pool):
@@ -76,6 +95,107 @@ def caps_total(caps):
     if caps.shape[-1] == 0:
         return torch.zeros(caps.shape[:-1], dtype=caps.dtype, device=caps.device)
     return torch.cumsum(torch.sort(caps, dim=-1).values, dim=-1)[..., -1]
+
+
+#: Jacobi sweeps of :func:`waterfill_coupled`. A sweep carries a link's
+#: constraint one link-sharing hop, so this bounds the fabric diameter that
+#: is resolved exactly (tenant groups have 1-4 links); every leg (event,
+#: split, loop) runs the same count, so their grants agree bit for bit
+COUPLED_ITERS = 12
+
+
+def _coupled_levels(demand, member, link_cap, width: int):
+    """The Jacobi sweeps of :func:`waterfill_coupled` on a non-empty
+    ``member`` (L, R) bool table: the (L,) final levels and the sweeps
+    run."""
+    L, R = member.shape
+    width = min(max(width, 1), R)
+    levels = torch.full((L,), _INF, dtype=demand.dtype, device=demand.device)
+    if R == 0:  # links without rows never saturate
+        return levels, 1
+    ar = torch.arange(L, device=demand.device)
+    # (L, L') exclusion mask: link l sees every link but itself
+    off_diag = ar[:, None] != ar[None, :]
+    for sweep in range(1, COUPLED_ITERS + 1):
+        lvl_mat = torch.where(member, levels[:, None], _INF)  # (L, R)
+        # the lowest level among the row's other links: (L, L', R) -> (L, R)
+        excl = torch.where(off_diag[:, :, None], lvl_mat[None, :, :], _INF).amin(dim=1)
+        caps = torch.where(member, torch.minimum(demand[None, :], excl), 0.0)
+        # a link's caps are nonzero on its members only: its prefix sums the
+        # sorted tail in order, as the CPU's cumsum and the loop kernel do
+        caps_sorted = torch.sort(caps, dim=-1).values
+        prefix = _ordered_prefix(caps_sorted, width)
+        lam = _level_of_prefix(caps_sorted, prefix, link_cap)
+        prev, levels = levels, torch.where(link_cap >= prefix[..., -1], _INF, lam)
+        if torch.equal(levels, prev):  # the fixed point: later sweeps repeat it
+            break
+    return levels, sweep
+
+
+def _grant(demand, member, levels):
+    """Each row's demand held to the lowest level among its links."""
+    row_lvl = torch.where(member, levels[:, None], _INF).amin(dim=0)
+    return torch.minimum(demand, row_lvl)
+
+
+def waterfill_coupled(demand, member, link_cap):
+    """Max-min fair share across rows coupled by shared links.
+
+    ``demand`` (R,) float64: each row's offered load, ``min(pool, total of
+    its transferring caps)`` (0 for a row that does not step);
+    ``member`` (L, R) bool (or 0/1): link membership; ``link_cap`` (L,)
+    float64. Returns ``(x, levels)``: the grant ``x_r = min(d_r, min over
+    the row's links of level_l)`` (R,) and the (L,) final levels, ``+inf``
+    where a link is not saturated.
+
+    Jacobi relaxation on the per-link levels, from all links unsaturated:
+    each sweep re-solves every link's single-link level (the closed form
+    of :func:`waterfill_level`) with its members capped at ``min(demand,
+    the lowest level among the row's other links)``, for
+    :data:`COUPLED_ITERS` sweeps. The fixed point is progressive filling's
+    bottleneck characterization (``reference.coupled_fair_share``). A
+    sweep is a function of the levels alone, so one whose levels equal the
+    last one's is a fixed point and the sweeps stop there, with the levels
+    the remaining sweeps would repeat (a host read a sweep). A row on no
+    link passes through: ``x_r = d_r``."""
+    if member.shape[0] == 0:
+        return demand, torch.zeros((0,), dtype=demand.dtype, device=demand.device)
+    member = member != 0
+    levels, _ = _coupled_levels(demand, member, link_cap, int(member.sum(dim=1).max()))
+    return _grant(demand, member, levels), levels
+
+
+def coupled_pool(pool, total, live, fab):
+    """The rate pools (S,) of a step with shared fabrics ``fab`` (the
+    coupled loop's fabric, ``fused_step.fabric_operands``): a row of a
+    group (``group_id >= 0``) gets its :func:`waterfill_coupled` grant, a
+    row outside every group keeps ``pool``. A ``live`` row of a group
+    offers ``min(pool, total)``, ``total`` its transferring caps summed in
+    the order of the water-fill the step then runs (so an unsaturated grant
+    is that water-fill's own ``min(pool, total)``); the rest offer 0.
+    Returns ``(pools, sweeps)``, ``sweeps`` the Jacobi sweeps run, each
+    one host read."""
+    in_group = fab["group_id"] >= 0
+    demand = torch.where(live & in_group, torch.minimum(pool, total), 0.0)
+    member = fab["member"]
+    if member.shape[0] == 0:
+        return pool, 0
+    levels, sweeps = _coupled_levels(demand, member, fab["link_cap"], fab["width"])
+    return torch.where(in_group, _grant(demand, member, levels), pool), sweeps
+
+
+def lockstep_dt(dt, live, group_id, n_groups: int):
+    """The step lengths (S,) of a step with shared fabrics: each ``live``
+    row of a group advances by the least ``dt`` of its group's live rows;
+    the other rows keep their own."""
+    if n_groups == 0:
+        return dt
+    in_step = live & (group_id >= 0)
+    gi = torch.clamp(group_id, min=0)
+    g_dt = torch.full((n_groups,), _INF, dtype=dt.dtype, device=dt.device).scatter_reduce(
+        0, gi, torch.where(in_step, dt, _INF), "amin"
+    )
+    return torch.where(in_step, g_dt[gi], dt)
 
 
 def disk_pool(n_transferring, bandwidth, disk_rate, saturation_cc, contention):

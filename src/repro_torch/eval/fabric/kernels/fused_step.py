@@ -28,6 +28,11 @@ the reference's device loop around it (``jax_backend``'s four phases in a
   order with a re-feed after each, the tick with ProMC's move, the done
   test). A row at a guard stops before that transition, which the host
   takes.
+* :func:`fused_rounds_coupled`, the same loop for batches with shared
+  fabrics (the reference's ``_device_rounds_coupled_fn``): one block a
+  fabric group, whose rows take their link grants
+  (:func:`.waterfill_coupled`, solved in the block) as pools and step in
+  lockstep on the group's earliest event.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 the plain version only for CPU tensors.
@@ -38,14 +43,15 @@ import ctypes
 import functools
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from repro_torch import _cuda_build as _build
 from .. import transition
 from ..shim import TorchOps
 from . import (
-    advance_channels, bandwidth_now, disk_pool, event_horizon, feed_queues,
-    timeline_push,
+    advance_channels, bandwidth_now, coupled_pool, disk_pool, event_horizon, feed_queues,
+    lockstep_dt, timeline_push,
 )
 from .waterfill_bisect import bisect_level, lane_sum
 
@@ -110,7 +116,16 @@ _ARGTYPES = {
     + [ctypes.c_void_p],
     "fused_rounds_f64": [ctypes.c_void_p] + [ctypes.c_longlong] * 8
     + [ctypes.c_void_p],
+    "fused_rounds_coupled_f64": [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 10
+    + [ctypes.c_void_p],
 }
+
+#: the coupled loop kernel's limits: rows a fabric group (a block's warps),
+#: links a group (a lane of the group's solve per link and sorted position)
+#: and channel columns a row (one tile)
+COUPLED_MAX_ROWS = 8
+COUPLED_MAX_LINKS = 4
+COUPLED_MAX_C = 32
 
 
 @functools.lru_cache(maxsize=None)
@@ -123,19 +138,27 @@ def _entry(name: str):
     return fn
 
 
-def _advance_plain(act, busy, dead, rem, cap, tick_dt, bw, disk_rate, sat_cc, contention):
+def _advance_plain(
+    act, busy, dead, rem, cap, tick_dt, bw, disk_rate, sat_cc, contention, fab=None,
+):
     """The physics half of a step, composed of the fluid kernels: rates,
-    horizon, fluid movement. Returns ``(dt, rate_sum, fin_any, busy, dead,
-    rem, moved)``."""
+    horizon, fluid movement. With ``fab`` (the coupled loop's fabric, see
+    :func:`fused_rounds_coupled_plain`) the rows of a group take their
+    link grants as pools and advance in lockstep. Returns ``(dt,
+    rate_sum, fin_any, busy, dead, rem, moved)``."""
     transferring = busy & (dead <= _EPS)
     pool = disk_pool(transferring.sum(dim=-1), bw, disk_rate, sat_cc, contention)
     caps = torch.where(transferring, cap, 0.0)
+    if fab is not None:
+        pool, _ = coupled_pool(pool, lane_sum(caps), act, fab)
     level = bisect_level(caps, pool)
     rates = torch.where(
         act.unsqueeze(-1), torch.minimum(caps, level.unsqueeze(-1)), 0.0
     )
     dt = event_horizon(tick_dt, busy, dead, transferring, rem, rates)
     dt = torch.where(act, dt, 0.0)
+    if fab is not None:
+        dt = lockstep_dt(dt, act, fab["group_id"], fab["n_groups"])
     busy2, dead2, rem2, moved, finished = advance_channels(
         act, dt, busy, dead, transferring, rem, rates
     )
@@ -224,65 +247,213 @@ def fused_step(
 fused_step.launches = 0
 
 
+def _plain_step(st, run, fab=None):
+    """One step of the ``run`` rows of the loop operands ``st`` (entries
+    replaced): the profile lookup, the physics of :func:`fused_step_plain`
+    (coupled through ``fab`` when given), the feed with the resume stack,
+    the timeline push, the clock, the event count, the ``delivered``
+    scatter, then :func:`..transition.post_transition` on the rows that
+    meet no capacity guard. Returns the rows at a guard, whose transition
+    is left to the host."""
+    K = st["qptr"].shape[-1]
+    t = st["t"]
+    eff_bw, next_prof = bandwidth_now(st["bw"], st["prof_t"], st["prof_mult"], t)
+    dt, rate_sum, fin, st["busy"], st["dead"], st["rem"], moved = _advance_plain(
+        run, st["busy"], st["dead"], st["rem"], st["cap"],
+        torch.minimum(st["next_tick"] - t, next_prof - t), eff_bw,
+        st["disk_rate"], st["sat_cc"], st["contention"], fab,
+    )
+    transition.feed(st, run)
+    st.update(zip(_TIMELINE, timeline_push(
+        run & st["record_timeline"], t, rate_sum, *(st[k] for k in _TIMELINE)
+    )))
+    st["t"] = t + dt  # dt is 0 on rows that do not run
+    st["n_events"] = st["n_events"] + run.to(torch.int64)
+    st["fin_any"] = torch.where(run, fin, st["fin_any"])
+    st["delivered"] = TorchOps.chunk_scatter_add(
+        st["delivered"], st["chunk_of"], moved, moved != 0.0
+    )
+    # a row at a capacity guard leaves the step's transition to the host
+    completed, tick_hit = transition.completions(st, run)
+    hint = transition.hints(
+        transition.transition_flags(st, completed, tick_hit).tolist(), K
+    )
+    guard = transition.stack_full(st, tick_hit)
+    if hint["ks_sc"]:
+        guard = guard | transition.sc_short(st, completed, hint["ks_sc"])
+    go = run & ~guard
+    transition.post_transition(
+        st, go, completed & go.unsqueeze(-1), tick_hit & go, **hint
+    )
+    return guard
+
+
+def _stop_errors(st, run, stop):
+    """The error test of the ``run`` rows (``t > max_time``, a stranded
+    chunk): returns ``(err, stop)`` with the erring rows' stop code set."""
+    err = run & ((st["t"] > st["max_time"]) | transition.stranded(st, run))
+    return err, torch.where(err, transition.STOP_ERROR, stop)
+
+
 def fused_rounds_plain(s, max_steps: int = ROUND_CAP):
     """Plain PyTorch version of the loop kernel on the operands ``s`` (a
     mapping of :data:`ROUND_OPERANDS` names to tensors; the outputs may be
     absent), the kernel's yardstick. Each iteration, on the rows still
     running: the error test (``t > max_time``, a stranded chunk), then a
-    step (the profile lookup, the physics of :func:`fused_step_plain`, the
-    feed with the resume stack, the timeline push, the clock, the event
-    count, the ``delivered`` scatter), then the capacity guards and
-    :func:`..transition.post_transition`, masked per row. A row stops done,
-    in error, at a guard (the step's transition not taken) or at
-    ``max_steps``. Host reads only skip masked-out work. Returns new
-    tensors for every name of :data:`ROUND_STATE` and
-    :data:`ROUND_OUTPUTS`; ``s`` is left as it was."""
+    step (:func:`_plain_step`), masked per row. A row stops done, in error,
+    at a guard (the step's transition not taken) or at ``max_steps``. Host
+    reads only skip masked-out work. Returns new tensors for every name of
+    :data:`ROUND_STATE` and :data:`ROUND_OUTPUTS`; ``s`` is left as it
+    was."""
     st = dict(s)  # entries are replaced, never written
-    K = st["qptr"].shape[-1]
     steps = torch.zeros_like(st["n_events"])
     stop = torch.full_like(steps, transition.STOP_NONE)
     run = st["act"]
     while True:
-        err = run & ((st["t"] > st["max_time"]) | transition.stranded(st, run))
-        stop = torch.where(err, transition.STOP_ERROR, stop)
+        err, stop = _stop_errors(st, run, stop)
         run = run & ~err
         if not bool(run.any()):
             break
-        t = st["t"]
-        eff_bw, next_prof = bandwidth_now(st["bw"], st["prof_t"], st["prof_mult"], t)
-        dt, rate_sum, fin, st["busy"], st["dead"], st["rem"], moved = _advance_plain(
-            run, st["busy"], st["dead"], st["rem"], st["cap"],
-            torch.minimum(st["next_tick"] - t, next_prof - t), eff_bw,
-            st["disk_rate"], st["sat_cc"], st["contention"],
-        )
-        transition.feed(st, run)
-        st.update(zip(_TIMELINE, timeline_push(
-            run & st["record_timeline"], t, rate_sum, *(st[k] for k in _TIMELINE)
-        )))
-        st["t"] = t + dt  # dt is 0 on rows that do not run
-        st["n_events"] = st["n_events"] + run.to(torch.int64)
+        guard = _plain_step(st, run)
         steps = steps + run.to(torch.int64)
-        st["fin_any"] = torch.where(run, fin, st["fin_any"])
-        st["delivered"] = TorchOps.chunk_scatter_add(
-            st["delivered"], st["chunk_of"], moved, moved != 0.0
-        )
-        # a row at a capacity guard leaves the step's transition to the host
-        completed, tick_hit = transition.completions(st, run)
-        hint = transition.hints(
-            transition.transition_flags(st, completed, tick_hit).tolist(), K
-        )
-        guard = transition.stack_full(st, tick_hit)
-        if hint["ks_sc"]:
-            guard = guard | transition.sc_short(st, completed, hint["ks_sc"])
         stop = torch.where(guard, transition.STOP_GUARD, stop)
         go = run & ~guard
-        transition.post_transition(
-            st, go, completed & go.unsqueeze(-1), tick_hit & go, **hint
-        )
         capped = go & ~st["done"] & (steps >= max_steps)
         stop = torch.where(go & st["done"], transition.STOP_DONE, stop)
         stop = torch.where(capped, transition.STOP_CAP, stop)
         run = go & ~st["done"] & ~capped
+    out = {name: st[name] for name in ROUND_STATE}
+    out.update(steps=steps, stop=stop)
+    return out
+
+
+def fabric_operands(group_id, member, link_cap, device=None, names=None) -> dict:
+    """The coupled loop's fabric (a mapping the wrapper and the plain
+    version take) from a batch's resolved fabric column: ``group_id`` (S,)
+    int64 (-1 outside every group), ``member`` (L, S) bool and
+    ``link_cap`` (L,) float64, as tensors on ``device`` (the rows');
+    ``n_groups``; ``width``, the most rows a link has; and ``layout``, the kernel's per-group
+    layout (:func:`fabric_layout`, on ``device``), or the ``ValueError``
+    that names a group beyond the kernel's limits (``names``: the rows'
+    scenario names), which the wrapper raises before a launch."""
+    gid = np.asarray(group_id, dtype=np.int64)
+    member = np.asarray(member, dtype=bool)
+    link_cap = np.asarray(link_cap, dtype=np.float64)
+    try:
+        layout = {k: torch.as_tensor(v, device=device)
+                  for k, v in fabric_layout(gid, member, link_cap, names).items()}
+    except ValueError as exc:
+        layout = exc
+    return {
+        "group_id": torch.as_tensor(gid, device=device),
+        "member": torch.as_tensor(member, device=device),
+        "link_cap": torch.as_tensor(link_cap, device=device),
+        "n_groups": int(gid.max()) + 1 if gid.size and gid.max() >= 0 else 0,
+        "width": int(member.sum(axis=1).max(initial=0)),
+        "layout": layout,
+    }
+
+
+def fabric_layout(group_id, member, link_cap, names=None) -> dict:
+    """The coupled loop kernel's per-block layout of a batch's fabric
+    (numpy, on the host): one block a fabric group, in group order, then
+    one a row outside every group. ``rows`` (G, R) int64: the block's rows
+    in row order, -1 past them (R the widest block); ``mask`` (G, 4) int64:
+    bit j set where the block's j-th row rides the link; ``cap`` (G, 4)
+    float64: the links' capacities (unused slots 0 with an empty mask).
+    Raises ``ValueError``, naming the group (``names``, a row's scenario
+    name, when given), for a group wider than :data:`COUPLED_MAX_ROWS`
+    rows or with more than :data:`COUPLED_MAX_LINKS` links."""
+    gid = np.asarray(group_id, dtype=np.int64)
+    member = np.asarray(member, dtype=bool)
+    link_cap = np.asarray(link_cap, dtype=np.float64)
+    n_groups = int(gid.max()) + 1 if gid.size and gid.max() >= 0 else 0
+    blocks = [np.flatnonzero(gid == g) for g in range(n_groups)]
+    blocks += [np.array([r]) for r in np.flatnonzero(gid < 0)]
+    links = [np.flatnonzero(member[:, b].any(axis=1)) for b in blocks[:n_groups]]
+
+    def label(g):
+        r = int(blocks[g][0])
+        return f"group {g} (row {r}" + (f", {names[r]!r})" if names is not None else ")")
+
+    for g in range(n_groups):
+        if len(blocks[g]) > COUPLED_MAX_ROWS:
+            raise ValueError(
+                f"fabric {label(g)} has {len(blocks[g])} rows; the coupled loop kernel "
+                f"takes at most {COUPLED_MAX_ROWS} a group"
+            )
+        if len(links[g]) > COUPLED_MAX_LINKS:
+            raise ValueError(
+                f"fabric {label(g)} has {len(links[g])} links; the coupled loop kernel "
+                f"takes at most {COUPLED_MAX_LINKS} a group"
+            )
+    G = len(blocks)
+    R = max((len(b) for b in blocks), default=1)
+    rows = np.full((G, R), -1, dtype=np.int64)
+    mask = np.zeros((G, COUPLED_MAX_LINKS), dtype=np.int64)
+    cap = np.zeros((G, COUPLED_MAX_LINKS), dtype=np.float64)
+    for g, b in enumerate(blocks):
+        rows[g, : len(b)] = b
+        if g < n_groups:
+            for j, li in enumerate(links[g]):
+                mask[g, j] = int(sum(1 << i for i, r in enumerate(b) if member[li, r]))
+                cap[g, j] = link_cap[li]
+    return {"rows": rows, "mask": mask, "cap": cap}
+
+
+def fused_rounds_coupled_plain(s, fab, max_steps: int = ROUND_CAP):
+    """Plain PyTorch version of the coupled loop kernel, on the loop
+    operands ``s`` and the fabric ``fab`` (:func:`fabric_operands`). A
+    fabric group steps in lockstep: each step its live rows offer their
+    demand, :func:`.coupled_pool` turns the demands into link grants (one
+    :func:`.waterfill_coupled` over the whole (L, S) table), and each live
+    row advances by its group's least horizon (:func:`.lockstep_dt`); a
+    row outside every group steps as in :func:`fused_rounds_plain`. Stops
+    are per group: a finished row offers zero demand until the group is
+    done; a group stops when it has taken ``max_steps`` steps; an erring
+    row stops its group before the step (the others with
+    ``transition.STOP_GROUP``); a row at a capacity guard stops its group
+    after the step, the others' transitions taken. Returns what
+    :func:`fused_rounds_plain` returns; ``s`` is left as it was."""
+    st = dict(s)
+    gid = fab["group_id"]
+    n_groups = fab["n_groups"]
+    solo = gid < 0
+    # loop blocks: the fabric groups, then each row outside them alone
+    block = torch.where(solo, n_groups + torch.cumsum(solo.to(torch.int64), 0) - 1, gid)
+    n_blocks = n_groups + int(solo.sum())
+
+    def per_block(mask):
+        return torch.zeros(n_blocks, dtype=torch.int64, device=gid.device).scatter_reduce(
+            0, block, mask.to(torch.int64), "amax"
+        )
+
+    def in_block(mask):
+        return per_block(mask)[block] > 0
+
+    gsteps = torch.zeros(n_blocks, dtype=torch.int64, device=gid.device)
+    steps = torch.zeros_like(st["n_events"])
+    stop = torch.full_like(steps, transition.STOP_NONE)
+    run = st["act"]
+    while True:
+        capped = run & (gsteps[block] >= max_steps)
+        stop = torch.where(capped, transition.STOP_CAP, stop)
+        run = run & ~capped
+        err, stop = _stop_errors(st, run, stop)
+        halt = run & in_block(err)
+        stop = torch.where(halt & ~err, transition.STOP_GROUP, stop)
+        run = run & ~halt
+        if not bool(run.any()):
+            break
+        guard = _plain_step(st, run, fab)
+        steps = steps + run.to(torch.int64)
+        gsteps = gsteps + per_block(run)
+        held = in_block(guard)
+        done = st["done"]
+        stop = torch.where(guard, transition.STOP_GUARD, stop)
+        stop = torch.where(run & ~guard & done, transition.STOP_DONE, stop)
+        stop = torch.where(run & held & ~guard & ~done, transition.STOP_GROUP, stop)
+        run = run & ~done & ~held
     out = {name: st[name] for name in ROUND_STATE}
     out.update(steps=steps, stop=stop)
     return out
@@ -336,3 +507,81 @@ def fused_rounds(s, max_steps: int = ROUND_CAP):
 
 #: launches of the loop kernel in this process
 fused_rounds.launches = 0
+
+
+def fused_rounds_coupled(s, fab, max_steps: int = ROUND_CAP):
+    """:func:`fused_rounds` for a batch with shared fabrics: every active
+    row of ``s`` steps, each fabric group of ``fab``
+    (:func:`fabric_operands`) in lockstep, until its group is done, a
+    member errs or meets a capacity guard, or the group has taken
+    ``max_steps`` steps (:func:`fused_rounds_coupled_plain` says how);
+    the state and output tensors are updated in place. Returns
+    ``s["steps"]``. CPU tensors take the plain version; CUDA tensors
+    launch the coupled loop kernel on the current stream, one block a
+    group and one warp a row: rows of at most :data:`COUPLED_MAX_C`
+    columns, groups of at most :data:`COUPLED_MAX_ROWS` rows and
+    :data:`COUPLED_MAX_LINKS` links (a ``ValueError`` before any launch
+    otherwise, from ``fab["layout"]``). After a launch,
+    ``fused_rounds_coupled.sweeps`` (G,) int64 holds the Jacobi sweeps each
+    block ran over its group steps (0 for a block without links), in
+    :func:`fabric_layout`'s block order."""
+    if max_steps < 1:
+        raise ValueError(f"max_steps must be at least 1, got {max_steps}")
+    busy = s["busy"]
+    if busy.dim() != 2 or s["qptr"].dim() != 2 or s["prof_t"].dim() != 2:
+        raise ValueError("busy must be (S, C), qptr (S, K) and prof_t (S, B)")
+    S, C = busy.shape
+    if fab["group_id"].shape != (S,) or fab["member"].shape[1:] != (S,):
+        raise ValueError(
+            f"the fabric's group_id must be ({S},) and member (L, {S}), got "
+            f"{tuple(fab['group_id'].shape)} and {tuple(fab['member'].shape)}"
+        )
+    if busy.device.type == "cpu":
+        for name, new in fused_rounds_coupled_plain(s, fab, max_steps).items():
+            s[name].copy_(new)
+        return s["steps"]
+    if busy.device.type != "cuda":
+        raise ValueError(f"unsupported device {busy.device}")
+    dims = {"S": S, "C": C, "K": s["qptr"].shape[1], "B": s["prof_t"].shape[1],
+            "Q": s["qsizes"].shape[0], "P": s["prepend_sizes"].shape[-1],
+            "T": s["tl_t"].shape[-1]}
+    if C > COUPLED_MAX_C or dims["K"] > 1024 or dims["Q"] == 0:
+        raise ValueError(
+            f"the coupled loop kernel takes C <= {COUPLED_MAX_C}, K <= 1024 and Q > 0, "
+            f"got {C}, {dims['K']}, {dims['Q']}"
+        )
+    dev = busy.device
+    lay = fab["layout"]
+    if isinstance(lay, ValueError):
+        raise lay
+    G, R = lay["rows"].shape
+    sweeps = torch.zeros((G,), dtype=torch.int64, device=dev)
+    ptrs = (ctypes.c_void_p * len(ROUND_OPERANDS))(*(
+        _build.check(s[name], name, dtype, tuple(dims[a] for a in axes), dev)
+        for name, (dtype, axes) in ROUND_OPERANDS.items()
+    ))
+    fptrs = [
+        _build.check(lay["rows"], "rows", torch.int64, (G, R), dev),
+        _build.check(lay["mask"], "mask", torch.int64, (G, COUPLED_MAX_LINKS), dev),
+        _build.check(lay["cap"], "cap", torch.float64, (G, COUPLED_MAX_LINKS), dev),
+        sweeps.data_ptr(),
+    ]
+    if S == 0:
+        return s["steps"]
+    fn = _entry("fused_rounds_coupled_f64")
+    with torch.cuda.device(dev):
+        err = fn(
+            ptrs, *fptrs, S, C, dims["K"], dims["B"], dims["Q"], dims["P"], dims["T"], G, R,
+            max_steps, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"coupled fused-rounds kernel launch failed: cudaError {err}")
+    fused_rounds_coupled.launches += 1
+    fused_rounds_coupled.sweeps = sweeps
+    return s["steps"]
+
+
+#: launches of the coupled loop kernel in this process
+fused_rounds_coupled.launches = 0
+#: the Jacobi sweeps of the last launch's blocks
+fused_rounds_coupled.sweeps = None

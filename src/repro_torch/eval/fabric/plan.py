@@ -9,7 +9,9 @@ context. Per-row parameters go through the tensor kernels of
 allocations), run on the CPU in float64 and int64, whose arithmetic is
 exact or correctly rounded, so the columns equal the reference
 implementation's bit for bit. File sizes land in one flat ``qsizes``
-buffer that rows address through per-row offsets.
+buffer that rows address through per-row offsets. A row's shared-fabric
+spec rides along (``fabrics``); a coupled SC row's channel bound is its
+concurrency sum, since its group's lockstep can start every wave at once.
 
 This is host-side numpy; the driver uploads the columns to its device.
 """
@@ -161,6 +163,9 @@ class ScenarioPlan:
     names: List[str]
     sched_names: List[str]
     chunk_names: List[tuple]
+    #: per-row Optional[SharedFabric] (None: uncoupled), shared with the
+    #: source scenarios
+    fabrics: List
     # (S,) row columns
     net_idx: np.ndarray
     kind: np.ndarray
@@ -204,6 +209,7 @@ class ScenarioPlan:
             names=pick(self.names),
             sched_names=pick(self.sched_names),
             chunk_names=pick(self.chunk_names),
+            fabrics=pick(self.fabrics),
             **{c: getattr(self, c)[idx] for c in ROW_COLUMNS},
         )
 
@@ -243,8 +249,8 @@ class ScenarioPlan:
         """The plan as named numpy arrays (the format of
         :func:`from_reference_arrays`): every row column, ``qsizes``, and
         string arrays ``networks`` (N,), ``names`` / ``schedulers`` (S,),
-        ``chunks`` (S, K) padded with ``""``, plus the all-False
-        ``coupled`` (S,) column."""
+        ``chunks`` (S, K) padded with ``""``, and ``coupled`` (S,), whether
+        a row rides a shared fabric."""
         S = self.n_rows
         chunks = np.full((S, self.K), "", dtype=object)
         for i, row in enumerate(self.chunk_names):
@@ -256,7 +262,7 @@ class ScenarioPlan:
             names=np.array(self.names, dtype=object),
             schedulers=np.array(self.sched_names, dtype=object),
             chunks=chunks,
-            coupled=np.zeros(S, dtype=bool),
+            coupled=np.array([f is not None for f in self.fabrics], dtype=bool),
         )
         return out
 
@@ -264,11 +270,18 @@ class ScenarioPlan:
 def from_reference_arrays(arrays: Dict[str, np.ndarray]) -> ScenarioPlan:
     """Build a plan from the numpy columns of another implementation's plan
     (the format of :meth:`ScenarioPlan.arrays`): networks are looked up by
-    name in this package's ``TESTBEDS``. Coupled rows (shared fabrics) are
-    outside this package and raise."""
-    coupled = np.asarray(arrays.get("coupled", np.zeros(0, dtype=bool)))
-    if coupled.any():
-        raise NotImplementedError("coupled shared-fabric rows are not supported")
+    name in this package's ``TESTBEDS``. The columns carry no fabric specs:
+    ``fabrics`` (S,), a sequence of this package's ``SharedFabric`` or
+    None, gives them, and a plan whose ``coupled`` column is set needs it."""
+    coupled = np.asarray(arrays.get("coupled", np.zeros(0, dtype=bool)), dtype=bool)
+    fabrics = arrays.get("fabrics")
+    if fabrics is None:
+        if coupled.any():
+            raise ValueError("coupled rows need the 'fabrics' column (their SharedFabric specs)")
+        fabrics = [None] * len(arrays["names"])
+    fabrics = list(fabrics)
+    if coupled.size and [f is not None for f in fabrics] != coupled.tolist():
+        raise ValueError("the 'fabrics' column disagrees with the 'coupled' column")
     missing = [c for c in ROW_COLUMNS + ("qsizes", "networks", "names",
                "schedulers", "chunks") if c not in arrays]
     if missing:
@@ -281,6 +294,7 @@ def from_reference_arrays(arrays: Dict[str, np.ndarray]) -> ScenarioPlan:
         names=[str(n) for n in arrays["names"]],
         sched_names=[str(n) for n in arrays["schedulers"]],
         chunk_names=[tuple(str(c) for c in row if c) for row in chunks],
+        fabrics=fabrics,
         **{c: np.array(arrays[c]) for c in ROW_COLUMNS},
     )
 
@@ -370,13 +384,13 @@ def build_plan(scenarios: Sequence) -> ScenarioPlan:
     names: List[str] = [""] * S
     sched_names: List[str] = [""] * S
     chunk_names: List[tuple] = [()] * S
+    fabrics: List = [None] * S
 
     for i, sc in enumerate(scenarios):
         alg = sc.algorithm.lower()
         if alg not in PLAN_ALGORITHMS:
             raise ValueError(f"no columnar ingest for algorithm {sc.algorithm!r}")
-        if getattr(sc, "shared_fabric", None) is not None:
-            raise NotImplementedError("coupled shared-fabric rows are not supported")
+        fabrics[i] = getattr(sc, "shared_fabric", None)
         n = net_of.get(sc.network)
         if n is None:
             n = net_of[sc.network] = len(networks)
@@ -566,6 +580,10 @@ def build_plan(scenarios: Sequence) -> ScenarioPlan:
     cap_sc = np.maximum(1, conc_real.max(axis=1, initial=0))
     cap_mc = np.maximum(np.maximum(1, max_cc), n_chunks)
     cap_static = np.maximum(1, conc_real.sum(axis=1))
+    # a coupled SC row steps on its group's horizon, so completions can tie
+    # and start every wave at once: it gets the concurrency sum
+    coupled_row = np.array([f is not None for f in fabrics], dtype=bool)
+    cap_sc = np.where(coupled_row, cap_static, cap_sc)
     cap_need = np.where(
         is_sc, cap_sc, np.where(is_mc | is_promc, cap_mc, cap_static)
     ).astype(np.int64)
@@ -579,6 +597,7 @@ def build_plan(scenarios: Sequence) -> ScenarioPlan:
         names=names,
         sched_names=sched_names,
         chunk_names=chunk_names,
+        fabrics=fabrics,
         net_idx=net_idx,
         kind=kind,
         trivial_tick=trivial[:, 0],
@@ -742,6 +761,7 @@ def from_simulations(sims: Sequence, names: Optional[Sequence[str]] = None) -> S
         names=names,
         sched_names=sched_names,
         chunk_names=chunk_names,
+        fabrics=[None] * S,
         net_idx=net_idx,
         kind=kind,
         trivial_tick=trivial[:, 0],

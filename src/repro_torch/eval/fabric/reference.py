@@ -36,6 +36,66 @@ def next_event_dt(
     return max(dt, 0.0)
 
 
+def coupled_fair_share(
+    demand: Sequence[float],
+    member: Sequence[Sequence[bool]],
+    link_cap: Sequence[float],
+) -> list:
+    """Progressive filling, the yardstick of ``kernels.waterfill_coupled``.
+
+    Max-min fairness over rows sharing finite links: raise every unfrozen
+    row's rate in lockstep until a link saturates (its members freeze at
+    the common level) or a row reaches its demand (it freezes there),
+    remove the bound capacity, repeat. ``member[l][r]`` is row r's
+    membership of link l; a row on no link gets its whole demand. Returns
+    the per-row rates. O(rows * links) scalar loops: a test oracle."""
+    R = len(demand)
+    L = len(link_cap)
+    x = [0.0] * R
+    frozen = [False] * R
+    remaining_cap = [float(c) for c in link_cap]
+    for r in range(R):
+        if not any(member[l][r] for l in range(L)):
+            x[r] = float(demand[r])
+            frozen[r] = True
+    level = 0.0
+    for _ in range(R + L + 1):
+        active = [r for r in range(R) if not frozen[r]]
+        if not active:
+            break
+        # headroom to the next freezing event at the common level
+        step = math.inf
+        for r in active:
+            step = min(step, demand[r] - level)
+        for l in range(L):
+            members = [r for r in active if member[l][r]]
+            if members:
+                step = min(step, remaining_cap[l] / len(members))
+        if not math.isfinite(step):
+            break
+        step = max(step, 0.0)
+        level += step
+        for l in range(L):
+            members = [r for r in active if member[l][r]]
+            remaining_cap[l] -= step * len(members)
+        newly = set()
+        for l in range(L):
+            if remaining_cap[l] <= _EPS * max(link_cap[l], 1.0):
+                for r in active:
+                    if member[l][r]:
+                        newly.add(r)
+        for r in active:
+            if demand[r] - level <= _EPS * max(demand[r], 1.0):
+                newly.add(r)
+        for r in newly:
+            x[r] = level
+            frozen[r] = True
+    for r in range(R):
+        if not frozen[r]:
+            x[r] = level
+    return x
+
+
 def resume_file(remaining: float) -> FileSpec:
     """Synthetic file re-queued when a busy channel is closed mid-transfer:
     the in-flight remainder restarts, rounded up to whole bytes

@@ -38,9 +38,10 @@ _EPS = 1e-12
 KIND_TRIVIAL, KIND_STATIC, KIND_SC, KIND_MC, KIND_PROMC = 0, 1, 2, 3, 4
 
 #: a row's stop code after a loop launch: not run, done, at the step cap,
-#: at a capacity guard (its transition left to the host), or in error
-#: (past ``max_time``, or a stranded chunk)
-STOP_NONE, STOP_DONE, STOP_CAP, STOP_GUARD, STOP_ERROR = 0, 1, 2, 3, 4
+#: at a capacity guard (its transition left to the host), in error (past
+#: ``max_time``, or a stranded chunk), or stopped with its fabric group
+#: because another member erred or met a guard (the coupled loop)
+STOP_NONE, STOP_DONE, STOP_CAP, STOP_GUARD, STOP_ERROR, STOP_GROUP = 0, 1, 2, 3, 4, 5
 
 _FEED_OUT = ("busy", "dead", "rem", "qptr", "queue_bytes", "prepend_n")
 _CHANNELS = ("chunk_of", "busy", "dead", "rem", "cap")

@@ -10,11 +10,16 @@ Two backends:
     :func:`repro_torch.eval.fabric.plan.from_simulations`;
   - ``event``: one :class:`repro_torch.core.simulator.Simulation` per
     row (``build_simulation(sc).run()``), a scalar loop on the host, the
-    semantics the sweep is held to (:mod:`repro_torch.eval.difftest`).
+    semantics the sweep is held to (:mod:`repro_torch.eval.difftest`);
+    the rows of a shared-fabric group run in lockstep
+    (:func:`repro_torch.eval.fabric.coupled_event.run_event_coupled`).
 
 Rows run in chunks of :data:`CHUNK_SIZE` scenarios ordered by a cost
 proxy, so each chunk is cost-homogeneous and a long straggler does not
 pin the whole matrix's sweep width; results come back in input order.
+A fabric group is coupled only inside one chunk, so its rows leave the
+cost order and are packed whole into chunks of their own
+(:func:`_group_atomic_parts`).
 Golden snapshots map scenario names to throughput, completion time,
 bytes and moves; the port compares against the same files as the
 reference implementation (``tests/golden/``)::
@@ -41,6 +46,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.simulator import SimResult, Simulation
 
 from .fabric.bucketing import chunk_spans
+from .fabric.coupled_event import run_event_coupled
 from .fabric.driver import SweepStats, TorchFabricSimulation
 from .fabric.plan import build_plan, from_simulations, plan_supported
 from .scenarios import (
@@ -50,13 +56,14 @@ from .scenarios import (
     default_matrix,
     full_matrix,
     smoke_matrix,
+    tenant_matrix,
 )
 
 #: scenarios per batched execution chunk (bounds device memory; the
 #: 276-row default grid runs as one chunk, the full grid as two)
 CHUNK_SIZE = 1024
 
-MATRIX_NAMES = ("default", "smoke", "full")
+MATRIX_NAMES = ("default", "smoke", "full", "tenant", "tenant-smoke")
 
 BACKENDS = ("batch", "event")
 
@@ -97,6 +104,31 @@ def _cost_proxy(scenario: Scenario) -> float:
     )
 
 
+def _group_atomic_parts(order: Sequence[int], fabrics: Sequence, size: int) -> tuple:
+    """Split a cost-sorted row order into ``(uncoupled_order,
+    coupled_parts)``. A fabric group couples only inside one batch, so the
+    coupled rows leave the cost-sorted spans and are packed whole, group
+    by group in order of first appearance, into parts of at most ``size``
+    rows (a larger group stays whole in a part of its own). The uncoupled
+    rows keep the span path, so a matrix without fabrics chunks as
+    before."""
+    uncoupled = [i for i in order if fabrics[i] is None]
+    groups: Dict[str, List[int]] = {}
+    for i in order:
+        if fabrics[i] is not None:
+            groups.setdefault(fabrics[i].group, []).append(i)
+    parts: List[List[int]] = []
+    cur: List[int] = []
+    for rows in groups.values():
+        if cur and len(cur) + len(rows) > size:
+            parts.append(cur)
+            cur = []
+        cur.extend(rows)
+    if cur:
+        parts.append(cur)
+    return uncoupled, parts
+
+
 def _run_chunks(
     n: int,
     costs,
@@ -106,15 +138,21 @@ def _run_chunks(
     waterfill_impl: str,
     stats: Optional[SweepStats],
     chunk_size: int,
+    fabrics: Optional[Sequence] = None,
 ) -> List[SimResult]:
     """Rows ordered by ``costs`` (input order without), cut into spans of
-    ``chunk_size``; each span's plan (``make_plan(rows)``) runs as one
-    driver, serially. Results in input order."""
+    ``chunk_size``, the rows of fabric groups (``fabrics``, a per-row
+    column) packed whole into parts of their own; each part's plan
+    (``make_plan(rows)``) runs as one driver, serially. Results in input
+    order."""
     dev = resolve_device(device)
     order = list(range(n)) if costs is None else sorted(range(n), key=lambda i: costs[i])
     results: List[Optional[SimResult]] = [None] * n
-    for lo, hi in chunk_spans(n, chunk_size):
-        part = order[lo:hi]
+    coupled: List[List[int]] = []
+    if fabrics is not None and any(f is not None for f in fabrics):
+        order, coupled = _group_atomic_parts(order, fabrics, chunk_size)
+    parts = [order[lo:hi] for lo, hi in chunk_spans(len(order), chunk_size)] + coupled
+    for part in parts:
         drv = TorchFabricSimulation(
             make_plan(part), device=dev, fused_step=fused_step,
             waterfill_impl=waterfill_impl,
@@ -140,7 +178,7 @@ def run_plan(
     every chunk's sweep counts."""
     return _run_chunks(
         plan.n_rows, plan.cost_proxy(), plan.take, device, fused_step,
-        waterfill_impl, stats, chunk_size,
+        waterfill_impl, stats, chunk_size, plan.fabrics,
     )
 
 
@@ -156,9 +194,12 @@ def run_matrix(
     """Run every scenario; results in input order. The batched backend
     runs the columnar plan on ``device`` (default: the card; it raises
     without one); the event backend runs one event simulation a row on
-    the host and takes no device."""
+    the host and takes no device; it runs the rows of each shared-fabric
+    group in lockstep."""
     _check_backend(backend, device)
     if backend == "event":
+        if any(sc.shared_fabric is not None for sc in scenarios):
+            return run_event_coupled(scenarios)
         return [build_simulation(sc).run() for sc in scenarios]
     dev = resolve_device(device)
     if not plan_supported(scenarios):
@@ -236,6 +277,10 @@ def build_matrix(name: str) -> List[Scenario]:
         return smoke_matrix()
     if name == "full":
         return full_matrix()
+    if name == "tenant":
+        return tenant_matrix()
+    if name == "tenant-smoke":
+        return tenant_matrix(n_groups=6)
     raise ValueError(f"unknown matrix {name!r}; options: {', '.join(MATRIX_NAMES)}")
 
 

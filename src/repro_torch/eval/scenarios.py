@@ -6,7 +6,9 @@ machine. :func:`default_matrix` (276 rows) crosses the paper's six WAN
 testbeds with scaled paper datasets and the five schedulers plus a maxCC
 sweep; :func:`full_matrix` (1116 rows) widens it with impaired-path and
 time-varying testbeds and heavy-tail / small-file-swarm datasets;
-:func:`smoke_matrix` (32 rows) is a cross-section of the default grid.
+:func:`smoke_matrix` (32 rows) is a cross-section of the default grid;
+:func:`tenant_matrix` (206 rows) couples tenants through shared links
+(:mod:`repro_torch.eval.fabric.shared`).
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ from repro_torch.core.runner import build_scheduler
 from repro_torch.core.simulator import Simulation
 from repro_torch.core.types import GB, MB, FileSpec, param_triple
 from repro_torch.data import filesets
+
+from .fabric.shared import SharedFabric
 
 #: name -> builder(seed) -> list[FileSpec], scaled to tens of files
 DATASET_BUILDERS: Dict[str, Callable[[int], List[FileSpec]]] = {
@@ -89,6 +93,10 @@ class Scenario:
     record_timeline: bool = False
     #: fixed (pipelining, parallelism, concurrency) of ``static`` rows
     static_params: Optional[Tuple[int, int, int]] = None
+    #: attachment to a coupled fabric group (shared links of finite
+    #: capacity); ``None``, the default outside :func:`tenant_matrix`, keeps
+    #: the row independent and its name unchanged
+    shared_fabric: Optional[SharedFabric] = None
 
     def __post_init__(self):
         for field in ("network", "dataset", "algorithm"):
@@ -120,9 +128,10 @@ class Scenario:
             else ""
         )
         tl = "|tl" if self.record_timeline else ""
+        fab = f"|{self.shared_fabric.name_suffix}" if self.shared_fabric is not None else ""
         return (
             f"{self.network}|{self.dataset}|{self.algorithm}"
-            f"|cc{self.max_cc}|k{self.num_chunks}|s{self.seed}{st}{tl}"
+            f"|cc{self.max_cc}|k{self.num_chunks}|s{self.seed}{st}{tl}{fab}"
         )
 
     @property
@@ -275,6 +284,67 @@ def expand_candidates(scenarios: Sequence[Scenario], candidates) -> List[Scenari
                     algorithm="static",
                     static_params=param_triple(params),
                     record_timeline=False,
+                )
+            )
+    return out
+
+
+def tenant_matrix(
+    seed: int = 0,
+    n_groups: int = 36,
+    tenants_per_group: Tuple[int, int] = (4, 8),
+) -> List[Scenario]:
+    """Fleet matrix: tenants coupled through shared backbone links.
+
+    Each of ``n_groups`` fabric groups holds 4-8 tenants of the SC / MC /
+    ProMC / static mix, each an ordinary scenario row on its own testbed
+    and dataset. Every tenant rides the group's backbone link (35-85% of
+    the members' summed bandwidth, so contention binds) and 0-3 regional
+    links each shared by a random subset of at least two. The default 36
+    groups give 206 rows. Deterministic in ``seed``: one seeded PRNG draws
+    the groups, mixes and capacities.
+    """
+    import random
+
+    rng = random.Random(0xFAB ^ (seed * 2654435761 % 2**32))
+    algos = ("sc", "mc", "promc", "static")
+    datasets = ("des", "mixed", "small_dominated", "uniform_small")
+    out: List[Scenario] = []
+    for g in range(n_groups):
+        n_t = rng.randint(*tenants_per_group)
+        nets = [rng.choice(list(NETWORKS)) for _ in range(n_t)]
+        bws = [testbeds.TESTBEDS[n].bandwidth for n in nets]
+        group = f"g{g:03d}"
+        # backbone: all members; regional links: random subsets of >= 2
+        links = [("bb", rng.uniform(0.35, 0.85) * sum(bws))]
+        subsets = [list(range(n_t))]
+        for li in range(1, rng.randint(1, 4)):
+            members = sorted(rng.sample(range(n_t), rng.randint(2, n_t)))
+            cap = rng.uniform(0.4, 0.9) * sum(bws[m] for m in members)
+            links.append((f"l{li}", cap))
+            subsets.append(members)
+        for t in range(n_t):
+            mine = [(name, cap) for (name, cap), mem in zip(links, subsets) if t in mem]
+            fab = SharedFabric(
+                group=group,
+                links=tuple(name for name, _ in mine),
+                capacity=tuple(cap for _, cap in mine),
+                tenant=f"t{t}",
+            )
+            algo = algos[(g + t) % len(algos)]
+            cc = rng.choice((4, 8))
+            sp = None
+            if algo == "static":
+                sp = (rng.choice((0, 2, 4)), rng.choice((2, 4)), cc)
+            out.append(
+                Scenario(
+                    network=nets[t],
+                    dataset=rng.choice(datasets),
+                    algorithm=algo,
+                    max_cc=cc,
+                    seed=seed,
+                    static_params=sp,
+                    shared_fabric=fab,
                 )
             )
     return out

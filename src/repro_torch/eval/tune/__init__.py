@@ -13,11 +13,14 @@ The batched sweep is treated as a vectorized black-box objective
                      candidate axis between sweeps) and axis-neighbour
                      hill climbing, through the object ingest
   - :mod:`.history`  JSON warm-start store of per-testbed winners
+  - :mod:`.contention` greedy per-tenant tuning against a coupled static
+                     oracle over the shared-fabric tenant matrix
 
 ``python -m repro_torch.eval.runner --tune {oracle,sha,hill}`` is the CLI.
 """
 from __future__ import annotations
 
+from .contention import ContentionReport, contention_report, greedy_static_oracle
 from .history import HistoryStore, history_key
 from .oracle import (
     ContextTable,
@@ -42,6 +45,7 @@ from .space import (
 )
 
 __all__ = [
+    "ContentionReport",
     "ContextTable",
     "HistoryStore",
     "ParamSpace",
@@ -52,7 +56,9 @@ __all__ = [
     "algorithm1_params",
     "axis_sizes",
     "candidate_lists",
+    "contention_report",
     "context_key",
+    "greedy_static_oracle",
     "group_contexts",
     "hill_climb",
     "history_key",

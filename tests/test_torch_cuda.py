@@ -110,6 +110,46 @@ def test_fused_rounds_matches_its_plain_version_on_the_card(cuda, max_steps, wid
             assert torch.equal(s[name], v), name
 
 
+@pytest.mark.parametrize("max_steps", [1, 16, fs.ROUND_CAP])
+def test_coupled_loop_matches_its_plain_version_on_the_card(cuda, max_steps):
+    """The coupled loop kernel on a live tenant-smoke state against its
+    plain version on the card, bit for bit (NaN completion times equal)."""
+    from repro_torch.eval.scenarios import tenant_matrix
+
+    drv = TorchFabricSimulation(build_plan(tenant_matrix(n_groups=6)), device=cuda,
+                                fused_step="none")
+    drv.start()
+    for _ in range(5):
+        drv.step()
+    s = {k: v.clone() for k, v in drv.round_operands(~drv.done).items()}
+    fab = drv._fab
+    want = fs.fused_rounds_coupled_plain(s, fab, max_steps)
+    before = fs.fused_rounds_coupled.launches
+    fs.fused_rounds_coupled(s, fab, max_steps)
+    torch.cuda.synchronize()
+    assert fs.fused_rounds_coupled.launches == before + 1
+    for name, v in want.items():
+        if v.dtype == torch.float64:
+            torch.testing.assert_close(s[name], v, rtol=0, atol=0, equal_nan=True, msg=name)
+        else:
+            assert torch.equal(s[name], v), name
+
+
+def test_coupled_loop_refuses_a_group_wider_than_a_block(cuda):
+    """A fabric group of 9 rows raises before any launch."""
+    import dataclasses
+
+    from repro_torch.eval.fabric.shared import SharedFabric
+    from repro_torch.eval.scenarios import tenant_matrix
+
+    rows = [dataclasses.replace(sc, shared_fabric=SharedFabric("wide", ("bb",), (1e9,), f"t{i}"))
+            for i, sc in enumerate(tenant_matrix(n_groups=2)[:9])]
+    before = fs.fused_rounds_coupled.launches
+    with pytest.raises(ValueError, match="has 9 rows"):
+        run_matrix(rows, device=cuda)
+    assert fs.fused_rounds_coupled.launches == before
+
+
 def test_fused_kernels_launch_nothing_for_zero_rows(cuda):
     """A batch of no rows returns its (empty) outputs without a launch or a
     count on either fused kernel."""

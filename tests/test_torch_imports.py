@@ -36,8 +36,15 @@ bad = [
     if mod is not None and (m == "repro" or m.startswith("repro.") or m.startswith("jax"))
 ]
 assert not bad, bad
-print(len(names))
+print(" ".join(names))
 """
+
+#: modules the shared-fabric slice added; the guarded import must reach each
+SHARED_FABRIC_MODULES = (
+    "repro_torch.eval.fabric.shared",
+    "repro_torch.eval.fabric.coupled_event",
+    "repro_torch.eval.tune.contention",
+)
 
 
 def _port_sources():
@@ -51,7 +58,9 @@ def test_port_imports_with_jax_and_reference_blocked():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20  # every module of the port imported
+    names = set(out.stdout.split())
+    assert len(names) >= 20  # every module of the port imported
+    assert set(SHARED_FABRIC_MODULES) <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -134,6 +143,25 @@ def test_tune_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         runner.main(["--tune", "oracle", "--matrix", "smoke", "--candidates", "4"])
     assert len(runner.run_simulations([build_simulation(scs[0])], device="cpu")) == 1
+
+
+def test_shared_fabric_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """The tenant difftest and the contention report raise without a
+    card; the coupled event leg runs on the host and needs none."""
+    from repro_torch.eval import difftest
+    from repro_torch.eval.runner import run_matrix
+    from repro_torch.eval.scenarios import tenant_matrix
+    from repro_torch.eval.tune import contention_report
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scs = tenant_matrix(n_groups=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        difftest.main(["--matrix", "tenant-smoke"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_matrix(scs)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        contention_report(scs, n_candidates=2)
+    assert len(run_matrix(scs, backend="event")) == len(scs)
 
 
 def test_model_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
