@@ -31,8 +31,14 @@ the reference's NumPy driver does the same).
 
 ``--expect-zero-replays`` fails the run unless every leg run through the
 loop kernel (:data:`LOOP_LEGS`) left no transition to the host
-(``SweepStats.host_transitions``, the rows a capacity guard stopped: the
-counterpart of the reference's parked-row replays).
+(``SweepStats.host_transitions``, the rows a capacity guard stopped, and
+``SweepStats.post_row_replays``, the custom-scheduler rows stopped at a
+callback: the counterparts of the reference's parked-row replays; the
+matrices hold built-in schedulers only).
+
+Rows that are not Scenarios (prebuilt Simulations, custom-scheduler rows
+among them) run through ``runner.run_simulations`` on both legs;
+:func:`pair_results` and :func:`event_count_differences` take their names.
 
 The shared-fabric matrices (``--matrix tenant``, ``tenant-smoke``) pair
 the routes that take coupled rows, ``rounds`` (the coupled loop kernel)
@@ -107,17 +113,26 @@ def run_leg(scenarios: Sequence[Scenario], leg: str, device=None, stats=None):
     )
 
 
+def _name(row) -> str:
+    """A row's name: a Scenario's, or the name given to a Simulation (a
+    row of the object ingest, such as a custom-scheduler row)."""
+    return row if isinstance(row, str) else row.name
+
+
 def pair_results(
-    scenarios: Sequence[Scenario],
+    scenarios: Sequence,
     ref_results,
     test_results,
     reference: str = "event",
     backend: str = "rounds",
 ) -> List[DiffReport]:
-    """Pair two legs' already computed results into DiffReports."""
+    """Pair two legs' already computed results into DiffReports. The rows
+    are Scenarios or names (Simulations run through
+    ``runner.run_simulations`` on both legs, custom-scheduler rows
+    included)."""
     return [
         DiffReport(
-            scenario=sc.name,
+            scenario=_name(sc),
             event_throughput=e.throughput,
             batch_throughput=b.throughput,
             event_time=e.total_time,
@@ -130,12 +145,12 @@ def pair_results(
 
 
 def event_count_differences(
-    scenarios: Sequence[Scenario], ref_results, test_results
+    scenarios: Sequence, ref_results, test_results
 ) -> List[Tuple[str, int, int]]:
     """``(scenario, reference events, tested events)`` of every row whose
-    event counts differ."""
+    event counts differ (rows: Scenarios or names)."""
     return [
-        (sc.name, e.n_events, b.n_events)
+        (_name(sc), e.n_events, b.n_events)
         for sc, e, b in zip(scenarios, ref_results, test_results)
         if e.n_events != b.n_events
     ]
@@ -261,8 +276,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         for name, n_ref, n_leg in differ[:20]:
             print(f"  events {name}: event={n_ref} {leg}={n_leg}")
         if stats is not None:
-            print(f"  host transitions (rows a capacity guard stopped): {stats.host_transitions}")
-            if stats.host_transitions:
+            print(f"  host transitions (rows a capacity guard stopped): {stats.host_transitions}; "
+                  f"post-row replays (custom rows stopped at a callback): "
+                  f"{stats.post_row_replays}")
+            if stats.host_transitions or stats.post_row_replays:
                 failed.append(leg)
     if failed:
         print(f"difftest FAILED: --expect-zero-replays, host transitions on {failed}")

@@ -483,6 +483,7 @@ struct RoundArgs {
   const double* max_time;
   const bool* record;
   const long long* kind;
+  const bool* trivial_tick;
   const bool* trivial_complete;
   const long long* n_chunks;
   const double* bw;
@@ -550,11 +551,12 @@ struct RoundArgs {
   int TL;
   int warps;
 };
-constexpr int kRoundOperands = 60;
+constexpr int kRoundOperands = 61;
 
 // the driver's kind codes and the loop's stop codes (transition.STOP_*)
-constexpr long long kKindSc = 2, kKindMc = 3;
+constexpr long long kKindCustom = -1, kKindSc = 2, kKindMc = 3;
 constexpr long long kStopDone = 1, kStopCap = 2, kStopGuard = 3, kStopError = 4;
+constexpr long long kStopCustom = 6;
 
 // A row's per-chunk state in shared memory for the whole launch, and the
 // handlers' per-chunk scratch.
@@ -754,7 +756,7 @@ struct RowEnv {
   const double* qsizes;
   long long Q;
   double period, max_time;
-  bool record, trivial_complete;
+  bool record, trivial_tick, trivial_complete;
   int C, K, B, P, TL;
 };
 
@@ -838,6 +840,7 @@ __device__ __forceinline__ void setup_row(const RoundArgs& a, long long row, uns
   env.period = a.tick_period[row];
   env.max_time = a.max_time[row];
   env.record = a.record[row];
+  env.trivial_tick = a.trivial_tick[row];
   env.trivial_complete = a.trivial_complete[row];
   env.C = C;
   env.K = K;
@@ -1321,6 +1324,13 @@ __global__ void fused_rounds_kernel(RoundArgs a) {
       stop = kStopGuard;
       break;
     }
+    // a custom-scheduler row stops where an event calls its callbacks: its
+    // transition runs on the host (transition.custom_events)
+    if (env.rc.kind == kKindCustom &&
+        ((comp_any && !env.trivial_complete) || (tick_hit && !env.trivial_tick))) {
+      stop = kStopCustom;
+      break;
+    }
     // (f) the transition and (g) the done test, then the step cap
     if (row_transition<T, CW>(c, comp_any, tick_hit, env, st, ck, sm, lane)) {
       row_done = true;
@@ -1644,6 +1654,7 @@ bool round_args(void* const* ptrs, RoundArgs& a) {
   a.max_time = static_cast<const double*>(next());
   a.record = static_cast<const bool*>(next());
   a.kind = static_cast<const long long*>(next());
+  a.trivial_tick = static_cast<const bool*>(next());
   a.trivial_complete = static_cast<const bool*>(next());
   a.n_chunks = static_cast<const long long*>(next());
   a.bw = static_cast<const double*>(next());

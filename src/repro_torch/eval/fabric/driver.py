@@ -51,11 +51,24 @@ a few flags per round (which paths to take, whether a row broke its
 limits, which handlers and axes a host transition needs) and nothing per
 row.
 
-Only the built-in controllers of a plan are supported; custom scheduler
-rows raise.
+Custom-scheduler rows (``transition.KIND_CUSTOM``, a Python controller
+from the object ingest ``plan.from_simulations``) run the reference's
+scalar callback protocol on the host: at :meth:`start` their initial
+actions, and at each event that calls ``on_chunk_complete`` or
+``on_tick`` the callback, its actions (Open / Close / Move, idle
+channels closed first, a busy one pushing its remainder on the resume
+stack, the channel columns kept in the event simulator's order) and a
+feed, inside the host transition (:meth:`_post`) in the reference's
+order. Each such row is read from the device once, run in numpy, and
+written back once. On ``"rounds"`` the loop kernel steps such a row until
+an event calls a callback, then stops it (``transition.STOP_CUSTOM``) with
+the step's transition pending, which the host runs in the next round
+(``SweepStats.post_row_replays`` counts it). A custom row never rides a
+shared fabric.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import List
@@ -63,7 +76,9 @@ from typing import List
 import numpy as np
 import torch
 
+from repro_torch.core import netmodel
 from repro_torch.core.device import resolve_device
+from repro_torch.core.schedulers import ChunkView, Close, Move, Open
 from repro_torch.core.simulator import SimResult
 
 from . import kernels, transition
@@ -74,9 +89,10 @@ from .kernels.fused_step import (
 )
 from .kernels.waterfill_bisect import lane_sum, waterfill_bisect
 from .plan import MAX_TIME, PLAN_C_FLOOR, PLAN_PROFILED_C_FLOOR, PROMC_PATIENCE, PROMC_RATIO
+from .reference import resume_file
 from .shared import resolve_fabric
 from .shim import NO_CHUNK, TorchOps
-from .transition import KIND_TRIVIAL, STOP_GUARD, STOP_NONE
+from .transition import KIND_CUSTOM, STOP_CUSTOM, STOP_GUARD, STOP_NONE
 
 _EPS = 1e-12
 
@@ -87,10 +103,13 @@ TIMELINE_BUDGET = 512
 FUSED_STEP_OPTIONS = ("none", "kernel", "rounds")
 WATERFILL_OPTIONS = ("closed", "kernel")
 
+#: the widest channel axis the kernels take (C <= 1024)
+MAX_COLUMNS = 1024
+
 #: every per-scenario row tensor, for compaction
 _ROW_ARRAYS = (
     "t", "done", "next_tick", "tick_period", "n_events", "finish_t",
-    "fin_any", "max_time", "record_timeline", "trivial_complete", "kind",
+    "fin_any", "max_time", "record_timeline", "trivial_tick", "trivial_complete", "kind",
     "bw", "disk_rate", "sat_cc", "contention", "n_chunks", "chunk_of",
     "dead", "rem", "busy", "cap", "chunk_done", "completed_at",
     "delivered", "delivered_at_tick", "rate_est", "queue_bytes", "fsdt",
@@ -100,6 +119,13 @@ _ROW_ARRAYS = (
     "n_moves", "prof_t", "prof_mult", "tl_t", "tl_rate", "tl_len",
     "tl_stride", "tl_seen", "tl_last_t", "tl_last_rate", "steps", "stop",
 )
+
+#: a custom-scheduler row's state that its callbacks read and write, by
+#: axis: the channels (C), the chunks (K), the resume stack (K x P) and
+#: scalars
+_HOST_C = ("chunk_of", "busy", "dead", "rem", "cap")
+_HOST_K = ("qptr", "queue_bytes", "prepend_n", "chunk_done", "completed_at", "rate_est")
+_HOST_S = ("t", "n_moves")
 
 #: per-row results read back when a row retires
 _RESULT_ARRAYS = (
@@ -115,8 +141,11 @@ class SweepStats:
     the device (``steps``, the sum of the rows' event counts; on the
     ``"rounds"`` route a round takes many), and rows whose loop stopped at
     a capacity guard and left a step's transition to the host
-    (``host_transitions``; 0 wherever the plan's bounds size C and P).
-    The runner adds the host seconds it spent building the chunks' plans
+    (``host_transitions``; 0 wherever the plan's bounds size C and P),
+    and custom-scheduler rows whose loop stopped at a callback event and
+    left the step's transition to the host (``post_row_replays``, the
+    reference's name for the same count; 0 on the built-in grids). The
+    runner adds the host seconds it spent building the chunks' plans
     (``ingest_s``: the columnar build, or the object ingest's Simulations
     and columns)."""
 
@@ -126,19 +155,21 @@ class SweepStats:
     host_syncs: int = 0
     steps: int = 0
     host_transitions: int = 0
+    post_row_replays: int = 0
     ingest_s: float = 0.0
 
 
 class _PlanRuntime:
     """Host-side per-scenario metadata: names for results and errors, the
-    byte total, and the final metrics once the row has retired."""
+    byte total, the final metrics once the row has retired, and a custom
+    row's controller (``custom``, None on the built-in kinds)."""
 
     __slots__ = (
         "index", "name", "network", "scheduler", "chunks", "total_bytes",
-        "archive",
+        "archive", "custom",
     )
 
-    def __init__(self, index, name, network, scheduler, chunks, total_bytes):
+    def __init__(self, index, name, network, scheduler, chunks, total_bytes, custom=None):
         self.index = index
         self.name = name
         self.network = network
@@ -146,6 +177,40 @@ class _PlanRuntime:
         self.chunks = chunks
         self.total_bytes = total_bytes
         self.archive = None
+        self.custom = custom
+
+
+class _Controller:
+    """A custom-scheduler row's host side: a copy of its scheduler (the
+    plan's object is left as it was, so a plan runs again), its chunks,
+    network and queues, and the ``predict_chunk_rate`` cache of its views,
+    keyed as the reference keys it ``(chunk, its channels, open channels)``."""
+
+    __slots__ = ("scheduler", "chunks", "network", "avg_fs", "qoff", "qlen", "fsdt",
+                 "predict_cache")
+
+    def __init__(self, row, network, qoff, qlen, fsdt):
+        # the chunks, their files and the network are shared, not copied
+        memo = {id(c): c for c in row.chunks}
+        memo[id(network)] = network
+        self.scheduler = copy.deepcopy(row.scheduler, memo)
+        self.chunks = row.chunks
+        self.network = network
+        self.avg_fs = [max(c.avg_file_size, 1.0) for c in row.chunks]
+        self.qoff, self.qlen, self.fsdt = qoff, qlen, fsdt
+        self.predict_cache: dict = {}
+
+
+class _HostRow:
+    """One custom row's state, read from the device into numpy: channel
+    columns ``ch`` / ``busy`` / ``dead`` / ``rem`` / ``cap`` (C,), chunk
+    columns ``qptr`` / ``qb`` / ``pn`` / ``done`` / ``cat`` / ``rate``
+    (K,), the resume stack ``ps`` (K, P), the clock ``t`` and ``n_moves``.
+    Its C and P double here when a callback needs more room; the driver
+    grows its axes to match when the row is written back."""
+
+    __slots__ = ("row", "ctl", "ch", "busy", "dead", "rem", "cap", "qptr", "qb", "pn",
+                 "done", "cat", "rate", "ps", "t", "n_moves")
 
 
 class TorchFabricSimulation:
@@ -174,8 +239,11 @@ class TorchFabricSimulation:
             raise ValueError(
                 f"unknown waterfill_impl {waterfill_impl!r}; options: {WATERFILL_OPTIONS}"
             )
-        if (np.asarray(plan.kind) < KIND_TRIVIAL).any():
-            raise NotImplementedError("custom scheduler rows are not supported")
+        if plan.custom is not None and any(f is not None for f in plan.fabrics):
+            raise ValueError(
+                "a plan holds custom-scheduler rows and shared-fabric rows; custom rows run "
+                "uncoupled"
+            )
         if fused_step == "kernel" and any(f is not None for f in plan.fabrics):
             raise ValueError(
                 'fused_step="kernel" has no coupling: a plan with shared fabrics runs on '
@@ -201,13 +269,19 @@ class TorchFabricSimulation:
         ni = plan.net_idx
         n_chunks = plan.n_chunks.astype(np.int64)
         K = self.K = bucket(int(n_chunks.max(initial=1)))
+        custom = plan.custom or [None] * S
         self.rt = [
             _PlanRuntime(
                 i, plan.names[i], nets[ni[i]].name, plan.sched_names[i],
                 plan.chunk_names[i], float(plan.total_bytes[i]),
+                None if custom[i] is None else _Controller(
+                    custom[i], nets[ni[i]], plan.qoff[i], plan.qlen[i], plan.fsdt[i]
+                ),
             )
             for i in range(S)
         ]
+        #: the plan's file sizes on the host (custom rows' feed)
+        self._qsizes_host = plan.qsizes
 
         def net_f(f, dtype=np.float64):
             return np.array([f(n) for n in nets], dtype=dtype)[ni]
@@ -268,6 +342,7 @@ class TorchFabricSimulation:
             "fin_any": (np.zeros(S, dtype=bool), b1),
             "max_time": (np.full(S, MAX_TIME), f8),
             "record_timeline": (record, b1),
+            "trivial_tick": (plan.trivial_tick, b1),
             "trivial_complete": (plan.trivial_complete, b1),
             "kind": (kind, i8),
             "bw": (net_f(lambda n: n.bandwidth), f8),
@@ -350,7 +425,12 @@ class TorchFabricSimulation:
     # ------------------------------------------------------------------ #
 
     def _grow(self) -> None:
-        """Double the channel axis C with empty columns."""
+        """Double the channel axis C with empty columns (at most
+        :data:`MAX_COLUMNS`)."""
+        if 2 * self.C > MAX_COLUMNS:
+            raise RuntimeError(
+                f"the channel axis would grow past {MAX_COLUMNS} columns (C={self.C})"
+            )
         pad = self.C
         self.C *= 2
 
@@ -378,11 +458,20 @@ class TorchFabricSimulation:
 
     def start(self) -> None:
         """t=0: the plan's initial channels (laid out at construction) pull
-        their first files. Idempotent."""
+        their first files; then each custom row, in row order, applies its
+        scheduler's initial actions and feeds (as the reference's
+        ``start``). Idempotent."""
         if self._started:
             return
         self._started = True
         self._feed(torch.ones(self.S, dtype=torch.bool, device=self.device))
+        rows = self._custom_rows()
+        if rows:
+            hosts = self._read_rows(rows)
+            for h in hosts:
+                self._apply(h, h.ctl.scheduler.initial_actions(self._view(h)))
+                self._feed_py(h)
+            self._write_rows(hosts)
 
     def step(self) -> bool:
         """One host round over the live rows: a synchronized sweep, or on
@@ -390,19 +479,23 @@ class TorchFabricSimulation:
         until it is done, errs, meets a capacity guard or takes
         :data:`ROUND_CAP` steps. Returns False once every row is done. One
         host read decides the route, compaction, whether any row exceeded
-        ``max_time`` or stranded a chunk, and which rows a guard stopped
-        (their pending transition runs here first)."""
+        ``max_time`` or stranded a chunk, and which rows a guard or a custom
+        row's callback event stopped (their pending transition runs here
+        first)."""
         act = ~self.done
-        pending = act & (self.stop == STOP_GUARD)
+        guarded = act & (self.stop == STOP_GUARD)
+        called = act & (self.stop == STOP_CUSTOM)
+        pending = guarded | called
         chk = act & ~pending  # a pending row's state is mid-step
         over = chk & (self.t > self.max_time)
         stranded = transition.stranded(vars(self), chk)
-        n_act, n_pre, n_over, n_str, n_pend = self._read(
+        n_act, n_pre, n_over, n_str, n_guard, n_call = self._read(
             torch.stack([
                 act.sum(), (self.prepend_n > 0).sum(), over.sum(), stranded.sum(),
-                pending.sum(),
+                guarded.sum(), called.sum(),
             ])
         )
+        n_pend = n_guard + n_call
         if n_act == 0:
             return False
         if n_over:
@@ -418,7 +511,8 @@ class TorchFabricSimulation:
                 f"scheduler {r.scheduler} stranded chunks of {r.name!r}"
             )
         if n_pend:
-            self.stats.host_transitions += n_pend
+            self.stats.host_transitions += n_guard
+            self.stats.post_row_replays += n_call
             self._post(pending, skip_feed=True)
             self.stop = torch.where(pending, STOP_NONE, self.stop)
             act = ~self.done
@@ -557,7 +651,280 @@ class TorchFabricSimulation:
         while full:
             self._grow_prepend()
             full = self._read(transition.stack_full(s, tick_hit).any())
-        transition.post_transition(s, act, completed, tick_hit, **hint)
+        custom = None
+        if transition.custom_read(flags, self.K):
+            comp_rows = completed.any(dim=-1) & ~self.trivial_complete
+            custom = (
+                lambda: self._callbacks(comp_rows, self._on_complete),
+                lambda: self._callbacks(tick_hit & ~self.trivial_tick, self._on_tick),
+            )
+        transition.post_transition(s, act, completed, tick_hit, custom=custom, **hint)
+
+    # ------------------------------------------------------------------ #
+    # custom-scheduler rows: the scalar callback protocol on the host
+    # ------------------------------------------------------------------ #
+
+    def _custom_rows(self) -> List[int]:
+        """The custom rows' indices in row order (host-known)."""
+        return [r.index for r in self.rt if r.custom is not None]
+
+    def _read_rows(self, rows: List[int], mask=None) -> List[_HostRow]:
+        """One host read of rows ``rows``' state (as float64, exact for
+        their int64 and bool values), with ``mask`` (S,) bool when given:
+        then only the rows it holds come back."""
+        idx = torch.tensor(rows, dtype=torch.int64, device=self.device)
+        n = len(rows)
+        parts = [] if mask is None else [mask.index_select(0, idx).to(torch.float64).view(n, 1)]
+        parts += [
+            getattr(self, name).index_select(0, idx).reshape(n, -1).to(torch.float64)
+            for name in _HOST_C + _HOST_K + ("prepend_sizes",) + _HOST_S
+        ]
+        flat = torch.cat(parts, dim=1).cpu().numpy()
+        self.stats.host_syncs += 1
+        C, K, P = self.C, self.K, self.P
+        hosts = []
+        for j, row in enumerate(rows):
+            v = flat[j]
+            if mask is not None:
+                if not v[0]:
+                    continue
+                v = v[1:]
+            h = _HostRow()
+            h.row, h.ctl = row, self.rt[row].custom
+            h.ch = v[0:C].astype(np.int64)
+            h.busy = v[C:2 * C] != 0
+            h.dead, h.rem, h.cap = v[2 * C:3 * C].copy(), v[3 * C:4 * C].copy(), v[4 * C:5 * C].copy()
+            o = 5 * C
+            h.qptr = v[o:o + K].astype(np.int64)
+            h.qb = v[o + K:o + 2 * K].copy()
+            h.pn = v[o + 2 * K:o + 3 * K].astype(np.int64)
+            h.done = v[o + 3 * K:o + 4 * K] != 0
+            h.cat = v[o + 4 * K:o + 5 * K].copy()
+            h.rate = v[o + 5 * K:o + 6 * K].copy()
+            o += 6 * K
+            h.ps = v[o:o + K * P].reshape(K, P).copy()
+            h.t, h.n_moves = float(v[o + K * P]), int(v[o + K * P + 1])
+            hosts.append(h)
+        return hosts
+
+    def _write_rows(self, hosts: List[_HostRow]) -> None:
+        """Write rows read by :meth:`_read_rows` back (one upload a tensor),
+        first growing C and P to the widest row's."""
+        if not hosts:
+            return
+        while self.C < max(len(h.ch) for h in hosts):
+            self._grow()
+        while self.P < max(h.ps.shape[1] for h in hosts):
+            self._grow_prepend()
+        C, P = self.C, self.P
+
+        def pad(a, width, fill):
+            return np.concatenate([a, np.full(width - a.shape[-1], fill, dtype=a.dtype)])
+
+        idx = torch.tensor([h.row for h in hosts], dtype=torch.int64, device=self.device)
+        cols = {
+            "chunk_of": [pad(h.ch, C, NO_CHUNK) for h in hosts],
+            "busy": [pad(h.busy, C, False) for h in hosts],
+            "dead": [pad(h.dead, C, 0.0) for h in hosts],
+            "rem": [pad(h.rem, C, 0.0) for h in hosts],
+            "cap": [pad(h.cap, C, 0.0) for h in hosts],
+            "qptr": [h.qptr for h in hosts],
+            "queue_bytes": [h.qb for h in hosts],
+            "prepend_n": [h.pn for h in hosts],
+            "chunk_done": [h.done for h in hosts],
+            "completed_at": [h.cat for h in hosts],
+            "rate_est": [h.rate for h in hosts],
+            "prepend_sizes": [
+                np.concatenate([h.ps, np.zeros((self.K, P - h.ps.shape[1]))], axis=1)
+                for h in hosts
+            ],
+            "t": [h.t for h in hosts],
+            "n_moves": [h.n_moves for h in hosts],
+        }
+        for name, vals in cols.items():
+            cur = getattr(self, name)
+            new = torch.as_tensor(np.array(vals), dtype=cur.dtype).to(self.device)
+            setattr(self, name, cur.index_copy(0, idx, new))
+
+    def _callbacks(self, rows_mask, run) -> None:
+        """Run ``run(h)`` on each custom row that ``rows_mask`` holds, in
+        row order: one read of the rows, one write back."""
+        hosts = self._read_rows(self._custom_rows(), rows_mask & (self.kind == KIND_CUSTOM))
+        for h in hosts:
+            run(h)
+        self._write_rows(hosts)
+
+    def _on_complete(self, h: _HostRow) -> None:
+        """The row's completions: mark every completed chunk, then each
+        one's ``on_chunk_complete`` in chunk order, its actions and a
+        feed."""
+        for k in self._check_completions_py(h):
+            actions = h.ctl.scheduler.on_chunk_complete(self._view(h), k)
+            if actions:
+                self._apply(h, actions)
+                self._feed_py(h)
+
+    def _on_tick(self, h: _HostRow) -> None:
+        """The row's ``on_tick`` over its post-EMA views, its actions and a
+        feed."""
+        actions = h.ctl.scheduler.on_tick(self._view(h))
+        if actions:
+            self._apply(h, actions)
+            self._feed_py(h)
+
+    def _view(self, h: _HostRow) -> List[ChunkView]:
+        """The row's ChunkViews (the event simulator's ``_view``)."""
+        ctl = h.ctl
+        nK = len(ctl.chunks)
+        ko = h.ch
+        open_mask = ko != NO_CHUNK
+        n_open_total = int(open_mask.sum())
+        busy_m = open_mask & h.busy
+        n_ch = np.bincount(ko[open_mask], minlength=nK)
+        busy_ch = np.bincount(ko[busy_m], minlength=nK)
+        inflight = np.zeros(nK)
+        np.add.at(inflight, ko[busy_m], h.rem[busy_m])
+        views = []
+        for k, chunk in enumerate(ctl.chunks):
+            key = (k, int(n_ch[k]), n_open_total)
+            predicted = ctl.predict_cache.get(key)
+            if predicted is None:
+                predicted = netmodel.predict_chunk_rate(
+                    ctl.network, ctl.avg_fs[k], chunk.params, max(int(n_ch[k]), 1),
+                    total_active_channels=max(1, n_open_total),
+                )
+                ctl.predict_cache[key] = predicted
+            views.append(ChunkView(
+                index=k,
+                ctype=chunk.ctype,
+                bytes_remaining=float(h.qb[k]) + float(inflight[k]),
+                files_remaining=self._files_left(h, k) + int(busy_ch[k]),
+                throughput=float(h.rate[k]),
+                n_channels=int(n_ch[k]),
+                done=bool(h.done[k]),
+                predicted_rate=predicted,
+            ))
+        return views
+
+    @staticmethod
+    def _files_left(h: _HostRow, k: int) -> int:
+        return int(h.ctl.qlen[k] - h.qptr[k] + h.pn[k])
+
+    def _apply(self, h: _HostRow, actions) -> None:
+        """A controller's actions on the row, in order."""
+        for act in actions:
+            if isinstance(act, Open):
+                for _ in range(act.n):
+                    self._open_channel(h, act.chunk, prev=None)
+            elif isinstance(act, Close):
+                self._close_channels(h, act.chunk, act.n)
+            elif isinstance(act, Move):
+                moved = self._close_channels(h, act.src, act.n)
+                for prev in moved:
+                    self._open_channel(h, act.dst, prev=prev)
+                h.n_moves += len(moved)
+
+    def _open_channel(self, h: _HostRow, chunk: int, prev) -> None:
+        """Open a channel for ``chunk`` at the lowest free column (after a
+        close's left-pack, the end: opens append), doubling the row's C
+        when none is free."""
+        free = np.flatnonzero(h.ch == NO_CHUNK)
+        if free.size == 0:
+            width = len(h.ch)
+            if 2 * width > MAX_COLUMNS:
+                raise RuntimeError(
+                    f"custom scheduler of {self.rt[h.row].name!r} opens more than "
+                    f"{MAX_COLUMNS} channels"
+                )
+            h.ch = np.concatenate([h.ch, np.full(width, NO_CHUNK, dtype=np.int64)])
+            h.busy = np.concatenate([h.busy, np.zeros(width, dtype=bool)])
+            h.dead, h.rem, h.cap = (np.concatenate([a, np.zeros(width)])
+                                    for a in (h.dead, h.rem, h.cap))
+            free = np.array([width])
+        c = free[0]
+        params = h.ctl.chunks[chunk].params
+        h.ch[c] = chunk
+        h.dead[c] = netmodel.channel_open_cost(h.ctl.network, params, prev)
+        h.rem[c] = 0.0
+        h.busy[c] = False
+        h.cap[c] = netmodel.channel_rate_cap(h.ctl.network, params.parallelism)
+
+    def _close_channels(self, h: _HostRow, chunk: int, n: int) -> list:
+        """Close up to ``n`` of ``chunk``'s channels, idle ones first (the
+        event simulator's preference); a busy one pushes its remainder on
+        the resume stack. Left-packs the row after a close. Returns the
+        closed channels' parameters."""
+        cols = np.flatnonzero(h.ch == chunk)
+        cols = sorted(cols, key=lambda c: bool(h.busy[c]))
+        params = h.ctl.chunks[chunk].params
+        closed = []
+        for c in cols[:n]:
+            if h.busy[c] and h.rem[c] > 0:
+                self._push_resume(h, chunk, float(resume_file(h.rem[c]).size))
+            h.ch[c] = NO_CHUNK
+            h.busy[c] = False
+            h.dead[c] = 0.0
+            h.rem[c] = 0.0
+            h.cap[c] = 0.0
+            closed.append(params)
+        if closed:
+            self._pack_row(h)
+        return closed
+
+    @staticmethod
+    def _push_resume(h: _HostRow, chunk: int, size: float) -> None:
+        """Push a resume file on ``chunk``'s LIFO stack, doubling the row's
+        P when the stack is full."""
+        P = h.ps.shape[1]
+        if h.pn[chunk] >= P:
+            h.ps = np.concatenate([h.ps, np.zeros_like(h.ps)], axis=1)
+        h.ps[chunk, h.pn[chunk]] = size
+        h.pn[chunk] += 1
+        h.qb[chunk] += size
+
+    @staticmethod
+    def _pack_row(h: _HostRow) -> None:
+        """Left-pack the row's channel columns, keeping their order: closes
+        remove a column, opens append one, as in the event simulator's
+        channel list (``kernels.compact_channels``)."""
+        order = np.argsort(h.ch == NO_CHUNK, kind="stable")
+        h.ch, h.busy, h.dead, h.rem, h.cap = (a[order] for a in (h.ch, h.busy, h.dead, h.rem,
+                                                                 h.cap))
+
+    def _feed_py(self, h: _HostRow) -> None:
+        """Idle open channels, in column order, pull their chunk's next
+        file: the resume stack first, then the queue (the event
+        simulator's ``_feed_channels``)."""
+        ctl = h.ctl
+        for c in np.flatnonzero((h.ch != NO_CHUNK) & ~h.busy):
+            k = int(h.ch[c])
+            if h.pn[k] > 0:
+                h.pn[k] -= 1
+                size = h.ps[k, h.pn[k]]
+            elif h.qptr[k] < ctl.qlen[k]:
+                size = self._qsizes_host[ctl.qoff[k] + h.qptr[k]]
+                h.qptr[k] += 1
+            else:
+                continue
+            h.qb[k] -= size
+            h.busy[c] = True
+            h.rem[c] = size
+            h.dead[c] += ctl.fsdt[k]
+
+    def _check_completions_py(self, h: _HostRow) -> List[int]:
+        """Mark the row's chunks with no file left and none in flight
+        complete at its clock; returns them in chunk order."""
+        completed = []
+        for k in range(len(h.ctl.chunks)):
+            if h.done[k]:
+                continue
+            busy = bool(((h.ch == k) & h.busy).any())
+            if self._files_left(h, k) == 0 and not busy:
+                h.done[k] = True
+                h.qb[k] = 0.0
+                h.cat[k] = h.t
+                completed.append(k)
+        return completed
 
     # ------------------------------------------------------------------ #
     # live-row compaction and results

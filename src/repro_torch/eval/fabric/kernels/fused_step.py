@@ -27,7 +27,10 @@ the reference's device loop around it (``jax_backend``'s four phases in a
   :func:`..transition.post_transition` (completions, handlers in chunk
   order with a re-feed after each, the tick with ProMC's move, the done
   test). A row at a guard stops before that transition, which the host
-  takes.
+  takes; so does a custom-scheduler row at an event that calls its
+  callbacks (``transition.STOP_CUSTOM``: a chunk completes and its class
+  has its own ``on_chunk_complete``, or the tick is due and it has its own
+  ``on_tick``).
 * :func:`fused_rounds_coupled`, the same loop for batches with shared
   fabrics (the reference's ``_device_rounds_coupled_fn``): one block a
   fabric group, whose rows take their link grants
@@ -71,7 +74,8 @@ ROUND_CAP = 2048
 ROUND_INPUTS = {
     "act": (torch.bool, "S"), "tick_period": (torch.float64, "S"),
     "max_time": (torch.float64, "S"), "record_timeline": (torch.bool, "S"),
-    "kind": (torch.int64, "S"), "trivial_complete": (torch.bool, "S"),
+    "kind": (torch.int64, "S"), "trivial_tick": (torch.bool, "S"),
+    "trivial_complete": (torch.bool, "S"),
     "n_chunks": (torch.int64, "S"), "bw": (torch.float64, "S"),
     "disk_rate": (torch.float64, "S"), "sat_cc": (torch.int64, "S"),
     "contention": (torch.float64, "S"), "setup_cost": (torch.float64, "S"),
@@ -253,8 +257,10 @@ def _plain_step(st, run, fab=None):
     (coupled through ``fab`` when given), the feed with the resume stack,
     the timeline push, the clock, the event count, the ``delivered``
     scatter, then :func:`..transition.post_transition` on the rows that
-    meet no capacity guard. Returns the rows at a guard, whose transition
-    is left to the host."""
+    meet no capacity guard and call no custom callback (uncoupled loop
+    only: the coupled loop never holds a custom row). Returns ``(guard,
+    custom)``, the rows at a guard and the custom rows at a callback
+    event, whose transition is left to the host."""
     K = st["qptr"].shape[-1]
     t = st["t"]
     eff_bw, next_prof = bandwidth_now(st["bw"], st["prof_t"], st["prof_mult"], t)
@@ -275,17 +281,19 @@ def _plain_step(st, run, fab=None):
     )
     # a row at a capacity guard leaves the step's transition to the host
     completed, tick_hit = transition.completions(st, run)
-    hint = transition.hints(
-        transition.transition_flags(st, completed, tick_hit).tolist(), K
-    )
+    flags = transition.transition_flags(st, completed, tick_hit).tolist()
+    hint = transition.hints(flags, K)
     guard = transition.stack_full(st, tick_hit)
     if hint["ks_sc"]:
         guard = guard | transition.sc_short(st, completed, hint["ks_sc"])
-    go = run & ~guard
+    custom = torch.zeros_like(guard)
+    if fab is None and transition.custom_read(flags, K):
+        custom = run & ~guard & transition.custom_events(st, completed, tick_hit)
+    go = run & ~guard & ~custom
     transition.post_transition(
         st, go, completed & go.unsqueeze(-1), tick_hit & go, **hint
     )
-    return guard
+    return guard, custom
 
 
 def _stop_errors(st, run, stop):
@@ -301,7 +309,8 @@ def fused_rounds_plain(s, max_steps: int = ROUND_CAP):
     absent), the kernel's yardstick. Each iteration, on the rows still
     running: the error test (``t > max_time``, a stranded chunk), then a
     step (:func:`_plain_step`), masked per row. A row stops done, in error,
-    at a guard (the step's transition not taken) or at ``max_steps``. Host
+    at a guard or a custom callback event (the step's transition not
+    taken) or at ``max_steps``. Host
     reads only skip masked-out work. Returns new tensors for every name of
     :data:`ROUND_STATE` and :data:`ROUND_OUTPUTS`; ``s`` is left as it
     was."""
@@ -314,10 +323,11 @@ def fused_rounds_plain(s, max_steps: int = ROUND_CAP):
         run = run & ~err
         if not bool(run.any()):
             break
-        guard = _plain_step(st, run)
+        guard, custom = _plain_step(st, run)
         steps = steps + run.to(torch.int64)
         stop = torch.where(guard, transition.STOP_GUARD, stop)
-        go = run & ~guard
+        stop = torch.where(custom, transition.STOP_CUSTOM, stop)
+        go = run & ~guard & ~custom
         capped = go & ~st["done"] & (steps >= max_steps)
         stop = torch.where(go & st["done"], transition.STOP_DONE, stop)
         stop = torch.where(capped, transition.STOP_CAP, stop)
@@ -445,7 +455,7 @@ def fused_rounds_coupled_plain(s, fab, max_steps: int = ROUND_CAP):
         run = run & ~halt
         if not bool(run.any()):
             break
-        guard = _plain_step(st, run, fab)
+        guard, _ = _plain_step(st, run, fab)
         steps = steps + run.to(torch.int64)
         gsteps = gsteps + per_block(run)
         held = in_block(guard)
@@ -462,7 +472,8 @@ def fused_rounds_coupled_plain(s, fab, max_steps: int = ROUND_CAP):
 def fused_rounds(s, max_steps: int = ROUND_CAP):
     """Every active row of ``s`` (a mapping of :data:`ROUND_OPERANDS` names
     to tensors) takes steps until it is done, errs, meets a capacity guard
-    or has taken ``max_steps``; the state and output tensors are updated
+    or a custom callback event, or has taken ``max_steps``; the state and
+    output tensors are updated
     in place. Returns ``s["steps"]``. CPU tensors take the plain version;
     CUDA tensors launch the kernel on the current stream (C and K up to
     1024; no launch for zero rows)."""

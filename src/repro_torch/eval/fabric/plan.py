@@ -59,8 +59,8 @@ PLAN_PROFILED_C_FLOOR = 16
 #: shape-hint value that sorts profiled rows after all static ones
 _PROFILED_HINT = 1 << 16
 
-#: driver kind codes (``driver.KIND_*``)
-_KIND_TRIVIAL, _KIND_STATIC, _KIND_SC, _KIND_MC, _KIND_PROMC = 0, 1, 2, 3, 4
+#: driver kind codes (``transition.KIND_*``)
+_KIND_CUSTOM, _KIND_TRIVIAL, _KIND_STATIC, _KIND_SC, _KIND_MC, _KIND_PROMC = -1, 0, 1, 2, 3, 4
 
 _KIND_OF = {
     "sc": _KIND_SC,
@@ -135,6 +135,17 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+@dataclasses.dataclass(frozen=True)
+class CustomRow:
+    """What the driver needs of a custom-scheduler row on the host: its
+    controller object (the driver runs a copy of it, so one plan can run
+    again) and its chunks (kinds, parameters and files, in the row's chunk
+    order)."""
+
+    scheduler: Scheduler
+    chunks: tuple
+
+
 @dataclasses.dataclass
 class _Context:
     """One transfer context: the chunk columns its rows share."""
@@ -191,6 +202,9 @@ class ScenarioPlan:
     sc_order: np.ndarray
     open_n: np.ndarray
     visit_rank: np.ndarray
+    #: per row, a custom-scheduler row's :class:`CustomRow` (None for the
+    #: built-in kinds); None when no row has one
+    custom: Optional[List] = None
 
     @property
     def n_rows(self) -> int:
@@ -211,6 +225,7 @@ class ScenarioPlan:
             chunk_names=pick(self.chunk_names),
             fabrics=pick(self.fabrics),
             **{c: getattr(self, c)[idx] for c in ROW_COLUMNS},
+            custom=None if self.custom is None else pick(self.custom),
         )
 
     def cost_proxy(self) -> np.ndarray:
@@ -627,15 +642,27 @@ def build_plan(scenarios: Sequence) -> ScenarioPlan:
 def _scheduler_kind(scheduler) -> int:
     """Driver kind of a scheduler: the built-in classes by exact class, a
     class that acts only at t=0 (no ``on_tick`` / ``on_chunk_complete``
-    of its own) as trivial. Any other controller has no plan column."""
+    of its own) as trivial, any other class custom (a subclass of a
+    built-in class too)."""
     cls = type(scheduler)
     kind = _KIND_OF_CLASS.get(cls)
     if kind is not None:
         return kind
     if cls.on_tick is Scheduler.on_tick and cls.on_chunk_complete is Scheduler.on_chunk_complete:
         return _KIND_TRIVIAL
-    raise NotImplementedError(
-        f"field 'scheduler': custom controller {cls.__name__} has no plan column"
+    return _KIND_CUSTOM
+
+
+def _trivial_flags(scheduler, kind: int) -> tuple:
+    """``(trivial_tick, trivial_complete)``: which callbacks do nothing. A
+    custom class's flags follow its own methods (it keeps
+    ``Scheduler.on_tick`` / ``Scheduler.on_chunk_complete`` or not)."""
+    if kind != _KIND_CUSTOM:
+        return _TRIVIAL_OF[kind]
+    cls = type(scheduler)
+    return (
+        cls.on_tick is Scheduler.on_tick,
+        cls.on_chunk_complete is Scheduler.on_chunk_complete,
     )
 
 
@@ -654,11 +681,19 @@ def from_simulations(sims: Sequence, names: Optional[Sequence[str]] = None) -> S
     completion can start one more wave while earlier ones run), MC /
     ProMC ``max(maxCC, n_nonempty)``, the rest their concurrency sum.
 
+    A custom controller (any other class with a callback of its own, a
+    subclass of a built-in class too) becomes a row of kind -1
+    (``transition.KIND_CUSTOM``) whose trivial flags follow its class's
+    methods; it gets no t=0 layout (the driver applies its initial actions
+    on the host at start) and keeps its scheduler and chunks in the plan's
+    ``custom`` column; its ``cap_need`` (the concurrency sum) is only a
+    starting width, which the driver grows when a callback opens more.
+
     Raises ``ValueError`` for what the plan has no column for (a
-    ``max_time`` other than :data:`MAX_TIME`, a ProMC ``ratio`` or
-    ``patience`` other than :data:`PROMC_RATIO` / :data:`PROMC_PATIENCE`,
-    initial actions other than one ``Open`` a chunk) and
-    ``NotImplementedError`` for custom controllers."""
+    ``max_time`` other than :data:`MAX_TIME`; on a built-in ProMC row a
+    ``ratio`` or ``patience`` other than :data:`PROMC_RATIO` /
+    :data:`PROMC_PATIENCE`; on a built-in row initial actions other than
+    one ``Open`` a chunk)."""
     S = len(sims)
     names = [f"scenario{i}" for i in range(S)] if names is None else list(names)
     if len(names) != S:
@@ -688,10 +723,13 @@ def from_simulations(sims: Sequence, names: Optional[Sequence[str]] = None) -> S
     visit_rank = np.tile(np.arange(K, dtype=np.int64), (S, 1))
     sched_names: List[str] = []
     chunk_names: List[tuple] = []
+    trivial = np.zeros((S, 2), dtype=bool)
+    custom: List[Optional[CustomRow]] = [None] * S
 
     for i, (sim, name) in enumerate(zip(sims, names)):
         sched = sim.scheduler
         kd = _scheduler_kind(sched)
+        trivial[i] = _trivial_flags(sched, kd)
         if sim.max_time != MAX_TIME:
             raise ValueError(
                 f"{name}: field 'max_time' is {sim.max_time!r}; the plan holds {MAX_TIME}"
@@ -726,6 +764,12 @@ def from_simulations(sims: Sequence, names: Optional[Sequence[str]] = None) -> S
             fsdt[i, k] = file_start_dead_time(net, c.params)
         total_bytes[i] = float(sum(c.total_bytes for c in chunks))
         n_files[i] = int(qlen[i].sum())
+        waves = sorted((c.params.concurrency for c in chunks if len(c.files)), reverse=True)
+        if kd == _KIND_CUSTOM:
+            # no t=0 layout: the driver applies the initial actions
+            custom[i] = CustomRow(sched, tuple(chunks))
+            cap_need[i] = max(1, sum(waves))
+            continue
         if kd == _KIND_SC:
             ctypes = torch.tensor([int(c.ctype) for c in chunks], dtype=torch.int64)
             sc_order[i, :nk] = _np(sc_chunk_order(ctypes))
@@ -745,7 +789,6 @@ def from_simulations(sims: Sequence, names: Optional[Sequence[str]] = None) -> S
             open_n[i, act.chunk] = act.n
             opened.append(act.chunk)
         visit_rank[i, opened] = np.sort(base[opened])
-        waves = sorted((c.params.concurrency for c in chunks if len(c.files)), reverse=True)
         if kd == _KIND_SC:
             cap_need[i] = max(1, sum(waves[: 1 + nk - len(waves)]))
         elif kd in (_KIND_MC, _KIND_PROMC):
@@ -753,7 +796,6 @@ def from_simulations(sims: Sequence, names: Optional[Sequence[str]] = None) -> S
         else:
             cap_need[i] = max(1, sum(waves))
 
-    trivial = np.array([_TRIVIAL_OF[int(k)] for k in kind], dtype=bool).reshape(S, 2)
     return ScenarioPlan(
         K=K,
         networks=networks,
@@ -785,4 +827,5 @@ def from_simulations(sims: Sequence, names: Optional[Sequence[str]] = None) -> S
         sc_order=sc_order,
         open_n=open_n,
         visit_rank=visit_rank,
+        custom=custom if any(c is not None for c in custom) else None,
     )

@@ -24,6 +24,13 @@ more channels than the row has free columns (:func:`sc_short`), and a
 ProMC tick with a chunk's resume stack at its depth P
 (:func:`stack_full`). Their transition is left to a caller that can grow
 an axis.
+
+Rows of a custom scheduler (:data:`KIND_CUSTOM`: a Python controller
+class) get no built-in handler here. Their completions are marked only
+where the class keeps the no-op ``on_chunk_complete`` (``trivial_complete``),
+their tick runs the rate EMA, and their callbacks
+(:func:`custom_events` finds the rows a step calls) run on the host
+through the ``custom`` hooks of :func:`post_transition`.
 """
 from __future__ import annotations
 
@@ -34,14 +41,20 @@ from .shim import NO_CHUNK, TorchOps
 
 _EPS = 1e-12
 
-#: controller kinds (the plan's codes; plan rows carry no custom schedulers)
-KIND_TRIVIAL, KIND_STATIC, KIND_SC, KIND_MC, KIND_PROMC = 0, 1, 2, 3, 4
+#: controller kinds (the plan's codes): a custom scheduler (a Python
+#: controller class, driven through its callbacks on the host), a baseline
+#: that acts only at t=0, a static candidate, SC, MC and ProMC
+KIND_CUSTOM, KIND_TRIVIAL, KIND_STATIC, KIND_SC, KIND_MC, KIND_PROMC = -1, 0, 1, 2, 3, 4
 
 #: a row's stop code after a loop launch: not run, done, at the step cap,
 #: at a capacity guard (its transition left to the host), in error (past
-#: ``max_time``, or a stranded chunk), or stopped with its fabric group
-#: because another member erred or met a guard (the coupled loop)
-STOP_NONE, STOP_DONE, STOP_CAP, STOP_GUARD, STOP_ERROR, STOP_GROUP = 0, 1, 2, 3, 4, 5
+#: ``max_time``, or a stranded chunk), stopped with its fabric group
+#: because another member erred or met a guard (the coupled loop), or a
+#: custom-scheduler row at an event that calls its callbacks (its
+#: transition left to the host, which runs them)
+STOP_NONE, STOP_DONE, STOP_CAP, STOP_GUARD, STOP_ERROR, STOP_GROUP, STOP_CUSTOM = (
+    0, 1, 2, 3, 4, 5, 6
+)
 
 _FEED_OUT = ("busy", "dead", "rem", "qptr", "queue_bytes", "prepend_n")
 _CHANNELS = ("chunk_of", "busy", "dead", "rem", "cap")
@@ -67,6 +80,17 @@ def completions(s, act):
         act.unsqueeze(-1) & ~s["chunk_done"] & (files_left == 0) & (busy_per_chunk == 0)
     )
     return completed, act & (s["t"] >= s["next_tick"] - _EPS)
+
+
+def custom_events(s, completed, tick_hit):
+    """The (S,) custom-scheduler rows whose callbacks this step's events
+    call: a chunk completes and the class has its own
+    ``on_chunk_complete``, or the tick is due and it has its own
+    ``on_tick``."""
+    cust = s["kind"] == KIND_CUSTOM
+    return cust & (
+        (completed.any(dim=-1) & ~s["trivial_complete"]) | (tick_hit & ~s["trivial_tick"])
+    )
 
 
 def sc_short(s, completed, ks=None):
@@ -110,11 +134,13 @@ def transition_flags(s, completed, tick_hit):
     and grow axes: per chunk whether an SC row completed it (K); whether
     any row completed a chunk, any row ticks, any ProMC row ticks, a
     ProMC tick may fire a move (its streak one short of patience or
-    closer), and whether the stack guard fires; and per chunk the most
+    closer), and whether the stack guard fires; per chunk the most
     channels an MC or ProMC row that completed it holds (K): what its
     handler frees, since an earlier handler grants nothing to a completed
-    chunk, and a handler that frees nothing does nothing. :func:`hints`
-    turns the read into keyword arguments of :func:`post_transition`."""
+    chunk, and a handler that frees nothing does nothing; last, whether a
+    custom-scheduler row's callbacks run (:func:`custom_read`).
+    :func:`hints` turns the read into keyword arguments of
+    :func:`post_transition`."""
     kind = s["kind"]
     K = s["qptr"].shape[-1]
     chunk_of = s["chunk_of"]
@@ -129,6 +155,7 @@ def transition_flags(s, completed, tick_hit):
             stack_full(s, tick_hit).any(),
         ]).to(torch.int64),
         torch.where(completed & is_mc, held, 0).amax(dim=0),
+        custom_events(s, completed, tick_hit).any().to(torch.int64).unsqueeze(0),
     ])
 
 
@@ -150,6 +177,12 @@ def hints(flags, K: int) -> dict:
 def stack_guard_read(flags, K: int) -> bool:
     """Whether :func:`transition_flags`' read says the stack guard fires."""
     return bool(flags[K + 4])
+
+
+def custom_read(flags, K: int) -> bool:
+    """Whether :func:`transition_flags`' read says a custom-scheduler row's
+    callbacks run."""
+    return bool(flags[2 * K + 5])
 
 
 def _mark_complete(s, m) -> None:
@@ -251,11 +284,17 @@ def _promc_tick(s, rows, move: bool) -> None:
 def post_transition(
     s, act, completed, tick_hit, *, ks_sc=None, ks_mc=None, grant_iters=None,
     comp: bool = True, tick: bool = True, promc: bool = True, move: bool = True,
+    custom=None,
 ) -> None:
     """The transition of ``act`` rows after a step (``completed`` and
     ``tick_hit`` from :func:`completions` on the same state): completions
     -> handlers -> tick -> done. The rows' capacity guards must not fire
-    (callers grow the axes, or leave such rows out of ``act``)."""
+    (callers grow the axes, or leave such rows out of ``act``).
+    ``custom``, a pair of callables ``(complete, tick)`` taking no
+    argument, runs the custom-scheduler rows' callbacks in the reference's
+    order: ``complete`` after the built-in completion handlers, ``tick``
+    after the rate EMA and ProMC's tick (they may replace the state's
+    tensors); without it no custom row's callback runs."""
     K = s["qptr"].shape[-1]
     kind = s["kind"]
     comp_rows = completed.any(dim=-1)
@@ -291,6 +330,8 @@ def post_transition(
         if k in ks_mc and grant_iters[k] > 0:
             fed = fed | _mc_handler(s, ctrl[:, k] & is_mc, k, grant_iters[k])
         feed(s, fed)
+    if custom is not None and comp:
+        custom[0]()
     if tick:
         rows = tick_hit.unsqueeze(-1)
         ema = kernels.tick_ema(
@@ -301,6 +342,8 @@ def post_transition(
         s["delivered_at_tick"] = torch.where(rows, s["delivered"], s["delivered_at_tick"])
         if promc:
             _promc_tick(s, tick_hit & (kind == KIND_PROMC), move)
+        if custom is not None:
+            custom[1]()
         s["next_tick"] = s["next_tick"] + torch.where(tick_hit, s["tick_period"], 0.0)
     newly = act & s["chunk_done"].all(dim=-1) & (s["fin_any"] | comp_rows)
     s["finish_t"] = torch.where(newly, s["t"], s["finish_t"])

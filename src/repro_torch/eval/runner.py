@@ -234,7 +234,10 @@ def run_built(
     (by ``costs``, input order without); a chunk's Simulations are built
     only when it runs, then ingested with :func:`from_simulations`, so
     memory holds one chunk's queues. This is the primitive the autotuner's
-    rungs sweep through: their sketch file sets are not Scenarios."""
+    rungs sweep through: their sketch file sets are not Scenarios. A
+    custom scheduler (any controller class beside the built-in ones) runs
+    its callbacks on the host (``SweepStats.post_row_replays`` counts the
+    loop's stops for them)."""
     _check_backend(backend, device)
     if len(names) != len(builders):
         raise ValueError(f"{len(names)} names for {len(builders)} builders")
@@ -261,7 +264,9 @@ def run_simulations(
     stats: Optional[SweepStats] = None,
 ) -> List[SimResult]:
     """Run prebuilt, not yet started Simulations (sweeps that do not fit
-    the Scenario grid), in input order."""
+    the Scenario grid, or whose scheduler is a custom class), in input
+    order. The batched backend leaves the Simulations unstarted; the event
+    backend runs them."""
     if names is None:
         names = [f"scenario{i}" for i in range(len(sims))]
     return run_built(

@@ -289,6 +289,15 @@ def expand_candidates(scenarios: Sequence[Scenario], candidates) -> List[Scenari
     return out
 
 
+def timeline_matrix(seed: int = 0) -> List[Scenario]:
+    """The smoke cross-section with ``record_timeline=True`` (every
+    network, core dataset and scheduler appears; named as the reference's
+    grid, the smoke rows' names with the recording suffix): the grid on
+    which each route's timeline rings are held to the event leg's
+    samples."""
+    return [dataclasses.replace(sc, record_timeline=True) for sc in smoke_matrix(seed)]
+
+
 def tenant_matrix(
     seed: int = 0,
     n_groups: int = 36,

@@ -135,6 +135,28 @@ def test_coupled_loop_matches_its_plain_version_on_the_card(cuda, max_steps):
             assert torch.equal(s[name], v), name
 
 
+def test_custom_rows_on_the_loop_route_equal_their_cpu_run(cuda):
+    """The mixed batch of ``tests/test_torch_custom_rows.py`` (custom
+    schedulers on every other smoke row, their callbacks on the host) on the
+    ``"rounds"`` route: the loop kernel stops each custom row at its
+    callbacks and the card's results equal the CPU run's (the plain loop)
+    within 1e-9 relative throughput, moves and bytes exact."""
+    from test_torch_custom_rows import port_batch
+
+    from repro_torch.eval.fabric.plan import from_simulations
+
+    sims, names, _ = port_batch()
+    before = fs.fused_rounds.launches
+    card = TorchFabricSimulation(from_simulations(sims, names), device=cuda)
+    got = card.run()
+    assert fs.fused_rounds.launches > before
+    assert card.stats.post_row_replays > 0 and card.stats.host_transitions == 0
+    want = TorchFabricSimulation(from_simulations(sims, names), device="cpu").run()
+    for n, a, b in zip(names, got, want):
+        assert (a.n_moves, a.total_bytes) == (b.n_moves, b.total_bytes), n
+        assert abs(a.throughput - b.throughput) <= 1e-9 * b.throughput, n
+
+
 def test_coupled_loop_refuses_a_group_wider_than_a_block(cuda):
     """A fabric group of 9 rows raises before any launch."""
     import dataclasses

@@ -14,6 +14,9 @@ the ``"batch"`` backend.
 * ``run_built`` on the batched backend: any chunk size and cost order give
   the same results, bit for bit, and they match the event leg.
 * What the plan has no column for raises, naming the field.
+* A custom controller (a subclass of a built-in class with no method of
+  its own too) is a row of kind -1 with the reference's trivial flags and
+  no t=0 layout (``tests/test_torch_custom_rows.py`` runs such rows).
 """
 from __future__ import annotations
 
@@ -139,14 +142,72 @@ def _sim(cls, max_time=48 * 3600.0, **kw):
         (lambda: _sim(UntunedScheduler, max_time=3600.0), ValueError, "max_time"),
         (lambda: _sim(ProActiveMultiChunkScheduler, ratio=1.5), ValueError, "ratio"),
         (lambda: _sim(ProActiveMultiChunkScheduler, patience=1), ValueError, "patience"),
-        (lambda: _sim(_Custom), NotImplementedError, "scheduler"),
         (lambda: _sim(_Closer), ValueError, "initial action"),
     ],
-    ids=["max_time", "ratio", "patience", "custom", "close_at_start"],
+    ids=["max_time", "ratio", "patience", "close_at_start"],
 )
 def test_object_ingest_refuses_what_the_plan_cannot_hold(make, exc, field):
     with pytest.raises(exc, match=field):
         from_simulations([make()])
+
+
+def _tick_only(mod):
+    """A controller class over a schedulers module's ``Scheduler`` with its
+    own ``on_tick`` and no ``on_chunk_complete``."""
+    return type("TickOnly", (mod.Scheduler,), {
+        "name": "tick-only",
+        "initial_actions": lambda self, view: [mod.Open(chunk=0, n=2)],
+        "on_tick": lambda self, view: [],
+    })
+
+
+@pytest.mark.parametrize(
+    "base,kw",
+    [
+        ("SingleChunkScheduler", {}),
+        ("MultiChunkScheduler", {}),
+        ("ProActiveMultiChunkScheduler", {"ratio": 1.5, "patience": 1}),
+        ("Scheduler", {}),
+    ],
+    ids=["sc_subclass", "mc_subclass", "promc_subclass_own_ratio", "tick_only"],
+)
+def test_object_ingest_takes_custom_rows(base, kw):
+    """A custom controller (a subclass of a built-in class with no method
+    of its own too) is a row of kind -1 whose trivial flags follow its
+    class's methods as the reference's class checks take them, with no t=0
+    layout; the plan keeps its scheduler and chunks (a ProMC subclass its
+    own ratio and patience); a built-in row beside it keeps its layout."""
+    from repro.core import schedulers as ref_schedulers
+    from repro.core.simulator import Simulation as RefSimulation
+    from repro.core.types import Chunk as RefChunk
+    from repro.core.types import ChunkType as RefChunkType
+    from repro.core.types import FileSpec as RefFileSpec
+    from repro.eval.fabric.driver import _ScenarioRuntime, _scheduler_kind
+    from repro_torch.core import schedulers as port_schedulers
+
+    def make(mod):
+        if base == "Scheduler":
+            return _tick_only(mod)
+        return type("Custom", (getattr(mod, base),), {})
+
+    sims = [_sim(make(port_schedulers), **kw), _sim(MultiChunkScheduler)]
+    plan = from_simulations(sims, ["custom", "mc"])
+    ref_chunks = [RefChunk(ctype=RefChunkType.ALL, files=[RefFileSpec("a", 4 * MB)])]
+    from repro.core import testbeds as ref_testbeds
+
+    ref_sched = make(ref_schedulers)(ref_chunks, ref_testbeds.XSEDE, 4, **kw)
+    ref_rt = _ScenarioRuntime(0, "custom", RefSimulation(ref_sched.chunks, ref_testbeds.XSEDE,
+                                                         ref_sched))
+    assert plan.kind.tolist() == [_scheduler_kind(ref_sched), 3] == [-1, 3]
+    assert (bool(plan.trivial_tick[0]), bool(plan.trivial_complete[0])) == (
+        ref_rt.trivial_tick, ref_rt.trivial_complete)
+    assert plan.open_n[0].tolist() == [0] * plan.K
+    assert plan.open_n[1].sum() > 0
+    assert plan.custom[0].scheduler is sims[0].scheduler and plan.custom[1] is None
+    assert plan.custom[0].chunks == tuple(st.chunk for st in sims[0].states)
+    # the chunks' concurrency sum
+    assert plan.cap_need[0] == max(1, sum(st.chunk.params.concurrency for st in sims[0].states))
+    assert plan.take([1, 0]).custom[1] is plan.custom[0]
 
 
 def test_scenario_cost_proxy_equals_the_plans():
