@@ -115,10 +115,21 @@ Phases, each printing its own lines:
      leg's samples in order (rtol 1e-9, atol 1e-6; a row that counts more
      events than the event leg may leave that many zero-dt samples
      unmatched);
+  5f. the runner's chunk executor: the full grid on "rounds", the
+     full-grid oracle plane, successive halving on the full grid, the
+     tenant matrix and phase 5e's 42-row custom batch, each under
+     executor="serial" and "async" in turns (serial, async, async,
+     serial): wall seconds, the SweepStats counters (equal in every run),
+     the build / compute / download split, loop launches, and every
+     SimResult field (timelines included; a search's tables, traces and
+     entries) bit for bit the first run's; then the oracle plane profiled
+     under each mode (device idle share); every line beside the card's
+     name and power limit. Phases 4-5 run on the default mode ("async");
   6. profiled runs of the sweep: the default grid on the "rounds" and
      "kernel" routes, the full grid on "rounds", the tenant matrix on
      "rounds", the full-grid oracle plane and successive halving: device
-     busy and idle share, device operations per host round, plan ingest;
+     busy and idle share, device operations per host round, plan ingest,
+     the wall split;
   7. the serving path: rwkv6-3b at full width (32 layers, fp32 weights
      from a seeded generator) serves 8 prompts of 512 tokens and 32 new
      greedy tokens through ``train.serve_step.generate``, with the WKV
@@ -2037,6 +2048,10 @@ def sweep_paths(wf, fs, by_path):
     from repro_torch.eval.scenarios import default_matrix, full_matrix
 
     # ---- 4. the default grid on the three routes ----
+    from repro_torch.eval.fabric.executor import executor_mode
+
+    print(f"[default] phases 4-5 run on the runner's default executor: {executor_mode()}",
+          flush=True)
     golden = load_golden(str(GOLDEN))
     scs = default_matrix()
     default_res = {}
@@ -2152,11 +2167,13 @@ def sweep_paths(wf, fs, by_path):
     custom_phase(wf, fs, by_path, nvidia_smi_line())
     print(f"[custom] phase 5e in {time.perf_counter() - t0:.1f}s", flush=True)
 
-    # ---- 6. profiled sweeps ----
-    from torch.profiler import ProfilerActivity, profile
+    # ---- 5f. the chunk executor: serial against async ----
+    t0 = time.perf_counter()
+    executor_phase(full, fs, nvidia_smi_line())
+    print(f"[executor] phase 5f in {time.perf_counter() - t0:.1f}s", flush=True)
 
+    # ---- 6. profiled sweeps ----
     from repro_torch.eval import tune
-    from repro_torch.eval.fabric.driver import SweepStats
     from repro_torch.eval.scenarios import tenant_matrix
 
     def sweep(grid, route):
@@ -2171,32 +2188,120 @@ def sweep_paths(wf, fs, by_path):
         ("full-grid successive halving",
          lambda st: tune.successive_halving(full, device="cuda", stats=st)),
     ):
-        stp = SweepStats()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run(stp)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        avgs = _device_events(prof)
-        busy_s = sum(_self_device_us(e) for e in avgs) / 1e6
-        kern = {k: (sum(_self_device_us(e) for e in avgs if k in e.key) / 1e6,
-                    sum(e.count for e in avgs if k in e.key))
-                for k in ("fused_rounds_kernel", "fused_step_kernel",
-                          "fused_rounds_coupled_kernel")}
-        n_ops = sum(e.count for e in avgs)
-        if busy_s > 0:
-            print(f"[profile] {label}, under the profiler: wall {wall:.3f}s (plan ingest "
-                  f"{stp.ingest_s:.3f}s), "
-                  f"device busy {busy_s:.4f}s ({100 * busy_s / wall:.2f}%), idle "
-                  f"{100 * (1 - busy_s / wall):.2f}%, {n_ops} device operations in "
-                  f"{stp.sweeps} host rounds ({n_ops / stp.sweeps:.1f} a round); device "
-                  + ", ".join(f"{k} {t:.4f}s x{n}" + (f" ({t / n * 1e3:.4f} ms each)" if n else "")
-                              for k, (t, n) in kern.items())
-                  + f", other {busy_s - sum(t for t, _ in kern.values()):.4f}s", flush=True)
-        else:
-            print(f"[profile] {label}: wall {wall:.3f}s; device time not "
-                  "measured (the profiler recorded no device activity)", flush=True)
+        profile_sweep(label, run)
     return launches
+
+
+def profile_sweep(label, run):
+    """One sweep ``run(stats)`` under the profiler: wall, device busy and
+    idle share (the device rows' time summed; rows on two streams at once
+    count twice), device operations a host round, the sweep kernels' time,
+    the plan ingest and the wall split."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.eval.fabric.stats import SweepStats
+    from repro_torch.eval.runner import wall_breakdown
+
+    stp = SweepStats()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(stp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    avgs = _device_events(prof)
+    busy_s = sum(_self_device_us(e) for e in avgs) / 1e6
+    kern = {k: (sum(_self_device_us(e) for e in avgs if k in e.key) / 1e6,
+                sum(e.count for e in avgs if k in e.key))
+            for k in ("fused_rounds_kernel", "fused_step_kernel",
+                      "fused_rounds_coupled_kernel")}
+    n_ops = sum(e.count for e in avgs)
+    if busy_s > 0:
+        print(f"[profile] {label}, under the profiler: wall {wall:.3f}s (plan ingest "
+              f"{stp.ingest_s:.3f}s), "
+              f"device busy {busy_s:.4f}s ({100 * busy_s / wall:.2f}%), idle "
+              f"{100 * (1 - busy_s / wall):.2f}%, {n_ops} device operations in "
+              f"{stp.sweeps} host rounds ({n_ops / stp.sweeps:.1f} a round); device "
+              + ", ".join(f"{k} {t:.4f}s x{n}" + (f" ({t / n * 1e3:.4f} ms each)" if n else "")
+                          for k, (t, n) in kern.items())
+              + f", other {busy_s - sum(t for t, _ in kern.values()):.4f}s; "
+              + wall_breakdown(stp), flush=True)
+    else:
+        print(f"[profile] {label}: wall {wall:.3f}s; device time not "
+              "measured (the profiler recorded no device activity)", flush=True)
+
+
+def fingerprint(out) -> list:
+    """Every field of a run's results as exact text (``repr`` of a float
+    is exact): a list of SimResults, or a search's TuneResult."""
+    import dataclasses
+
+    if isinstance(out, list):
+        return [repr(dataclasses.asdict(r)) for r in out]
+    return [repr((out.evals, out.equivalent_evals, out.tables, out.trace, out.entries))]
+
+
+def executor_phase(full, fs, smi):
+    """Phase 5f: the runner's chunk executor. Each workload runs under
+    ``executor="serial"`` and ``"async"`` in turns (serial, async, async,
+    serial): wall seconds (host clock, ending in a synchronize), the
+    counters (equal in every run), the wall split, the loop kernels'
+    launches, and every result field against the first run, bit for bit.
+    Then the oracle plane profiled once under each mode."""
+    import torch
+
+    from repro_torch.eval import tune
+    from repro_torch.eval.fabric.stats import SweepStats
+    from repro_torch.eval.runner import run_matrix, run_simulations, wall_breakdown
+    from repro_torch.eval.scenarios import tenant_matrix
+
+    tenants = tenant_matrix()
+
+    def custom(mode, st):
+        sims, names, _ = custom_batch()
+        return run_simulations(sims, names, device="cuda", executor=mode, stats=st)
+
+    workloads = (
+        ("full grid, rounds",
+         lambda mode, st: run_matrix(full, device="cuda", executor=mode, stats=st)),
+        ("full-grid oracle plane",
+         lambda mode, st: tune.oracle_search(full, device="cuda", executor=mode, stats=st)),
+        ("full-grid successive halving",
+         lambda mode, st: tune.successive_halving(full, device="cuda", executor=mode, stats=st)),
+        ("tenant matrix, rounds",
+         lambda mode, st: run_matrix(tenants, device="cuda", executor=mode, stats=st)),
+        ("custom batch (42 rows), rounds", custom),
+    )
+    for label, run in workloads:
+        first, walls = None, {"serial": [], "async": []}
+        for mode in ("serial", "async", "async", "serial"):
+            st = SweepStats()
+            fs.fused_rounds.launches = fs.fused_rounds_coupled.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run(mode, st)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            walls[mode].append(secs)
+            got = (fingerprint(out), st.counters())
+            if first is None:
+                first = got
+            same = got[0] == first[0]
+            print(f"[executor] {label}, executor={mode}: {secs:.4f}s wall; counters "
+                  f"{st.counters()}; loop launches "
+                  f"{fs.fused_rounds.launches + fs.fused_rounds_coupled.launches}; "
+                  f"{wall_breakdown(st)}; results bit for bit the first run's: {same} | {smi}",
+                  flush=True)
+            fail_if(not same, f"executor, {label}: {mode} results differ from the first run's")
+            fail_if(got[1] != first[1], f"executor, {label}: {mode} counters differ")
+            fail_if(st.host_transitions != 0, f"executor, {label}: a capacity guard fired")
+        print(f"[executor] {label}: serial {min(walls['serial']):.4f}-{max(walls['serial']):.4f}s, "
+              f"async {min(walls['async']):.4f}-{max(walls['async']):.4f}s | {smi}", flush=True)
+    for mode in ("serial", "async"):
+        profile_sweep(f"full-grid oracle plane, executor={mode}",
+                      lambda st, mode=mode: tune.oracle_search(full, device="cuda", executor=mode,
+                                                               stats=st))
 
 
 def _ctx(key) -> str:

@@ -69,8 +69,9 @@ shared fabric.
 from __future__ import annotations
 
 import copy
-import dataclasses
 import math
+import time
+from contextlib import contextmanager
 from typing import List
 
 import numpy as np
@@ -92,6 +93,7 @@ from .plan import MAX_TIME, PLAN_C_FLOOR, PLAN_PROFILED_C_FLOOR, PROMC_PATIENCE,
 from .reference import resume_file
 from .shared import resolve_fabric
 from .shim import NO_CHUNK, TorchOps
+from .stats import SweepStats, wall_timer
 from .transition import KIND_CUSTOM, STOP_CUSTOM, STOP_GUARD, STOP_NONE
 
 _EPS = 1e-12
@@ -132,31 +134,6 @@ _RESULT_ARRAYS = (
     "finish_t", "n_events", "completed_at", "delivered", "n_moves", "tl_t",
     "tl_rate", "tl_len", "tl_stride", "tl_seen", "tl_last_t", "tl_last_rate",
 )
-
-
-@dataclasses.dataclass
-class SweepStats:
-    """What one driver did: host rounds (``sweeps``) by route, host reads
-    of device values (each one waits for the device), row steps taken on
-    the device (``steps``, the sum of the rows' event counts; on the
-    ``"rounds"`` route a round takes many), and rows whose loop stopped at
-    a capacity guard and left a step's transition to the host
-    (``host_transitions``; 0 wherever the plan's bounds size C and P),
-    and custom-scheduler rows whose loop stopped at a callback event and
-    left the step's transition to the host (``post_row_replays``, the
-    reference's name for the same count; 0 on the built-in grids). The
-    runner adds the host seconds it spent building the chunks' plans
-    (``ingest_s``: the columnar build, or the object ingest's Simulations
-    and columns)."""
-
-    sweeps: int = 0
-    fused: int = 0
-    split: int = 0
-    host_syncs: int = 0
-    steps: int = 0
-    host_transitions: int = 0
-    post_row_replays: int = 0
-    ingest_s: float = 0.0
 
 
 class _PlanRuntime:
@@ -249,13 +226,20 @@ class TorchFabricSimulation:
                 'fused_step="kernel" has no coupling: a plan with shared fabrics runs on '
                 '"rounds" or "none"'
             )
+        t0 = time.perf_counter()
         self.device = resolve_device(device)
         self.fused_step = fused_step
         self.waterfill_impl = waterfill_impl
         self.stats = SweepStats()
+        #: a lock the driver holds while it runs host work and gives up
+        #: while a device-to-host read waits (the async executor's host
+        #: turn); None outside the executor
+        self.host_turn = None
+        self._turn_wait_s = 0.0
         self._started = False
         self._init_from_plan(plan)
         self._set_fabric(plan)
+        self.stats.build_wall_s += time.perf_counter() - t0
 
     # ------------------------------------------------------------------ #
     # construction
@@ -415,10 +399,30 @@ class TorchFabricSimulation:
     # host reads
     # ------------------------------------------------------------------ #
 
+    @contextmanager
+    def _device_read(self):
+        """Around a device-to-host read: its seconds go to
+        ``stats.download_wall_s``, and the host turn, when the driver runs
+        under one, is given up while the read waits, so that another
+        chunk's host work runs then; the wait to take the turn back is
+        counted in no field."""
+        turn = self.host_turn
+        if turn is not None:
+            turn.release()
+        try:
+            with wall_timer(self.stats, "download_wall_s"):
+                yield
+        finally:
+            if turn is not None:
+                t0 = time.perf_counter()
+                turn.acquire()
+                self._turn_wait_s += time.perf_counter() - t0
+
     def _read(self, t: torch.Tensor) -> list:
         """One host read of a small device tensor (waits for the device)."""
         self.stats.host_syncs += 1
-        return t.tolist()
+        with self._device_read():
+            return t.tolist()
 
     # ------------------------------------------------------------------ #
     # capacity growth (the pre-sized axes make these rare)
@@ -679,7 +683,9 @@ class TorchFabricSimulation:
             getattr(self, name).index_select(0, idx).reshape(n, -1).to(torch.float64)
             for name in _HOST_C + _HOST_K + ("prepend_sizes",) + _HOST_S
         ]
-        flat = torch.cat(parts, dim=1).cpu().numpy()
+        flat = torch.cat(parts, dim=1)
+        with self._device_read():
+            flat = flat.cpu().numpy()
         self.stats.host_syncs += 1
         C, K, P = self.C, self.K, self.P
         hosts = []
@@ -933,9 +939,10 @@ class TorchFabricSimulation:
     def _download(self, rows=None) -> dict:
         """Result columns of ``rows`` (default: all) as numpy arrays."""
         out = {}
-        for name in _RESULT_ARRAYS:
-            t = getattr(self, name)
-            out[name] = (t if rows is None else t.index_select(0, rows)).cpu().numpy()
+        with self._device_read():
+            for name in _RESULT_ARRAYS:
+                t = getattr(self, name)
+                out[name] = (t if rows is None else t.index_select(0, rows)).cpu().numpy()
         self.stats.host_syncs += 1
         return out
 
@@ -959,6 +966,11 @@ class TorchFabricSimulation:
         self.S = len(survivors)
 
     def run(self) -> List[SimResult]:
+        """Every row to its end; results in row order. Its wall seconds less
+        its device-to-host reads (and its waits for the host turn) add to
+        ``stats.compute_wall_s``."""
+        t0 = time.perf_counter()
+        read0, turn0 = self.stats.download_wall_s, self._turn_wait_s
         all_rt = list(self.rt)
         self.start()
         while self.step():
@@ -967,7 +979,12 @@ class TorchFabricSimulation:
         for r in self.rt:
             r.archive = {k: v[r.index] for k, v in final.items()}
         self.stats.steps += sum(int(r.archive["n_events"]) for r in all_rt)
-        return [self._result(r) for r in all_rt]
+        out = [self._result(r) for r in all_rt]
+        self.stats.compute_wall_s += (
+            time.perf_counter() - t0 - (self.stats.download_wall_s - read0)
+            - (self._turn_wait_s - turn0)
+        )
+        return out
 
     @staticmethod
     def _result(r: _PlanRuntime) -> SimResult:

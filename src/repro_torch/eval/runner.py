@@ -19,7 +19,11 @@ proxy, so each chunk is cost-homogeneous and a long straggler does not
 pin the whole matrix's sweep width; results come back in input order.
 A fabric group is coupled only inside one chunk, so its rows leave the
 cost order and are packed whole into chunks of their own
-(:func:`_group_atomic_parts`).
+(:func:`_group_atomic_parts`). The chunks go through the executor
+(:mod:`.fabric.executor`, ``executor=`` / ``--executor``): by default the
+next chunk is built on the host while the card runs the current one;
+``"serial"`` is the plain loop. ``--verbose`` prints where the host's
+time went (:mod:`.fabric.stats`).
 Golden snapshots map scenario names to throughput, completion time,
 bytes and moves; the port compares against the same files as the
 reference implementation (``tests/golden/``)::
@@ -47,8 +51,10 @@ from repro_torch.core.simulator import SimResult, Simulation
 
 from .fabric.bucketing import chunk_spans
 from .fabric.coupled_event import run_event_coupled
-from .fabric.driver import SweepStats, TorchFabricSimulation
+from .fabric.driver import TorchFabricSimulation
+from .fabric.executor import EXECUTOR_MODES, execute_chunks
 from .fabric.plan import build_plan, from_simulations, plan_supported
+from .fabric.stats import SweepStats, record_wall
 from .scenarios import (
     Scenario,
     build_files,
@@ -66,6 +72,11 @@ CHUNK_SIZE = 1024
 MATRIX_NAMES = ("default", "smoke", "full", "tenant", "tenant-smoke")
 
 BACKENDS = ("batch", "event")
+
+#: prep threads of a columnar plan's chunks: ``plan.take`` is array work,
+#: safe to run in parallel (a builder's Simulation chain gets one thread);
+#: the executor starts at most one a card
+PLAN_PREP_WORKERS = 4
 
 
 def _check_backend(backend: str, device) -> None:
@@ -139,12 +150,15 @@ def _run_chunks(
     stats: Optional[SweepStats],
     chunk_size: int,
     fabrics: Optional[Sequence] = None,
+    executor: Optional[str] = None,
+    prep_workers: int = 1,
 ) -> List[SimResult]:
     """Rows ordered by ``costs`` (input order without), cut into spans of
     ``chunk_size``, the rows of fabric groups (``fabrics``, a per-row
     column) packed whole into parts of their own; each part's plan
-    (``make_plan(rows)``) runs as one driver, serially. Results in input
-    order."""
+    (``make_plan(rows)``, its seconds added to ``ingest_s``) runs as one
+    driver, through the executor (``executor``, ``prep_workers``
+    building chunks). Results in input order."""
     dev = resolve_device(device)
     order = list(range(n)) if costs is None else sorted(range(n), key=lambda i: costs[i])
     results: List[Optional[SimResult]] = [None] * n
@@ -152,17 +166,21 @@ def _run_chunks(
     if fabrics is not None and any(f is not None for f in fabrics):
         order, coupled = _group_atomic_parts(order, fabrics, chunk_size)
     parts = [order[lo:hi] for lo, hi in chunk_spans(len(order), chunk_size)] + coupled
-    for part in parts:
+
+    def make_chunk(part, slot):
+        t0 = time.perf_counter()
+        plan = make_plan(part)
+        ingest_s = time.perf_counter() - t0
         drv = TorchFabricSimulation(
-            make_plan(part), device=dev, fused_step=fused_step,
-            waterfill_impl=waterfill_impl,
+            plan, device=slot, fused_step=fused_step, waterfill_impl=waterfill_impl,
         )
-        for i, res in zip(part, drv.run()):
-            results[i] = res
-        if stats is not None:
-            for f in dataclasses.fields(SweepStats):
-                setattr(stats, f.name, getattr(stats, f.name) + getattr(drv.stats, f.name))
-    return results  # type: ignore[return-value]
+        drv.stats.ingest_s += ingest_s  # merged into ``stats`` with the run's counts
+        return drv
+
+    return execute_chunks(
+        parts, make_chunk, results, mode=executor, prep_workers=prep_workers, device=dev,
+        stats=stats,
+    )
 
 
 def run_plan(
@@ -172,13 +190,15 @@ def run_plan(
     waterfill_impl: str = "kernel",
     stats: Optional[SweepStats] = None,
     chunk_size: int = CHUNK_SIZE,
+    executor: Optional[str] = None,
 ) -> List[SimResult]:
-    """Run every row of ``plan``, serially chunk by chunk in cost order, on
-    ``device`` (default: the card). ``stats``, when given, accumulates
-    every chunk's sweep counts."""
+    """Run every row of ``plan``, chunk by chunk in cost order, on
+    ``device`` (default: the card), through the executor (``executor``;
+    up to :data:`PLAN_PREP_WORKERS` threads slice the chunks' plans). ``stats``,
+    when given, accumulates every chunk's sweep counts and seconds."""
     return _run_chunks(
         plan.n_rows, plan.cost_proxy(), plan.take, device, fused_step,
-        waterfill_impl, stats, chunk_size, plan.fabrics,
+        waterfill_impl, stats, chunk_size, plan.fabrics, executor, PLAN_PREP_WORKERS,
     )
 
 
@@ -190,12 +210,13 @@ def run_matrix(
     stats: Optional[SweepStats] = None,
     backend: str = "batch",
     chunk_size: int = CHUNK_SIZE,
+    executor: Optional[str] = None,
 ) -> List[SimResult]:
     """Run every scenario; results in input order. The batched backend
     runs the columnar plan on ``device`` (default: the card; it raises
-    without one); the event backend runs one event simulation a row on
-    the host and takes no device; it runs the rows of each shared-fabric
-    group in lockstep."""
+    without one) through the executor (``executor``); the event backend
+    runs one event simulation a row on the host and takes no device; it
+    runs the rows of each shared-fabric group in lockstep."""
     _check_backend(backend, device)
     if backend == "event":
         if any(sc.shared_fabric is not None for sc in scenarios):
@@ -206,11 +227,10 @@ def run_matrix(
         raise ValueError("every scenario needs a built-in algorithm")
     t0 = time.perf_counter()
     plan = build_plan(scenarios)
-    if stats is not None:
-        stats.ingest_s += time.perf_counter() - t0
+    record_wall(stats, "ingest_s", time.perf_counter() - t0)
     return run_plan(
         plan, device=dev, fused_step=fused_step, waterfill_impl=waterfill_impl,
-        stats=stats, chunk_size=chunk_size,
+        stats=stats, chunk_size=chunk_size, executor=executor,
     )
 
 
@@ -227,13 +247,16 @@ def run_built(
     device=None,
     chunk_size: int = CHUNK_SIZE,
     stats: Optional[SweepStats] = None,
+    executor: Optional[str] = None,
 ) -> List[SimResult]:
     """Run lazily built Simulations: ``builders[i]`` is a zero-argument
     callable returning a fresh one (schedulers are stateful). On the
     batched backend rows run in the order and spans of :func:`run_plan`
     (by ``costs``, input order without); a chunk's Simulations are built
-    only when it runs, then ingested with :func:`from_simulations`, so
-    memory holds one chunk's queues. This is the primitive the autotuner's
+    only when it is, then ingested with :func:`from_simulations`, so
+    memory holds a few chunks' queues (one prep thread builds them: the
+    builders' Simulation chains are not known to be thread-safe). This is
+    the primitive the autotuner's
     rungs sweep through: their sketch file sets are not Scenarios. A
     custom scheduler (any controller class beside the built-in ones) runs
     its callbacks on the host (``SweepStats.post_row_replays`` counts the
@@ -245,14 +268,11 @@ def run_built(
         return [b().run() for b in builders]
 
     def ingest(part):
-        t0 = time.perf_counter()
-        plan = from_simulations([builders[i]() for i in part], [names[i] for i in part])
-        if stats is not None:
-            stats.ingest_s += time.perf_counter() - t0
-        return plan
+        return from_simulations([builders[i]() for i in part], [names[i] for i in part])
 
     return _run_chunks(
-        len(builders), costs, ingest, device, "rounds", "kernel", stats, chunk_size
+        len(builders), costs, ingest, device, "rounds", "kernel", stats, chunk_size,
+        executor=executor,
     )
 
 
@@ -262,6 +282,7 @@ def run_simulations(
     backend: str = "batch",
     device=None,
     stats: Optional[SweepStats] = None,
+    executor: Optional[str] = None,
 ) -> List[SimResult]:
     """Run prebuilt, not yet started Simulations (sweeps that do not fit
     the Scenario grid, or whose scheduler is a custom class), in input
@@ -271,7 +292,7 @@ def run_simulations(
         names = [f"scenario{i}" for i in range(len(sims))]
     return run_built(
         [(lambda sim=sim: sim) for sim in sims], names, backend=backend,
-        device=device, stats=stats,
+        device=device, stats=stats, executor=executor,
     )
 
 
@@ -370,10 +391,11 @@ def run_tune(args, scenarios: Sequence[Scenario]) -> int:
     t0 = time.perf_counter()
     result = searchers[args.tune](
         scenarios, backend=args.backend, device=device,
-        n_candidates=args.candidates, history=history, stats=stats,
+        n_candidates=args.candidates, history=history, stats=stats, executor=args.executor,
     )
     search_s = time.perf_counter() - t0
-    heuristics = run_matrix(scenarios, device=device, backend=args.backend)
+    heuristics = run_matrix(scenarios, device=device, backend=args.backend,
+                            executor=args.executor)
     report = tune.regret_report(scenarios, heuristics, result)
     print(
         f"tune[{args.tune}]: {len(scenarios)} scenarios, {len(result.tables)} contexts, "
@@ -386,6 +408,8 @@ def run_tune(args, scenarios: Sequence[Scenario]) -> int:
         f"{stats.steps} row steps, {stats.host_syncs} host syncs, "
         f"{stats.host_transitions} host transitions"
     )
+    if args.verbose:
+        print(wall_breakdown(stats))
     print(f"regret = heuristic_throughput / {args.tune}_throughput:")
     print(report.format_table())
     if history is not None:
@@ -397,6 +421,18 @@ def run_tune(args, scenarios: Sequence[Scenario]) -> int:
     return 0
 
 
+def wall_breakdown(stats: SweepStats) -> str:
+    """The ``--verbose`` line: the host thread-seconds of the plan build
+    and of each chunk phase, with their shares (under the async executor
+    the phases overlap, so they may sum to more than the wall)."""
+    spans = {"ingest": stats.ingest_s, "build": stats.build_wall_s,
+             "compute": stats.compute_wall_s, "download": stats.download_wall_s}
+    total = max(sum(spans.values()), 1e-9)
+    return "wall breakdown (thread-seconds, phases overlap): " + " | ".join(
+        f"{k} {v:.3f}s ({100.0 * v / total:.1f}%)" for k, v in spans.items()
+    )
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     import argparse
 
@@ -404,6 +440,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--matrix", choices=MATRIX_NAMES, default="default")
     ap.add_argument("--backend", choices=BACKENDS, default="batch")
     ap.add_argument("--device", default="cuda", help="the batched backend's device")
+    ap.add_argument("--executor", choices=EXECUTOR_MODES, default=None,
+                    help="chunk execution: 'async' (the default: the next chunk is built "
+                    "while the device runs the current one) or 'serial' (the plain loop); "
+                    "also REPRO_FABRIC_EXECUTOR")
+    ap.add_argument("--verbose", action="store_true",
+                    help="print the host's wall split: plan ingest, chunk build, compute "
+                    "and device-to-host downloads")
     ap.add_argument("--out", default="tests/golden/eval_matrix.json")
     ap.add_argument("--refresh-golden", action="store_true",
                     help="write the snapshot to --out instead of comparing")
@@ -427,7 +470,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         return run_tune(args, scenarios)
     device = args.device if args.backend == "batch" else None
     stats = SweepStats()
-    results = run_matrix(scenarios, device=device, stats=stats, backend=args.backend)
+    results = run_matrix(scenarios, device=device, stats=stats, backend=args.backend,
+                         executor=args.executor)
+    if args.verbose:
+        print(wall_breakdown(stats))
     snap = metrics_snapshot(scenarios, results)
     if args.refresh_golden:
         save_golden(args.out, snap)

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import threading
 from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -148,29 +149,35 @@ class Scenario:
 FILES_CACHE_MAX_FILES = 1 << 20
 
 _files_cache: "OrderedDict[Tuple[str, int], tuple]" = OrderedDict()
+#: guards every lookup, insert and eviction of the cache: the executor's
+#: prep thread builds Simulations while another thread may read the same
+#: OrderedDict, and a move_to_end during a popitem corrupts it. Reentrant,
+#: so that a dataset builder that itself calls build_files cannot deadlock
+_files_cache_lock = threading.RLock()
 
 
 def _build_files_cached(dataset: str, dataset_seed: int) -> tuple:
     """LRU over built file sets, bounded by the files it holds. Entries are
     immutable tuples of frozen FileSpecs shared by every caller."""
     key = (dataset, dataset_seed)
-    entry = _files_cache.get(key)
-    if entry is not None:
-        _files_cache.move_to_end(key)
+    with _files_cache_lock:
+        entry = _files_cache.get(key)
+        if entry is not None:
+            _files_cache.move_to_end(key)
+            return entry
+        try:
+            builder = DATASET_BUILDERS[dataset]
+        except KeyError:
+            raise ValueError(
+                f"unknown dataset {dataset!r}; options: {sorted(DATASET_BUILDERS)}"
+            ) from None
+        entry = tuple(builder(dataset_seed))
+        held = sum(len(e) for e in _files_cache.values())
+        while _files_cache and held + len(entry) > FILES_CACHE_MAX_FILES:
+            _, old = _files_cache.popitem(last=False)
+            held -= len(old)
+        _files_cache[key] = entry
         return entry
-    try:
-        builder = DATASET_BUILDERS[dataset]
-    except KeyError:
-        raise ValueError(
-            f"unknown dataset {dataset!r}; options: {sorted(DATASET_BUILDERS)}"
-        ) from None
-    entry = tuple(builder(dataset_seed))
-    held = sum(len(e) for e in _files_cache.values())
-    while _files_cache and held + len(entry) > FILES_CACHE_MAX_FILES:
-        _, old = _files_cache.popitem(last=False)
-        held -= len(old)
-    _files_cache[key] = entry
-    return entry
 
 
 def build_files(scenario: Scenario) -> List[FileSpec]:

@@ -200,12 +200,14 @@ def oracle_search(
     history=None,
     chunk_size: int = CHUNK_SIZE,
     stats: Optional[SweepStats] = None,
+    executor: Optional[str] = None,
 ) -> TuneResult:
     """Exhaustive grid search, run as one batched sweep: per-context
     argmax over the whole candidate grid, the ground truth of the regret
     claims and the budget the cheaper searchers are measured against.
     ``device`` is the batched backend's (default: the card); ``stats``
-    accumulates the sweep's counts."""
+    accumulates the sweep's counts; ``executor`` is the runner's chunk
+    executor."""
     keys, reps, cands = candidate_lists(
         scenarios, n_candidates=n_candidates, space=space, history=history
     )
@@ -216,7 +218,8 @@ def oracle_search(
         spans.append((key, len(expanded), len(expanded) + len(rows)))
         expanded.extend(rows)
     results = run_matrix(
-        expanded, device=device, stats=stats, backend=backend, chunk_size=chunk_size
+        expanded, device=device, stats=stats, backend=backend, chunk_size=chunk_size,
+        executor=executor,
     )
     tables = {
         key: ContextTable(

@@ -108,9 +108,10 @@ def _evaluate(
     device,
     chunk_size: int,
     stats: Optional[SweepStats],
+    executor: Optional[str] = None,
 ) -> List[float]:
     """One batched sweep over (context, candidate, fraction) rows ->
-    throughputs, input order."""
+    throughputs, input order (``executor``: the runner's chunk executor)."""
     builders, names, costs = [], [], []
     for ctx, triple, fraction in rows:
         files = ctx.subset(fraction)
@@ -121,7 +122,7 @@ def _evaluate(
         costs.append(cost_estimate(ctx.network, files, triple[2], ctx.rep.tick_period))
     results = run_built(
         builders, names, costs, backend=backend, device=device,
-        chunk_size=chunk_size, stats=stats,
+        chunk_size=chunk_size, stats=stats, executor=executor,
     )
     return [r.throughput for r in results]
 
@@ -177,6 +178,7 @@ def successive_halving(
     history=None,
     chunk_size: int = CHUNK_SIZE,
     stats: Optional[SweepStats] = None,
+    executor: Optional[str] = None,
 ) -> TuneResult:
     """Budgeted grid search: shrink the candidate axis between sweeps."""
     if eta < 2:
@@ -215,7 +217,7 @@ def successive_halving(
                     continue
                 rows.append((ctx, cands[key][idx], fraction))
                 row_of.append((key, idx))
-        throughputs = _evaluate(rows, backend, device, chunk_size, stats)
+        throughputs = _evaluate(rows, backend, device, chunk_size, stats, executor)
         evals += len(rows)
         for (key, idx), thr in zip(row_of, throughputs):
             scores.setdefault(key, {})[idx] = thr
@@ -277,6 +279,7 @@ def hill_climb(
     history=None,
     chunk_size: int = CHUNK_SIZE,
     stats: Optional[SweepStats] = None,
+    executor: Optional[str] = None,
 ) -> TuneResult:
     """Coordinate descent on the log-spaced knob axes.
 
@@ -318,7 +321,7 @@ def hill_climb(
                     rows.append((contexts[key], _triple_of(sp, idx), 1.0))
                     row_of.append((key, idx))
         if rows:
-            throughputs = _evaluate(rows, backend, device, chunk_size, stats)
+            throughputs = _evaluate(rows, backend, device, chunk_size, stats, executor)
             evals += len(rows)
             for (key, idx), thr in zip(row_of, throughputs):
                 cache[key][idx] = thr

@@ -201,6 +201,62 @@ def test_smoke_matrix_on_the_card_matches_golden(cuda, fused):
     assert counters[fused].launches > before
 
 
+@pytest.mark.parametrize("grid", ["default", "tenant-smoke"])
+def test_async_executor_equals_serial_on_the_card(cuda, grid):
+    """The chunk executor's two modes on the card, bit for bit in every
+    SimResult field, with equal counters (chunks of 64 rows: several
+    chunks in flight)."""
+    import dataclasses
+
+    from repro_torch.eval.fabric.stats import SweepStats
+    from repro_torch.eval.runner import build_matrix
+
+    scs = build_matrix(grid)
+    out, stats = {}, {}
+    for mode in ("serial", "async"):
+        stats[mode] = SweepStats()
+        out[mode] = run_matrix(scs, device=cuda, chunk_size=64, executor=mode,
+                               stats=stats[mode])
+    same = [repr(dataclasses.asdict(a)) == repr(dataclasses.asdict(b))
+            for a, b in zip(out["serial"], out["async"])]
+    assert len(same) == len(scs) and all(same)
+    assert stats["serial"].counters() == stats["async"].counters()
+
+
+def test_async_executor_uploads_on_a_side_stream(cuda, monkeypatch):
+    """Under the async executor each chunk's uploads run on a prep
+    worker's side stream, never the default stream, and its driver runs on
+    a compute stream that is neither; the compute stream waits on the
+    chunk's event first."""
+    from repro_torch.eval.runner import run_matrix as run
+
+    up_streams, run_streams, waits = set(), set(), []
+    real_up, real_run = TorchFabricSimulation._up, TorchFabricSimulation.run
+    real_wait = torch.cuda.Stream.wait_event
+
+    def up(self, arr, dtype):
+        up_streams.add(torch.cuda.current_stream(self.device).cuda_stream)
+        return real_up(self, arr, dtype)
+
+    def run_(self):
+        run_streams.add(torch.cuda.current_stream(self.device).cuda_stream)
+        return real_run(self)
+
+    def wait_event(self, event):
+        waits.append(self.cuda_stream)
+        return real_wait(self, event)
+
+    monkeypatch.setattr(TorchFabricSimulation, "_up", up)
+    monkeypatch.setattr(TorchFabricSimulation, "run", run_)
+    monkeypatch.setattr(torch.cuda.Stream, "wait_event", wait_event)
+    out = run(smoke_matrix(), device=cuda, chunk_size=8, executor="async")
+    assert len(out) == 32
+    default = torch.cuda.default_stream(cuda).cuda_stream
+    assert up_streams and default not in up_streams
+    assert run_streams and default not in run_streams and not (run_streams & up_streams)
+    assert len(waits) == 4 and set(waits) == run_streams
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", [(1, 2, 64, 32), (2, 4, 128, 64), (1, 1, 96, 16),
                                   (2, 3, 1, 64), (3, 2, 97, 32)], ids=str)

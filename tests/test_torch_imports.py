@@ -45,6 +45,11 @@ SHARED_FABRIC_MODULES = (
     "repro_torch.eval.fabric.coupled_event",
     "repro_torch.eval.tune.contention",
 )
+#: modules the chunk-executor slice added
+EXECUTOR_MODULES = (
+    "repro_torch.eval.fabric.stats",
+    "repro_torch.eval.fabric.executor",
+)
 
 
 def _port_sources():
@@ -61,6 +66,7 @@ def test_port_imports_with_jax_and_reference_blocked():
     names = set(out.stdout.split())
     assert len(names) >= 20  # every module of the port imported
     assert set(SHARED_FABRIC_MODULES) <= names
+    assert set(EXECUTOR_MODULES) <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
