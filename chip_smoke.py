@@ -124,7 +124,9 @@ Phases, each printing its own lines:
      SimResult field (timelines included; a search's tables, traces and
      entries) bit for bit the first run's; then the oracle plane profiled
      under each mode (device idle share); every line beside the card's
-     name and power limit. Phases 4-5 run on the default mode ("async");
+     name and power limit. Phases 4-6 run on the default mode ("serial");
+     each line of phases 4, 5f and 6 gives the host seconds the garbage
+     collector ran (a host stall by collection shows there);
   6. profiled runs of the sweep: the default grid on the "rounds" and
      "kernel" routes, the full grid on "rounds", the tenant matrix on
      "rounds", the full-grid oracle plane and successive halving: device
@@ -179,6 +181,7 @@ only the port (src/repro_torch) and needs the repository around it.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -308,6 +311,25 @@ DENSE_CHECK_LAYERS, DENSE_CHECK_B, DENSE_CHECK_PROMPT = 6, 1, 640
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+class GcClock:
+    """Host seconds the cyclic garbage collector has run in this process
+    (``gc.callbacks``), to tell a host stall by collection from others."""
+
+    def __init__(self):
+        self.seconds = 0.0
+        self._t0 = None
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.seconds += time.perf_counter() - self._t0
+            self._t0 = None
+
+
+GC = GcClock()
 
 
 def fail_if(cond: bool, msg: str) -> None:
@@ -2043,7 +2065,7 @@ def sweep_paths(wf, fs, by_path):
     import torch
 
     from repro_torch.eval.runner import (
-        compare_golden, load_golden, metrics_snapshot, run_matrix,
+        compare_golden, load_golden, metrics_snapshot, run_matrix, wall_breakdown,
     )
     from repro_torch.eval.scenarios import default_matrix, full_matrix
 
@@ -2057,7 +2079,9 @@ def sweep_paths(wf, fs, by_path):
     default_res = {}
     for route, must in (("rounds", "fused_rounds"), ("kernel", "fused_step"),
                         ("none", "waterfill")):
+        gc0 = GC.seconds
         res, st, lc, secs = run_grid(scs, "cuda", route, wf, fs)
+        gc_s = GC.seconds - gc0
         default_res[route] = res
         devs = compare_golden(golden, metrics_snapshot(scs, res))
         path = f"default_{route}"
@@ -2067,7 +2091,8 @@ def sweep_paths(wf, fs, by_path):
               f"({len(scs) / secs:.1f} rows/s), {st.sweeps} host rounds ({st.fused} fused, "
               f"{st.split} split), {st.steps} device row steps, {st.host_syncs} host syncs, "
               f"{st.host_transitions} host transitions, {st.post_row_replays} post-row "
-              f"replays, launches {lc}, {len(devs)} golden deviations", flush=True)
+              f"replays, launches {lc}, {len(devs)} golden deviations; {wall_breakdown(st)}; "
+              f"gc {gc_s:.4f}s", flush=True)
         for d in devs[:10]:
             print(f"[default] DEVIATION {d.scenario} {d.field}: golden={d.golden} "
                   f"observed={d.observed}", flush=True)
@@ -2206,10 +2231,12 @@ def profile_sweep(label, run):
     stp = SweepStats()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        gc0 = GC.seconds
         t0 = time.perf_counter()
         run(stp)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        gc_s = GC.seconds - gc0
     avgs = _device_events(prof)
     busy_s = sum(_self_device_us(e) for e in avgs) / 1e6
     kern = {k: (sum(_self_device_us(e) for e in avgs if k in e.key) / 1e6,
@@ -2226,10 +2253,11 @@ def profile_sweep(label, run):
               + ", ".join(f"{k} {t:.4f}s x{n}" + (f" ({t / n * 1e3:.4f} ms each)" if n else "")
                           for k, (t, n) in kern.items())
               + f", other {busy_s - sum(t for t, _ in kern.values()):.4f}s; "
-              + wall_breakdown(stp), flush=True)
+              + wall_breakdown(stp) + f"; gc {gc_s:.4f}s", flush=True)
     else:
         print(f"[profile] {label}: wall {wall:.3f}s; device time not "
-              "measured (the profiler recorded no device activity)", flush=True)
+              f"measured (the profiler recorded no device activity); gc {gc_s:.4f}s",
+              flush=True)
 
 
 def fingerprint(out) -> list:
@@ -2279,10 +2307,12 @@ def executor_phase(full, fs, smi):
             st = SweepStats()
             fs.fused_rounds.launches = fs.fused_rounds_coupled.launches = 0
             torch.cuda.synchronize()
+            gc0 = GC.seconds
             t0 = time.perf_counter()
             out = run(mode, st)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
+            gc_s = GC.seconds - gc0
             walls[mode].append(secs)
             got = (fingerprint(out), st.counters())
             if first is None:
@@ -2291,7 +2321,8 @@ def executor_phase(full, fs, smi):
             print(f"[executor] {label}, executor={mode}: {secs:.4f}s wall; counters "
                   f"{st.counters()}; loop launches "
                   f"{fs.fused_rounds.launches + fs.fused_rounds_coupled.launches}; "
-                  f"{wall_breakdown(st)}; results bit for bit the first run's: {same} | {smi}",
+                  f"{wall_breakdown(st)}; gc {gc_s:.4f}s; results bit for bit the first "
+                  f"run's: {same} | {smi}",
                   flush=True)
             fail_if(not same, f"executor, {label}: {mode} results differ from the first run's")
             fail_if(got[1] != first[1], f"executor, {label}: {mode} counters differ")
@@ -2805,6 +2836,7 @@ def main(argv) -> int:
               file=sys.stderr)
         return 3
     sys.path.insert(0, str(SRC))
+    gc.callbacks.append(GC)
     from repro_torch import _cuda_build as _build
     from repro_torch.eval.fabric.kernels import fused_step as fs
     from repro_torch.eval.fabric.kernels import waterfill_bisect as wf

@@ -71,6 +71,7 @@ from __future__ import annotations
 import copy
 import math
 import time
+import weakref
 from contextlib import contextmanager
 from typing import List
 
@@ -231,10 +232,13 @@ class TorchFabricSimulation:
         self.fused_step = fused_step
         self.waterfill_impl = waterfill_impl
         self.stats = SweepStats()
-        #: a lock the driver holds while it runs host work and gives up
-        #: while a device-to-host read waits (the async executor's host
-        #: turn); None outside the executor
-        self.host_turn = None
+        #: weak references to every device tensor the construction made,
+        #: on the stream that was current then (:meth:`use_stream` hands
+        #: them to another; weak, so that a run still frees what it replaces)
+        self._built: List[weakref.ref] = []
+        #: the host turn ``run`` was given, and its seconds spent waiting
+        #: to take it back after a read
+        self._turn = None
         self._turn_wait_s = 0.0
         self._started = False
         self._init_from_plan(plan)
@@ -389,11 +393,34 @@ class TorchFabricSimulation:
         if self.coupled:
             self._fab = fabric_operands(fab.group_id, fab.member, fab.link_cap, self.device,
                                         names=plan.names)
+            layout = self._fab["layout"]
+            made = [v for v in self._fab.values() if isinstance(v, torch.Tensor)]
+            made += list(layout.values()) if isinstance(layout, dict) else []
+            self._built += [weakref.ref(t) for t in made]
 
     def _up(self, arr, dtype) -> torch.Tensor:
         """A new device tensor (never a view of the plan's arrays: the
         fused-rounds kernel updates state in place)."""
-        return torch.tensor(np.ascontiguousarray(arr), dtype=dtype, device=self.device)
+        t = torch.tensor(np.ascontiguousarray(arr), dtype=dtype, device=self.device)
+        self._built.append(weakref.ref(t))
+        return t
+
+    def use_stream(self, stream, ready=None) -> None:
+        """Hand the driver, built under another stream, to ``stream``, on
+        which the caller then runs it: ``stream`` waits for ``ready`` (an
+        event recorded once the build was queued), and every tensor the
+        build made is marked as used on ``stream``. The run frees them on
+        ``stream`` (compaction replaces them), and without the mark the
+        caching allocator would give their blocks back to the build's
+        stream, where the next chunk's uploads could write them before
+        ``stream``'s queued work has read them."""
+        if ready is not None:
+            stream.wait_event(ready)
+        for ref in self._built:
+            t = ref()
+            if t is not None:
+                t.record_stream(stream)
+        self._built = []
 
     # ------------------------------------------------------------------ #
     # host reads
@@ -402,11 +429,11 @@ class TorchFabricSimulation:
     @contextmanager
     def _device_read(self):
         """Around a device-to-host read: its seconds go to
-        ``stats.download_wall_s``, and the host turn, when the driver runs
-        under one, is given up while the read waits, so that another
+        ``stats.download_wall_s``, and the host turn, when ``run`` was
+        given one, is given up while the read waits, so that another
         chunk's host work runs then; the wait to take the turn back is
         counted in no field."""
-        turn = self.host_turn
+        turn = self._turn
         if turn is not None:
             turn.release()
         try:
@@ -965,21 +992,32 @@ class TorchFabricSimulation:
         self.rt = survivors
         self.S = len(survivors)
 
-    def run(self) -> List[SimResult]:
-        """Every row to its end; results in row order. Its wall seconds less
-        its device-to-host reads (and its waits for the host turn) add to
+    def run(self, turn=None) -> List[SimResult]:
+        """Every row to its end; results in row order. ``turn``, a lock
+        (the async executor's host turn), is held for the run and given up
+        while a device-to-host read waits. The run's wall seconds less its
+        reads (and its waits to take the turn back) add to
         ``stats.compute_wall_s``."""
         t0 = time.perf_counter()
         read0, turn0 = self.stats.download_wall_s, self._turn_wait_s
-        all_rt = list(self.rt)
-        self.start()
-        while self.step():
-            pass
-        final = self._download()
-        for r in self.rt:
-            r.archive = {k: v[r.index] for k, v in final.items()}
-        self.stats.steps += sum(int(r.archive["n_events"]) for r in all_rt)
-        out = [self._result(r) for r in all_rt]
+        if turn is not None:
+            turn.acquire()
+            self._turn_wait_s += time.perf_counter() - t0
+        self._turn = turn
+        try:
+            all_rt = list(self.rt)
+            self.start()
+            while self.step():
+                pass
+            final = self._download()
+            for r in self.rt:
+                r.archive = {k: v[r.index] for k, v in final.items()}
+            self.stats.steps += sum(int(r.archive["n_events"]) for r in all_rt)
+            out = [self._result(r) for r in all_rt]
+        finally:
+            self._turn = None
+            if turn is not None:
+                turn.release()
         self.stats.compute_wall_s += (
             time.perf_counter() - t0 - (self.stats.download_wall_s - read0)
             - (self._turn_wait_s - turn0)

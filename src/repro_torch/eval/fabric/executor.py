@@ -3,10 +3,10 @@
 A serial chunk loop builds a chunk's driver on the host (its plan, its
 host columns, their upload), runs it, reads its results back, and only
 then builds the next: the host waits while the card runs and the card
-idles while the host builds. :func:`execute_chunks` overlaps the two:
+idles while the host builds. :func:`execute_chunks` can overlap the two:
 
-* **prep workers** (at most one a device) claim chunk indices from a
-  shared cursor and build each chunk's driver; chunk ``j`` goes to device
+* **prep workers** (one a device slot) claim chunk indices from a shared
+  cursor and build each chunk's driver; chunk ``j`` goes to device
   ``j % n_devices``;
 * **one compute worker per device** drains that device's bounded queue,
   runs each driver and writes its results at the chunk's original row
@@ -20,31 +20,35 @@ idles while the host builds. :func:`execute_chunks` overlaps the two:
   running what is left, every thread is joined, and the exception is
   raised again in the caller. Nothing is run again serially.
 
-``mode="serial"`` (or ``REPRO_FABRIC_EXECUTOR=serial``) is the plain loop
-on the calling thread, the reference's switch for a plain call stack.
+``mode="serial"`` (the default, or ``REPRO_FABRIC_EXECUTOR=serial``) is
+the plain loop on the calling thread; so is ``"async"`` for at most one
+chunk, where there is nothing to overlap. The default is serial because
+the pipeline has shown no gain on an H100 (PERF.md): under the host turn
+below, all it can hide is a chunk's build under another chunk's device
+time, and the tuner's sweeps are host-bound.
 
 The threads take turns at the host (one lock, the host turn): a prep
-worker holds it while it builds a chunk, a compute worker while it runs a
-driver, except while the driver waits on a device-to-host read
-(``TorchFabricSimulation.host_turn``). The GIL lets one thread run Python
-at a time in any case, and a driver's step loop gives the GIL up at every
-torch call: beside a prep thread that runs Python freely, it waits a whole
-switch interval to get it back at each one, and the sweep ran slower than
-the serial loop. With the turn, the host's work stays as serial as the GIL
-makes it, and what overlaps is a chunk's build with the card's work on
-another. For the same reason a device takes one prep worker: a second
-would only wait for the first's turn.
+worker holds it while it builds a chunk, a driver's ``run(turn)`` while
+it runs, except while it waits on a device-to-host read. The GIL lets one
+thread run Python at a time in any case, and a driver's step loop gives
+the GIL up at every torch call: beside a prep thread that runs Python
+freely, it waits a whole switch interval to get it back at each one, and
+the sweep ran slower than the serial loop. With the turn, the host's work
+stays as serial as the GIL makes it, and builds never run at once, so a
+builder need not be thread-safe.
 
-CUDA streams are where the overlap lives. A prep worker builds its driver
-under a side stream of its own (one a device), so the uploads queue behind
-nothing the compute stream runs, and records an event once the driver is
-built; the compute worker makes its own stream wait on that event before
-the driver runs there (every kernel wrapper launches on the thread's
-current stream). The driver's tensors were allocated on the side stream
-and are used, and freed, on the compute stream: each is marked with
-``record_stream`` so that the caching allocator hands out none of their
-blocks to the side stream until the compute stream's work on them is done.
-On the CPU (``device="cpu"``) the executor touches no ``torch.cuda`` API.
+CUDA streams are where the overlap lives. Each device has one side
+stream and one compute stream, made at first use and kept for the
+process (new streams a call would leave the caching allocator's blocks
+cached against streams later calls do not use). A prep worker builds its
+driver under the side stream, so the uploads queue behind nothing the
+compute stream runs, and records an event once the driver is built; the
+compute worker hands the driver over with
+``TorchFabricSimulation.use_stream`` (the compute stream waits on the
+event, and the build's tensors are marked as used there) and runs it on
+the compute stream (every kernel wrapper launches on the thread's current
+stream). On the CPU (``device="cpu"``) the executor touches no
+``torch.cuda`` API.
 
 The reference also runs an AOT warm thread that compiles each chunk's XLA
 programs ahead of its run. That has no counterpart here: the port's CUDA
@@ -56,8 +60,7 @@ from __future__ import annotations
 import os
 import queue
 import threading
-from contextlib import nullcontext
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -70,11 +73,15 @@ EXECUTOR_MODES = ("serial", "async")
 #: one chunk running, one staged, one being built
 DEFAULT_QUEUE_DEPTH = 1
 
+#: each CUDA device's (side, compute) streams, made at first use
+_STREAMS: Dict[torch.device, Tuple] = {}
+_STREAMS_LOCK = threading.Lock()
+
 
 def executor_mode(override: Optional[str] = None) -> str:
     """The executor mode: an explicit ``override`` (a runner argument or
-    CLI flag) first, then ``REPRO_FABRIC_EXECUTOR``, then ``"async"``."""
-    mode = override or os.environ.get("REPRO_FABRIC_EXECUTOR") or "async"
+    CLI flag) first, then ``REPRO_FABRIC_EXECUTOR``, then ``"serial"``."""
+    mode = override or os.environ.get("REPRO_FABRIC_EXECUTOR") or "serial"
     if mode not in EXECUTOR_MODES:
         raise ValueError(f"unknown executor mode {mode!r}; options: {EXECUTOR_MODES}")
     return mode
@@ -94,18 +101,14 @@ def backend_devices(device: torch.device) -> List[torch.device]:
     return [device]
 
 
-def _tensors(value):
-    """The tensors in ``value``: itself, or inside its dicts, lists and
-    tuples (a driver's attributes hold its state tensors and the fabric
-    operands' dicts of them)."""
-    if isinstance(value, torch.Tensor):
-        yield value
-    elif isinstance(value, dict):
-        for v in value.values():
-            yield from _tensors(v)
-    elif isinstance(value, (list, tuple)):
-        for v in value:
-            yield from _tensors(v)
+def _streams(device: torch.device) -> Tuple:
+    """``device``'s (side, compute) streams, the same on every call."""
+    with _STREAMS_LOCK:
+        pair = _STREAMS.get(device)
+        if pair is None:
+            pair = _STREAMS[device] = (torch.cuda.Stream(device=device),
+                                       torch.cuda.Stream(device=device))
+        return pair
 
 
 def execute_chunks(
@@ -114,30 +117,27 @@ def execute_chunks(
     results: List,
     mode: Optional[str] = None,
     queue_depth: Optional[int] = None,
-    prep_workers: int = 1,
     device: Optional[torch.device] = None,
     stats: Optional[SweepStats] = None,
 ) -> List:
     """Run ``parts`` (lists of row indices): ``make_chunk(part, device)``
-    returns a ready driver for the rows of ``part`` (its ``run()`` gives
-    their results in order, its ``stats`` what it did); each result lands
-    at ``results[i]``, and each driver's stats are merged into ``stats``
-    under one lock. ``prep_workers`` (at most one a device slot) build
-    chunks in parallel: raise it only where ``make_chunk`` is thread-safe
-    (plan slicing is; a builder's Simulation chain is not known to be).
-    ``device`` (default the CPU) picks the slots chunks are dealt over
-    (:func:`backend_devices`)."""
+    returns a ready driver for the rows of ``part`` (its ``run()``, or
+    ``run(turn)`` in the pipeline, gives their results in order, its
+    ``stats`` what it did); each result
+    lands at ``results[i]``, and each driver's stats are merged into
+    ``stats`` under one lock. ``device`` (default the CPU) picks the slots
+    chunks are dealt over (:func:`backend_devices`)."""
     mode = executor_mode(mode)
     parts = [list(p) for p in parts]
     device = torch.device("cpu") if device is None else torch.device(device)
 
-    def run_one(part, drv) -> None:
-        out = drv.run()
+    def run_one(part, drv, turn=None) -> None:
+        out = drv.run() if turn is None else drv.run(turn)
         for i, res in zip(part, out):
             results[i] = res
         merge_stats(stats, drv.stats)
 
-    if mode == "serial" or not parts:
+    if mode == "serial" or len(parts) <= 1:
         for part in parts:
             run_one(part, make_chunk(part, device))
         return results
@@ -173,7 +173,6 @@ def execute_chunks(
 
     def prep() -> None:
         try:
-            side = {d: torch.cuda.Stream(device=d) for d in devices} if cuda else {}
             while not stop.is_set():
                 with cursor_lock:
                     j = cursor[0]
@@ -182,44 +181,40 @@ def execute_chunks(
                     cursor[0] = j + 1
                 slot = j % len(devices)
                 dev = devices[slot]
-                built = None
-                with turn, torch.cuda.stream(side[dev]) if cuda else nullcontext():
-                    drv = make_chunk(parts[j], dev)
+                ready = None
+                with turn:
                     if cuda:
-                        built = torch.cuda.Event()
-                        built.record()
-                put(queues[slot], (parts[j], drv, built))
+                        with torch.cuda.stream(_streams(dev)[0]):
+                            drv = make_chunk(parts[j], dev)
+                            ready = torch.cuda.Event()
+                            ready.record()
+                    else:
+                        drv = make_chunk(parts[j], dev)
+                put(queues[slot], (parts[j], drv, ready))
         except BaseException as exc:  # a chunk's build may raise anything
             fail(exc)
 
     def compute(slot: int) -> None:
         q = queues[slot]
-        stream = None
-        try:
-            if cuda:
-                stream = torch.cuda.Stream(device=devices[slot])
-        except BaseException as exc:
-            fail(exc)  # the loop below then drains the queue
         while True:
             item = q.get()
             if item is None:
                 return
             if stop.is_set():
                 continue  # drain, so that no prep worker waits on a full queue
-            part, drv, built = item
+            part, drv, ready = item
             try:
-                with turn, torch.cuda.stream(stream) if cuda else nullcontext():
-                    drv.host_turn = turn
-                    if cuda:
-                        stream.wait_event(built)
-                        for t in _tensors(vars(drv)):
-                            if t.is_cuda:
-                                t.record_stream(stream)
-                    run_one(part, drv)
+                if cuda:
+                    stream = _streams(devices[slot])[1]
+                    with torch.cuda.stream(stream):
+                        drv.use_stream(stream, ready)
+                        run_one(part, drv, turn)
+                else:
+                    run_one(part, drv, turn)
             except BaseException as exc:
                 fail(exc)
 
-    n_prep = max(1, min(prep_workers, len(devices), len(parts)))
+    n_prep = min(len(devices), len(parts))
     preps = [threading.Thread(target=prep, name=f"fabric-prep{p}") for p in range(n_prep)]
     workers = [threading.Thread(target=compute, args=(d,), name=f"fabric-dev{d}")
                for d in range(len(devices))]

@@ -20,10 +20,10 @@ pin the whole matrix's sweep width; results come back in input order.
 A fabric group is coupled only inside one chunk, so its rows leave the
 cost order and are packed whole into chunks of their own
 (:func:`_group_atomic_parts`). The chunks go through the executor
-(:mod:`.fabric.executor`, ``executor=`` / ``--executor``): by default the
-next chunk is built on the host while the card runs the current one;
-``"serial"`` is the plain loop. ``--verbose`` prints where the host's
-time went (:mod:`.fabric.stats`).
+(:mod:`.fabric.executor`, ``executor=`` / ``--executor``): ``"serial"``,
+the default, is the plain loop; ``"async"`` builds the next chunk on the
+host while the card runs the current one. ``--verbose`` prints where the
+host's time went (:mod:`.fabric.stats`).
 Golden snapshots map scenario names to throughput, completion time,
 bytes and moves; the port compares against the same files as the
 reference implementation (``tests/golden/``)::
@@ -72,12 +72,6 @@ CHUNK_SIZE = 1024
 MATRIX_NAMES = ("default", "smoke", "full", "tenant", "tenant-smoke")
 
 BACKENDS = ("batch", "event")
-
-#: prep threads of a columnar plan's chunks: ``plan.take`` is array work,
-#: safe to run in parallel (a builder's Simulation chain gets one thread);
-#: the executor starts at most one a card
-PLAN_PREP_WORKERS = 4
-
 
 def _check_backend(backend: str, device) -> None:
     if backend not in BACKENDS:
@@ -151,14 +145,13 @@ def _run_chunks(
     chunk_size: int,
     fabrics: Optional[Sequence] = None,
     executor: Optional[str] = None,
-    prep_workers: int = 1,
 ) -> List[SimResult]:
     """Rows ordered by ``costs`` (input order without), cut into spans of
     ``chunk_size``, the rows of fabric groups (``fabrics``, a per-row
     column) packed whole into parts of their own; each part's plan
     (``make_plan(rows)``, its seconds added to ``ingest_s``) runs as one
-    driver, through the executor (``executor``, ``prep_workers``
-    building chunks). Results in input order."""
+    driver, through the executor (``executor``). Results in input
+    order."""
     dev = resolve_device(device)
     order = list(range(n)) if costs is None else sorted(range(n), key=lambda i: costs[i])
     results: List[Optional[SimResult]] = [None] * n
@@ -178,8 +171,7 @@ def _run_chunks(
         return drv
 
     return execute_chunks(
-        parts, make_chunk, results, mode=executor, prep_workers=prep_workers, device=dev,
-        stats=stats,
+        parts, make_chunk, results, mode=executor, device=dev, stats=stats,
     )
 
 
@@ -193,12 +185,12 @@ def run_plan(
     executor: Optional[str] = None,
 ) -> List[SimResult]:
     """Run every row of ``plan``, chunk by chunk in cost order, on
-    ``device`` (default: the card), through the executor (``executor``;
-    up to :data:`PLAN_PREP_WORKERS` threads slice the chunks' plans). ``stats``,
-    when given, accumulates every chunk's sweep counts and seconds."""
+    ``device`` (default: the card), through the executor (``executor``).
+    ``stats``, when given, accumulates every chunk's sweep counts and
+    seconds."""
     return _run_chunks(
         plan.n_rows, plan.cost_proxy(), plan.take, device, fused_step,
-        waterfill_impl, stats, chunk_size, plan.fabrics, executor, PLAN_PREP_WORKERS,
+        waterfill_impl, stats, chunk_size, plan.fabrics, executor,
     )
 
 
@@ -254,9 +246,9 @@ def run_built(
     batched backend rows run in the order and spans of :func:`run_plan`
     (by ``costs``, input order without); a chunk's Simulations are built
     only when it is, then ingested with :func:`from_simulations`, so
-    memory holds a few chunks' queues (one prep thread builds them: the
-    builders' Simulation chains are not known to be thread-safe). This is
-    the primitive the autotuner's
+    memory holds a few chunks' queues (under the async executor the
+    builds take the host turn, so no two builders ever run at once). This
+    is the primitive the autotuner's
     rungs sweep through: their sketch file sets are not Scenarios. A
     custom scheduler (any controller class beside the built-in ones) runs
     its callbacks on the host (``SweepStats.post_row_replays`` counts the
@@ -441,9 +433,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--backend", choices=BACKENDS, default="batch")
     ap.add_argument("--device", default="cuda", help="the batched backend's device")
     ap.add_argument("--executor", choices=EXECUTOR_MODES, default=None,
-                    help="chunk execution: 'async' (the default: the next chunk is built "
-                    "while the device runs the current one) or 'serial' (the plain loop); "
-                    "also REPRO_FABRIC_EXECUTOR")
+                    help="chunk execution: 'serial' (the default: the plain loop) or 'async' "
+                    "(the next chunk is built while the device runs the current one); also "
+                    "REPRO_FABRIC_EXECUTOR")
     ap.add_argument("--verbose", action="store_true",
                     help="print the host's wall split: plan ingest, chunk build, compute "
                     "and device-to-host downloads")

@@ -227,7 +227,7 @@ def test_async_executor_uploads_on_a_side_stream(cuda, monkeypatch):
     """Under the async executor each chunk's uploads run on a prep
     worker's side stream, never the default stream, and its driver runs on
     a compute stream that is neither; the compute stream waits on the
-    chunk's event first."""
+    chunk's event first. Both streams are the same on every call."""
     from repro_torch.eval.runner import run_matrix as run
 
     up_streams, run_streams, waits = set(), set(), []
@@ -238,9 +238,9 @@ def test_async_executor_uploads_on_a_side_stream(cuda, monkeypatch):
         up_streams.add(torch.cuda.current_stream(self.device).cuda_stream)
         return real_up(self, arr, dtype)
 
-    def run_(self):
+    def run_(self, turn=None):
         run_streams.add(torch.cuda.current_stream(self.device).cuda_stream)
-        return real_run(self)
+        return real_run(self, turn)
 
     def wait_event(self, event):
         waits.append(self.cuda_stream)
@@ -249,12 +249,14 @@ def test_async_executor_uploads_on_a_side_stream(cuda, monkeypatch):
     monkeypatch.setattr(TorchFabricSimulation, "_up", up)
     monkeypatch.setattr(TorchFabricSimulation, "run", run_)
     monkeypatch.setattr(torch.cuda.Stream, "wait_event", wait_event)
-    out = run(smoke_matrix(), device=cuda, chunk_size=8, executor="async")
-    assert len(out) == 32
+    for _ in range(2):
+        out = run(smoke_matrix(), device=cuda, chunk_size=8, executor="async")
+        assert len(out) == 32
     default = torch.cuda.default_stream(cuda).cuda_stream
-    assert up_streams and default not in up_streams
-    assert run_streams and default not in run_streams and not (run_streams & up_streams)
-    assert len(waits) == 4 and set(waits) == run_streams
+    assert len(up_streams) == 1 and default not in up_streams
+    assert len(run_streams) == 1 and default not in run_streams
+    assert not (run_streams & up_streams)
+    assert len(waits) == 8 and set(waits) == run_streams
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

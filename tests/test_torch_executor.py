@@ -102,11 +102,11 @@ def _sha(mode, stats):
 
 def test_executor_mode_resolution(monkeypatch):
     monkeypatch.delenv("REPRO_FABRIC_EXECUTOR", raising=False)
-    assert executor_mode() == "async"
-    assert executor_mode("serial") == "serial"
-    monkeypatch.setenv("REPRO_FABRIC_EXECUTOR", "serial")
     assert executor_mode() == "serial"
-    assert executor_mode("async") == "async"  # the explicit argument wins
+    assert executor_mode("async") == "async"
+    monkeypatch.setenv("REPRO_FABRIC_EXECUTOR", "async")
+    assert executor_mode() == "async"
+    assert executor_mode("serial") == "serial"  # the explicit argument wins
     monkeypatch.setenv("REPRO_FABRIC_EXECUTOR", "bogus")
     with pytest.raises(ValueError, match="unknown executor mode"):
         executor_mode()
@@ -126,10 +126,8 @@ def test_backend_devices():
     assert executor_mod.backend_devices(torch.device("cuda", 1)) == [torch.device("cuda", 1)]
 
 
-def test_serial_mode_starts_no_thread(monkeypatch):
-    """``REPRO_FABRIC_EXECUTOR=serial`` is the plain loop on the calling
-    thread: no prep or compute thread starts."""
-    monkeypatch.setenv("REPRO_FABRIC_EXECUTOR", "serial")
+def _spy_threads(monkeypatch):
+    """Record the name of every thread started."""
     spawned = []
     orig = threading.Thread
 
@@ -139,9 +137,55 @@ def test_serial_mode_starts_no_thread(monkeypatch):
             super().__init__(*a, **kw)
 
     monkeypatch.setattr(threading, "Thread", SpyThread)
+    return spawned
+
+
+def test_serial_mode_starts_no_thread(monkeypatch):
+    """``REPRO_FABRIC_EXECUTOR=serial`` is the plain loop on the calling
+    thread: no prep or compute thread starts."""
+    monkeypatch.setenv("REPRO_FABRIC_EXECUTOR", "serial")
+    spawned = _spy_threads(monkeypatch)
     out = run_matrix(smoke_matrix()[:6], device="cpu", chunk_size=2)
     assert len(out) == 6 and all(r is not None for r in out)
     assert not any(n and n.startswith("fabric-") for n in spawned)
+
+
+def test_async_runs_one_chunk_on_the_calling_thread(monkeypatch):
+    """With one chunk there is nothing to overlap: ``"async"`` runs it as
+    the plain loop does, on the calling thread, and starts no thread; two
+    chunks start the pipeline."""
+    spawned = _spy_threads(monkeypatch)
+    threads = _spy_runs(monkeypatch)
+    scs = smoke_matrix()[:6]
+    one = run_matrix(scs, device="cpu", executor="async")
+    assert not spawned and threads == [threading.current_thread().name]
+    two = run_matrix(scs, device="cpu", chunk_size=3, executor="async")
+    assert {"fabric-prep0", "fabric-dev0"} <= set(spawned)
+    assert threads[1:] == ["fabric-dev0", "fabric-dev0"]
+    assert all(_same(a, b) for a, b in zip(one, two))
+
+
+def test_driver_lists_every_tensor_its_build_made():
+    """``use_stream`` marks the tensors the build made: every tensor a
+    freshly built driver holds (its state, the fabric operands and their
+    layout) is among them, so none is left unmarked."""
+    import torch
+
+    def held(value):
+        if isinstance(value, torch.Tensor):
+            yield value
+        elif isinstance(value, dict):
+            for v in value.values():
+                yield from held(v)
+        elif isinstance(value, (list, tuple)):
+            for v in value:
+                yield from held(v)
+
+    drv = TorchFabricSimulation(build_plan(tenant_matrix(n_groups=2)), device="cpu")
+    assert drv.coupled
+    built = {id(ref()) for ref in drv._built if ref() is not None}
+    tensors = list(held({k: v for k, v in vars(drv).items() if k != "_built"}))
+    assert len(tensors) > 60 and all(id(t) in built for t in tensors)
 
 
 # ------------------------------------------------------------------ #
@@ -213,9 +257,9 @@ def _spy_runs(monkeypatch):
     threads = []
     real = TorchFabricSimulation.run
 
-    def run(self):
+    def run(self, turn=None):
         threads.append(threading.current_thread().name)
-        return real(self)
+        return real(self, turn)
 
     monkeypatch.setattr(TorchFabricSimulation, "run", run)
     return threads
@@ -256,7 +300,7 @@ class _FakeDriver:
         self.j, self.dev, self.log = j, dev, log
         self.stats = SweepStats(steps=1)
 
-    def run(self):
+    def run(self, turn=None):
         self.log.append((self.j, self.dev.index, threading.current_thread().name))
         return [self.j]
 
@@ -270,7 +314,7 @@ def test_chunks_are_dealt_round_robin_over_four_slots(monkeypatch):
     results = [None] * 11
     stats = SweepStats()
     execute_chunks([[j] for j in range(11)], lambda part, dev: _FakeDriver(part[0], dev, log),
-                   results, mode="async", prep_workers=3, stats=stats)
+                   results, mode="async", stats=stats)
     assert results == list(range(11))
     assert sorted(log) == [(j, j % 4, f"fabric-dev{j % 4}") for j in range(11)]
     assert stats.steps == 11
