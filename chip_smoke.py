@@ -1565,10 +1565,12 @@ def live_round_state(scenarios, sweeps, widen=0):
     return {k: v.clone() for k, v in drv.round_operands(~drv.done).items()}
 
 
-def full_chunk():
-    """The full grid's first execution chunk as the runner cuts it (the
-    1,024 cheapest rows by the plan's cost proxy; it holds the
-    time-varying steppy-backbone rows)."""
+def full_chunks():
+    """The full grid's execution chunks as the runner cuts them: the 1,024
+    cheapest rows by the plan's cost proxy (they hold the time-varying
+    steppy-backbone rows), then the other 92 (they hold the longest rows,
+    lossy-transatlantic|uniform_huge|untuned, 14,834 steps)."""
+    from repro_torch.eval.fabric.bucketing import chunk_spans
     from repro_torch.eval.fabric.plan import build_plan
     from repro_torch.eval.runner import CHUNK_SIZE
     from repro_torch.eval.scenarios import full_matrix
@@ -1576,7 +1578,83 @@ def full_chunk():
     full = full_matrix()
     costs = build_plan(full).cost_proxy()
     order = sorted(range(len(full)), key=lambda i: costs[i])
-    return [full[i] for i in order[:CHUNK_SIZE]]
+    return [[full[i] for i in order[lo:hi]] for lo, hi in chunk_spans(len(full), CHUNK_SIZE)]
+
+
+def sm_clock_mhz():
+    """The card's SM clock and its maximum (MHz), as nvidia-smi reads them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return tuple(float(x) for x in out.stdout.strip().splitlines()[0].split(","))
+
+
+def sampled_sm_clock(fn, n):
+    """Run ``fn`` ``n`` times (then synchronize) while a thread samples the
+    SM clock through nvidia-smi; returns (the highest sample, the maximum
+    clock)."""
+    import threading
+
+    import torch
+
+    samples, stop = [], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            samples.append(sm_clock_mhz())
+
+    th = threading.Thread(target=poll)
+    th.start()
+    try:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        th.join()
+    samples.append(sm_clock_mhz())
+    return max(x for x, _ in samples), samples[-1][1]
+
+
+def probe_split(fs, cases):
+    """Phase 3, the loop kernel's step split by phase: on each ``(label,
+    operands, cap)`` case the probe build (fs.fused_rounds_probe) runs on
+    a copy beside the unprobed kernel on another, and its results must
+    equal the unprobed kernel's bit for bit; then, for the row of most
+    steps, its cycles a step by phase (fs.PROBE_PHASES), beside the SM
+    clock nvidia-smi samples while the probe runs and the clock its cycles
+    and the launch's device time give. Returns {label: row}."""
+    import torch
+
+    out = {}
+    for label, s0, cap in cases:
+        want = {k: v.clone() for k, v in s0.items()}
+        got = {k: v.clone() for k, v in s0.items()}
+        fs.fused_rounds(want, cap)
+        cycles = fs.fused_rounds_probe(got, cap)
+        torch.cuda.synchronize()
+        identical(got, list(want.values()), f"fused_rounds_probe {label}")
+        steps = want["steps"]
+        r = int(torch.argmax(steps))
+        n = int(steps[r])
+        per = (cycles[r].double() / max(n, 1)).tolist()
+        total = sum(per)
+        ms = device_ms(lambda: fs.fused_rounds_probe({k: v.clone() for k, v in s0.items()}, cap),
+                       3, "fused_rounds_kernel")
+        mhz, max_mhz = sampled_sm_clock(
+            lambda: fs.fused_rounds_probe({k: v.clone() for k, v in s0.items()}, cap), 5)
+        eff = int(cycles[r].sum()) / (ms * 1e3) if ms > 0 else float("nan")
+        row = {"steps": n, "cycles_a_step": dict(zip(fs.PROBE_PHASES, per)),
+               "sm_mhz": mhz, "max_mhz": max_mhz, "launch_ms": ms, "cycles_per_us": eff}
+        out[label] = row
+        split = ", ".join(f"{k} {v:.0f}" for k, v in row["cycles_a_step"].items())
+        print(f"[probe] fused_rounds {label}: longest row {r} ({n} steps): {total:.0f} cycles a "
+              f"step = {split} | probe launch {ms:.4f} ms, {eff:.0f} cycles/us from its cycles; "
+              f"nvidia-smi SM clock {mhz:.0f} MHz sampled (max {max_mhz:.0f}) -> "
+              f"{total / mhz:.3f} us a step at the sampled clock; bit for bit the unprobed "
+              "kernel", flush=True)
+    return out
 
 
 def round_events(s, out):
@@ -1767,7 +1845,7 @@ def live_custom_state(sweeps):
     return {k: v.clone() for k, v in drv.round_operands(~drv.done).items()}
 
 
-def rounds_checks(fs, default_state, chunk_state):
+def rounds_checks(fs, default_state, chunk_state, tail_state):
     """Phase 3, the loop kernel: against the plain whole loop on the card,
     on the live default-grid state at each cap of ROUND_CHECK_STEPS, on
     states pushed to each stop (done, both capacity guards, max_time,
@@ -1805,10 +1883,8 @@ def rounds_checks(fs, default_state, chunk_state):
         fs.fused_rounds(got, max_steps)
         torch.cuda.synchronize()
         fail_if(fs.fused_rounds.launches != before + 1, f"fused_rounds {label}: no launch")
-        worst = max(worst, compare([got[k] for k in want], list(want.values()),
-                                   f"fused_rounds {label}"))
-        if "custom" in must:  # custom rows: bit for bit
-            identical({k: got[k] for k in want}, list(want.values()), f"fused_rounds {label}")
+        worst = max(worst, identical({k: got[k] for k in want}, list(want.values()),
+                                     f"fused_rounds {label}"))
         ev = round_events(s0, want)
         for k, n in ev.items():
             seen[k] = seen.get(k, 0) + n
@@ -1822,8 +1898,20 @@ def rounds_checks(fs, default_state, chunk_state):
     missing = [k for k, n in seen.items() if n == 0]
     fail_if(bool(missing), f"fused_rounds: no check met {missing}")
 
-    # timing on the full-grid chunk at the main path's cap
-    s0, cap = chunk_state, fs.ROUND_CAP
+    # timing on the full-grid chunks at the main path's cap
+    rows = {label: rounds_timing(fs, s0, label, worst)
+            for label, s0 in (("chunk", chunk_state), ("chunk92", tail_state))}
+    return rows
+
+
+def rounds_timing(fs, s0, label, worst):
+    """The loop kernel on the operands ``s0`` at the main path's cap:
+    against its plain version, timed (device time a launch and a step of
+    the longest row, the plain version's time, the bound). Returns the
+    timing row."""
+    import torch
+
+    cap = fs.ROUND_CAP
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = fs.fused_rounds_plain(s0, cap)
@@ -1832,7 +1920,8 @@ def rounds_checks(fs, default_state, chunk_state):
     got = {k: v.clone() for k, v in s0.items()}
     fs.fused_rounds(got, cap)
     torch.cuda.synchronize()
-    err = compare([got[k] for k in want], list(want.values()), f"fused_rounds chunk, cap {cap}")
+    err = identical({k: got[k] for k in want}, list(want.values()),
+                    f"fused_rounds {label}, cap {cap}")
     rel = max(rel_err(got[k], want[k]) for k in want if want[k].dtype == torch.float64)
     steps = int(want["steps"].sum())
     longest = int(want["steps"].max())
@@ -1854,7 +1943,7 @@ def rounds_checks(fs, default_state, chunk_state):
         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None, "row_steps": steps, "longest": longest,
     }
-    print(f"[kernels] fused_rounds full-grid chunk S={S} C={C} cap {cap}: {steps} row steps, "
+    print(f"[kernels] fused_rounds full-grid {label} S={S} C={C} cap {cap}: {steps} row steps, "
           f"longest row {longest}; rows by stop and event {ev}; against the plain version: "
           f"worst relative {rel:.3g}, |error| {err:.3g}, bool / int64 equal | device {ms:.4f} ms "
           f"a launch, {ms / longest * 1e3:.3f} us a step of the longest row | plain "
@@ -2879,11 +2968,14 @@ def main(argv) -> int:
 
     # ---- 3. kernels against their plain versions ----
     rows = kernel_checks(wf, fs, None if quick else live_default_state())
-    chunk_state = live_round_state(full_chunk(), 8)
-    rows["fused_rounds"] = {"chunk": None}
+    chunks = full_chunks()
+    chunk_state = live_round_state(chunks[0], 8)
+    tail_state = live_round_state(chunks[1], 8)
     default_state = live_round_state(default_matrix(), 20)
-    rows["fused_rounds"]["chunk"] = rounds_checks(fs, default_state, chunk_state)
-    del chunk_state
+    rows["fused_rounds"] = rounds_checks(fs, default_state, chunk_state, tail_state)
+    probe_split(fs, [("92-row full-grid chunk, cap 2048", tail_state, fs.ROUND_CAP),
+                     ("1024-row full-grid chunk, cap 2048", chunk_state, fs.ROUND_CAP)])
+    del chunk_state, tail_state
     rows["rwkv6_scan"] = wkv_checks(wk, rwkv6_scan_ref)
     rows["rglru_scan"] = rglru_checks(rg, rglru_scan_ref)
     fa_rows = flash_checks(fa, flash_attention_ref)

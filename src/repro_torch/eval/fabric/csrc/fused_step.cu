@@ -292,17 +292,20 @@ __device__ __forceinline__ double row_load(const Channels<T>& c, const Link& lin
   return n_t > 0 ? fmin(link.bw, agg) : 0.0;
 }
 
-// A step's second part: the rates under `pool` (the water-fill) and their
-// sum, and the row's horizon dt (event_horizon; 0 when not enabled).
+// A step's water level: the level of the transferring caps under `pool`
+// (the water-fill).
 template <int T, int CW>
-__device__ __forceinline__ double row_rates(const Channels<T>& c, const bool (&tr)[T],
-                                            const double (&caps)[T], double total, double hi,
-                                            double pool, bool enabled, double tick_dt,
-                                            double (&rate)[T], double& rsum, double* col_f,
-                                            int lane) {
-  // ---- water-fill ----
-  const double level =
-      water_level<T, CW>(caps, hi, fmax(fmin(pool, total), 0.0), col_f, lane);
+__device__ __forceinline__ double row_level(const double (&caps)[T], double total, double hi,
+                                            double pool, double* col_f, int lane) {
+  return water_level<T, CW>(caps, hi, fmax(fmin(pool, total), 0.0), col_f, lane);
+}
+
+// A step's rates under `level` and their sum, and the row's horizon dt
+// (event_horizon; 0 when not enabled).
+template <int T>
+__device__ __forceinline__ double row_horizon(const Channels<T>& c, const bool (&tr)[T],
+                                              const double (&caps)[T], double level, bool enabled,
+                                              double tick_dt, double (&rate)[T], double& rsum) {
   double horizon = INFINITY;
   rsum = 0.0;
 #pragma unroll
@@ -321,16 +324,13 @@ __device__ __forceinline__ double row_rates(const Channels<T>& c, const bool (&t
   return enabled ? fmax(dt, 0.0) : 0.0;
 }
 
-// A step's last part: the channels advance by dt at `rate` and are fed in
-// place, `moved` gets each column's moved bytes, the chunk queues in `q`
-// advance.
-template <int T, int CW>
-__device__ __forceinline__ Step row_advance(Channels<T>& c, const bool (&tr)[T],
-                                            const double (&rate)[T], double dt, double rsum,
-                                            bool enabled, double (&moved)[T], const Queues& q,
-                                            const double* qsizes, long long Q, int K,
-                                            const WarpSmem& sm, int lane) {
-  // ---- advance_channels ----
+// A step's advance (advance_channels): the channels advance by dt at
+// `rate` in place, `moved` gets each column's moved bytes; returns whether
+// a file finished.
+template <int T>
+__device__ __forceinline__ bool row_move(Channels<T>& c, const bool (&tr)[T],
+                                         const double (&rate)[T], double dt, bool enabled,
+                                         double (&moved)[T]) {
   bool fin_any = false;
 #pragma unroll
   for (int t = 0; t < T; ++t) {
@@ -344,11 +344,7 @@ __device__ __forceinline__ Step row_advance(Channels<T>& c, const bool (&tr)[T],
     c.rem[t] = fin ? 0.0 : rem2;
     fin_any = fin_any || fin;
   }
-  fin_any = __any_sync(kFull, fin_any);
-
-  // ---- feed ----
-  feed_row<T, CW>(c, enabled, q, qsizes, Q, K, sm, lane);
-  return {dt, rsum, fin_any};
+  return __any_sync(kFull, fin_any);
 }
 
 // One step of a row: the channels in `c` advance and are fed in place,
@@ -362,9 +358,11 @@ __device__ __forceinline__ Step row_step(Channels<T>& c, double (&moved)[T], boo
   double caps[T], rate[T];
   double total, hi, rsum;
   const double pool = row_load<T>(c, link, tr, caps, total, hi);
-  const double dt =
-      row_rates<T, CW>(c, tr, caps, total, hi, pool, enabled, tick_dt, rate, rsum, sm.col_f, lane);
-  return row_advance<T, CW>(c, tr, rate, dt, rsum, enabled, moved, q, qsizes, Q, K, sm, lane);
+  const double level = row_level<T, CW>(caps, total, hi, pool, sm.col_f, lane);
+  const double dt = row_horizon<T>(c, tr, caps, level, enabled, tick_dt, rate, rsum);
+  const bool fin = row_move<T>(c, tr, rate, dt, enabled, moved);
+  feed_row<T, CW>(c, enabled, q, qsizes, Q, K, sm, lane);
+  return {dt, rsum, fin};
 }
 
 template <int T>
@@ -541,6 +539,7 @@ struct RoundArgs {
   // written
   long long* steps;
   long long* stop;
+  long long* cycles;  // the probe build's (S, kPhases) phase cycles, else unused
   long long S;
   long long Q;
   long long max_steps;
@@ -1282,7 +1281,43 @@ __device__ __forceinline__ bool row_transition(Channels<T>& c, bool comp_any, bo
   return false;
 }
 
-template <int T, int CW>
+// The loop's phases, in the order a step runs them: the probe build
+// (fused_rounds_probe_f64) adds each phase's SM cycles into its row of
+// RoundArgs::cycles.
+enum Phase {
+  kPhError, kPhProfile, kPhLoad, kPhLevel, kPhHorizon, kPhAdvance, kPhFeed, kPhAfter,
+  kPhTransition, kPhases
+};
+
+// The probe's clock: mark(p) adds the cycles since the last mark to phase
+// p. Every lane reads clock64() (warp-uniform control flow); lane 0's sums
+// are written. A mark sits after the phase's last instruction in program
+// order; a load still in flight there is waited for in the next phase.
+template <bool On>
+struct PhaseClock {
+  long long last = 0, acc[kPhases] = {};
+  __device__ __forceinline__ void start() { last = clock64(); }
+  __device__ __forceinline__ void mark(int p) {
+    const long long now = clock64();
+    acc[p] += now - last;
+    last = now;
+  }
+  __device__ __forceinline__ void store(long long* out, int lane) const {
+    if (lane == 0) {
+#pragma unroll
+      for (int p = 0; p < kPhases; ++p) out[p] = acc[p];
+    }
+  }
+};
+
+template <>
+struct PhaseClock<false> {
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void store(long long*, int) const {}
+};
+
+template <int T, int CW, bool Probe>
 __global__ void fused_rounds_kernel(RoundArgs a) {
   extern __shared__ __align__(8) unsigned char smem[];
   const int lane = threadIdx.x & 31;
@@ -1305,6 +1340,8 @@ __global__ void fused_rounds_kernel(RoundArgs a) {
   Link link{env.rc.bw, env.rc.disk_rate, env.rc.contention, env.rc.sat_cc};
   bool row_done = false;
   long long stop = 0;
+  PhaseClock<Probe> clk;
+  clk.start();
 
   for (;;) {
     // (0) the error test
@@ -1312,18 +1349,34 @@ __global__ void fused_rounds_kernel(RoundArgs a) {
       stop = kStopError;
       break;
     }
+    clk.mark(kPhError);
     // (a) the bandwidth profile at t
     const double next_prof = row_profile(env, st.t, link, lane);
-    // (b) one step: physics, then the feed with the resume stack
-    double moved[T];
-    const Step s = row_step<T, CW>(c, moved, true, fmin(st.next_tick - st.t, next_prof - st.t),
-                                   link, env.q, env.qsizes, env.Q, env.K, sm, lane);
+    clk.mark(kPhProfile);
+    // (b) one step: the rate pool, the water level, the rates and the
+    // horizon, the advance, then the feed with the resume stack
+    bool tr[T];
+    double caps[T], rate[T], moved[T];
+    double total, hi, rsum;
+    const double pool = row_load<T>(c, link, tr, caps, total, hi);
+    clk.mark(kPhLoad);
+    const double level = row_level<T, CW>(caps, total, hi, pool, sm.col_f, lane);
+    clk.mark(kPhLevel);
+    const double dt = row_horizon<T>(c, tr, caps, level, true,
+                                     fmin(st.next_tick - st.t, next_prof - st.t), rate, rsum);
+    clk.mark(kPhHorizon);
+    const bool fin = row_move<T>(c, tr, rate, dt, true, moved);
+    clk.mark(kPhAdvance);
+    feed_row<T, CW>(c, true, env.q, env.qsizes, env.Q, env.K, sm, lane);
+    clk.mark(kPhFeed);
     // (c)-(e) the timeline, the clock, the chunk totals and the guards
+    const Step s{dt, rsum, fin};
     bool comp_any, tick_hit;
     if (row_after_step<T, CW>(c, moved, s, env, st, ck, sm, comp_any, tick_hit, lane)) {
       stop = kStopGuard;
       break;
     }
+    clk.mark(kPhAfter);
     // a custom-scheduler row stops where an event calls its callbacks: its
     // transition runs on the host (transition.custom_events)
     if (env.rc.kind == kKindCustom &&
@@ -1342,9 +1395,11 @@ __global__ void fused_rounds_kernel(RoundArgs a) {
       break;
     }
     __syncwarp();
+    clk.mark(kPhTransition);
   }
   __syncwarp();
   store_row<T>(a, row, c, ck, st, row_done, stop, lane);
+  clk.store(a.cycles + row * kPhases, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -1539,9 +1594,10 @@ __global__ void __launch_bounds__(32 * kGroupRows) fused_rounds_coupled_kernel(R
     double rate[T];
     double rsum = 0.0, dt = 0.0;
     if (live) {
-      dt = row_rates<T, CW>(c, tr, caps, total, hi, has_links ? gs.grant[warp] : pool, true,
-                            fmin(st.next_tick - st.t, next_prof - st.t), rate, rsum, sm.col_f,
-                            lane);
+      const double level = row_level<T, CW>(caps, total, hi, has_links ? gs.grant[warp] : pool,
+                                            sm.col_f, lane);
+      dt = row_horizon<T>(c, tr, caps, level, true, fmin(st.next_tick - st.t, next_prof - st.t),
+                          rate, rsum);
     }
     if (lane == 0) gs.gdt[warp] = live ? dt : INFINITY;
     __syncthreads();
@@ -1552,8 +1608,10 @@ __global__ void __launch_bounds__(32 * kGroupRows) fused_rounds_coupled_kernel(R
     bool comp_any = false, tick_hit = false;
     if (live) {
       double moved[T];
-      const Step s = row_advance<T, CW>(c, tr, rate, fmin(dt, gdt), rsum, true, moved, env.q,
-                                        env.qsizes, env.Q, env.K, sm, lane);
+      const double dt_g = fmin(dt, gdt);
+      const bool fin = row_move<T>(c, tr, rate, dt_g, true, moved);
+      feed_row<T, CW>(c, true, env.q, env.qsizes, env.Q, env.K, sm, lane);
+      const Step s{dt_g, rsum, fin};
       guard = row_after_step<T, CW>(c, moved, s, env, st, ck, sm, comp_any, tick_hit, lane) ? 1
                                                                                            : 0;
     }
@@ -1612,7 +1670,12 @@ cudaError_t launch_step(const StepArgs& a, cudaStream_t stream) {
 
 template <int T, int CW>
 cudaError_t launch_rounds(const RoundArgs& a, cudaStream_t stream) {
-  return launch_rows(fused_rounds_kernel<T, CW>, a, round_warp_bytes(T, a.K), stream);
+  return launch_rows(fused_rounds_kernel<T, CW, false>, a, round_warp_bytes(T, a.K), stream);
+}
+
+template <int T, int CW>
+cudaError_t launch_probe(const RoundArgs& a, cudaStream_t stream) {
+  return launch_rows(fused_rounds_kernel<T, CW, true>, a, round_warp_bytes(T, a.K), stream);
 }
 
 // The kernel for C columns: one tile of CW = 4, 8, 16 or 32 columns (the
@@ -1713,6 +1776,27 @@ bool round_args(void* const* ptrs, RoundArgs& a) {
   return i == kRoundOperands;
 }
 
+// Fill `a` for a loop launch over S rows; false on a bad shape or operand
+// count.
+bool rounds_setup(void* const* ptrs, RoundArgs& a, long long S, long long C, long long K,
+                  long long B, long long Q, long long P, long long TL, long long max_steps) {
+  if (C <= 0 || K <= 0 || K > 1024 || B <= 0 || Q <= 0 || P <= 0 || TL <= 0 || max_steps < 1 ||
+      !round_args(ptrs, a)) {
+    return false;
+  }
+  a.cycles = nullptr;
+  a.S = S;
+  a.Q = Q;
+  a.max_steps = max_steps;
+  a.C = (int)C;
+  a.K = (int)K;
+  a.B = (int)B;
+  a.P = (int)P;
+  a.TL = (int)TL;
+  a.warps = 0;
+  return true;
+}
+
 }  // namespace
 
 // Pointers in the order of the Pallas kernel's operands and outputs; every
@@ -1773,23 +1857,32 @@ extern "C" int fused_rounds_f64(void* const* ptrs, long long S, long long C, lon
                                 long long B, long long Q, long long P, long long TL,
                                 long long max_steps, void* stream) {
   if (S <= 0) return (int)cudaSuccess;
-  if (C <= 0 || K <= 0 || K > 1024 || B <= 0 || Q <= 0 || P <= 0 || TL <= 0 ||
-      max_steps < 1) {
-    return (int)cudaErrorInvalidValue;
-  }
   RoundArgs a;
-  if (!round_args(ptrs, a)) return (int)cudaErrorInvalidValue;
-  a.S = S;
-  a.Q = Q;
-  a.max_steps = max_steps;
-  a.C = (int)C;
-  a.K = (int)K;
-  a.B = (int)B;
-  a.P = (int)P;
-  a.TL = (int)TL;
-  a.warps = 0;
+  if (!rounds_setup(ptrs, a, S, C, K, B, Q, P, TL, max_steps)) return (int)cudaErrorInvalidValue;
   FUSED_DISPATCH(launch_rounds, a, C, static_cast<cudaStream_t>(stream));
 }
+
+// The probe build of fused_rounds_f64 (rows of C <= 32): the same loop,
+// results bit for bit, and `cycles` (S, kPhases) int64 receives each row's
+// SM cycles by phase (enum Phase), summed over its steps in this launch.
+extern "C" int fused_rounds_probe_f64(void* const* ptrs, void* cycles, long long S, long long C,
+                                      long long K, long long B, long long Q, long long P,
+                                      long long TL, long long max_steps, void* stream) {
+  if (S <= 0) return (int)cudaSuccess;
+  RoundArgs a;
+  if (C > 32 || !rounds_setup(ptrs, a, S, C, K, B, Q, P, TL, max_steps)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  a.cycles = static_cast<long long*>(cycles);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C <= 4) return (int)launch_probe<1, 4>(a, st);
+  if (C <= 8) return (int)launch_probe<1, 8>(a, st);
+  if (C <= 16) return (int)launch_probe<1, 16>(a, st);
+  return (int)launch_probe<1, 32>(a, st);
+}
+
+// The number of phases the probe build splits a step into.
+extern "C" int fused_rounds_probe_phases() { return kPhases; }
 
 // `ptrs` as fused_rounds_f64's; `rows` (G, R) int64, `mask` (G, 4) int64
 // and `cap` (G, 4) float64 the fabric layout, one block a group (R <= 8
@@ -1802,20 +1895,9 @@ extern "C" int fused_rounds_coupled_f64(void* const* ptrs, const void* rows, con
                                         long long TL, long long G, long long R,
                                         long long max_steps, void* stream) {
   if (S <= 0 || G <= 0) return (int)cudaSuccess;
-  if (C <= 0 || C > 32 || K <= 0 || K > 1024 || B <= 0 || Q <= 0 || P <= 0 || TL <= 0 ||
-      R <= 0 || R > kGroupRows || max_steps < 1) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (C > 32 || R <= 0 || R > kGroupRows) return (int)cudaErrorInvalidValue;
   RoundArgs a;
-  if (!round_args(ptrs, a)) return (int)cudaErrorInvalidValue;
-  a.S = S;
-  a.Q = Q;
-  a.max_steps = max_steps;
-  a.C = (int)C;
-  a.K = (int)K;
-  a.B = (int)B;
-  a.P = (int)P;
-  a.TL = (int)TL;
+  if (!rounds_setup(ptrs, a, S, C, K, B, Q, P, TL, max_steps)) return (int)cudaErrorInvalidValue;
   a.warps = (int)R;
   CoupledArgs f;
   f.rows = static_cast<const long long*>(rows);

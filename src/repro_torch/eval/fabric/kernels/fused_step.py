@@ -122,7 +122,16 @@ _ARGTYPES = {
     + [ctypes.c_void_p],
     "fused_rounds_coupled_f64": [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 10
     + [ctypes.c_void_p],
+    "fused_rounds_probe_f64": [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 8
+    + [ctypes.c_void_p],
 }
+
+#: the phases of a loop step that :func:`fused_rounds_probe` times, in the
+#: order a step runs them (the kernel's ``enum Phase``)
+PROBE_PHASES = (
+    "error", "profile", "load", "level", "horizon", "advance", "feed", "after_step",
+    "transition",
+)
 
 #: the coupled loop kernel's limits: rows a fabric group (a block's warps),
 #: links a group (a lane of the group's solve per link and sorted position)
@@ -488,36 +497,75 @@ def fused_rounds(s, max_steps: int = ROUND_CAP):
         return s["steps"]
     if busy.device.type != "cuda":
         raise ValueError(f"unsupported device {busy.device}")
-    S, C = busy.shape
-    dims = {"S": S, "C": C, "K": s["qptr"].shape[1], "B": s["prof_t"].shape[1],
-            "Q": s["qsizes"].shape[0], "P": s["prepend_sizes"].shape[-1],
-            "T": s["tl_t"].shape[-1]}
-    if C > 1024 or dims["K"] > 1024 or dims["Q"] == 0:
-        raise ValueError(
-            f"the fused-rounds kernel takes C, K <= 1024 and Q > 0, got {C}, "
-            f"{dims['K']}, {dims['Q']}"
-        )
-    dev = busy.device
-    ptrs = (ctypes.c_void_p * len(ROUND_OPERANDS))(*(
-        _build.check(s[name], name, dtype, tuple(dims[a] for a in axes), dev)
-        for name, (dtype, axes) in ROUND_OPERANDS.items()
-    ))
-    if S == 0:
+    dims, ptrs = _round_pointers(s, 1024)
+    if dims["S"] == 0:
         return s["steps"]
-    fn = _entry("fused_rounds_f64")
-    with torch.cuda.device(dev):
-        err = fn(
-            ptrs, S, C, dims["K"], dims["B"], dims["Q"], dims["P"], dims["T"], max_steps,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"fused-rounds kernel launch failed: cudaError {err}")
+    _launch_rounds("fused_rounds_f64", ptrs, dims, max_steps, busy.device)
     fused_rounds.launches += 1
     return s["steps"]
 
 
 #: launches of the loop kernel in this process
 fused_rounds.launches = 0
+
+
+def _round_pointers(s, max_c):
+    """The loop operands' axes and the kernel's pointer array, each operand
+    checked on ``s["busy"]``'s device (C up to ``max_c``, K up to 1024)."""
+    busy = s["busy"]
+    dims = {"S": busy.shape[0], "C": busy.shape[1], "K": s["qptr"].shape[1],
+            "B": s["prof_t"].shape[1], "Q": s["qsizes"].shape[0],
+            "P": s["prepend_sizes"].shape[-1], "T": s["tl_t"].shape[-1]}
+    if dims["C"] > max_c or dims["K"] > 1024 or dims["Q"] == 0:
+        raise ValueError(
+            f"the fused-rounds kernel takes C <= {max_c}, K <= 1024 and Q > 0, got "
+            f"{dims['C']}, {dims['K']}, {dims['Q']}"
+        )
+    ptrs = (ctypes.c_void_p * len(ROUND_OPERANDS))(*(
+        _build.check(s[name], name, dtype, tuple(dims[a] for a in axes), busy.device)
+        for name, (dtype, axes) in ROUND_OPERANDS.items()
+    ))
+    return dims, ptrs
+
+
+def _launch_rounds(entry, ptrs, dims, max_steps, dev, *extra):
+    """Launch the loop entry point ``entry`` (``extra``: pointers after the
+    operand array) on ``dev``'s current stream; raises on a launch error."""
+    with torch.cuda.device(dev):
+        err = _entry(entry)(
+            ptrs, *extra, dims["S"], dims["C"], dims["K"], dims["B"], dims["Q"], dims["P"],
+            dims["T"], max_steps, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+
+
+def fused_rounds_probe(s, max_steps: int = ROUND_CAP):
+    """The probe build of the loop kernel on the CUDA operands ``s``: the
+    launch of :func:`fused_rounds` (``s`` updated in place, bit for bit
+    the same), and each row's SM cycles by phase of its steps
+    (:data:`PROBE_PHASES`), summed over the launch, as a new (S, phases)
+    int64 tensor (0 on inactive rows). The cycles are read from
+    ``clock64()`` at the phase boundaries by each row's warp. Rows of
+    C <= 32 columns; the probe has no plain version and raises for CPU
+    tensors. Not on any path of the sweep: ``chip_smoke.py`` calls it to
+    split the step."""
+    if max_steps < 1:
+        raise ValueError(f"max_steps must be at least 1, got {max_steps}")
+    busy = s["busy"]
+    if busy.device.type != "cuda":
+        raise ValueError(f"the loop kernel's probe runs on the card only, not on {busy.device}")
+    dims, ptrs = _round_pointers(s, 32)
+    cycles = torch.zeros((dims["S"], len(PROBE_PHASES)), dtype=torch.int64, device=busy.device)
+    if dims["S"]:
+        _launch_rounds("fused_rounds_probe_f64", ptrs, dims, max_steps, busy.device,
+                       cycles.data_ptr())
+        fused_rounds_probe.launches += 1
+    return cycles
+
+
+#: launches of the loop kernel's probe build in this process
+fused_rounds_probe.launches = 0
 
 
 def fused_rounds_coupled(s, fab, max_steps: int = ROUND_CAP):
