@@ -96,6 +96,15 @@ __device__ __forceinline__ double warp_min(double v) {
   return v;
 }
 
+// n / d, bit for bit: a zero n over a positive d is n itself (+-0 / d >
+// 0 is +-0). The division's fast path refuses a zero or tiny dividend and
+// calls its slow routine, which the loop would otherwise take at every
+// tick for each chunk that delivered nothing.
+__device__ __forceinline__ double quot(double n, double d) {
+  if (n == 0.0 && d > 0.0) return n;
+  return n / d;
+}
+
 __device__ __forceinline__ long long warp_sum_ll(long long v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
@@ -136,7 +145,10 @@ struct Link {
 
 // A warp's shared working memory: per column of the padded row (T * 32)
 // and per chunk.
+struct CacheSmem;
+
 struct WarpSmem {
+  CacheSmem* cache;  // the row's cached step values (RowCache)
   double* col_f;  // caps for the descent; fed file sizes; moved bytes; staging
   double* col_g;  // staging of a compaction (the loop only)
   double* col_h;  // staging of a compaction (the loop only)
@@ -151,10 +163,73 @@ struct Step {
   bool fin;
 };
 
+// What a row's steps keep from one step to the next for a launch (it
+// starts empty at each). Each cached value is a pure function of inputs it
+// is kept with, and is taken again only when those inputs are bit for bit
+// the same, so a step's results do not depend on it:
+//   * the water level is a function of the transferring caps (their total
+//     and largest are theirs) and pool_eff: a step whose caps and pool_eff
+//     are the last ones' takes the last level and rate sum (rates are
+//     min(cap, level)) without the descent (`reuses` counts these steps);
+//   * the disk aggregate of disk_pool is a function of n_t;
+//   * the bandwidth profile's multiplier and next step stay those of the
+//     last lookup while t (which never decreases) is below that next step.
+// The caps stay in registers (a lane its columns'); the warp-uniform values
+// live in the warp's shared memory, where every lane writes the same value
+// and reads back its own write: registers are scarce around the 32-column
+// descent.
+struct CacheSmem {
+  double total, hi;                 // the cached caps' sum and largest
+  double pool_eff, level, rsum;     // the level they give, its rate sum
+  double agg;                       // the disk aggregate at n_t
+  double prof_bw, prof_next;        // the profile's bandwidth until prof_next
+  long long n_t;
+};
+constexpr size_t kCacheBytes = sizeof(CacheSmem);
+
+template <int T>
+struct RowCache {
+  CacheSmem* sh;
+  double caps[T] = {};   // the last step's transferring caps (per lane)
+  long long reuses = 0;
+  bool valid = false;    // the level belongs to caps
+  bool same = false;     // this step's caps are caps (row_load)
+  bool hit = false;      // this step took the cached level (row_level)
+  bool prof = false;     // prof_bw and prof_next hold a lookup
+  __device__ explicit RowCache(CacheSmem* s) : sh(s) {
+    if (s != nullptr) s->n_t = -1;  // no aggregate yet
+  }
+};
+
+__device__ __forceinline__ long long bits(double x) { return __double_as_longlong(x); }
+
 // Columns a per-chunk loop walks: the padded tile of a one-tile row (CW),
 // else every padded column. Padding columns hold chunk -1.
 template <int T, int CW>
 constexpr int kLoopCols = CW > 0 ? CW : 32 * T;
+
+// Visits the columns of the ballot `m` of a tile (the same mask on every
+// lane) in column order: f(src) on every lane for each set lane src, which
+// shuffles what it needs from that column's lane. The trip count is
+// popc(m) on every lane, so the shuffles inside run converged.
+template <typename F>
+__device__ __forceinline__ void each_column(unsigned m, F f) {
+  for (; m != 0u; m &= m - 1u) f(__ffs(m) - 1);
+}
+
+// The least of the lanes' x (warp_min's value, bit for bit, when no x is
+// negative, -0 or NaN): the unsigned order of the bits of doubles in
+// [+0, +inf] is their numeric order, so two 32-bit reductions give the
+// least bits (the high words', then the low words' among lanes of that
+// high word). Any other x takes warp_min.
+__device__ __forceinline__ double warp_min_nonneg(double x) {
+  const long long b = bits(x);
+  if (__any_sync(kFull, b < 0 || x != x)) return warp_min(x);
+  const unsigned hi = (unsigned)((unsigned long long)b >> 32), lo = (unsigned)b;
+  const unsigned hmin = __reduce_min_sync(kFull, hi);
+  const unsigned lmin = __reduce_min_sync(kFull, hi == hmin ? lo : 0xffffffffu);
+  return __longlong_as_double((long long)(((unsigned long long)hmin << 32) | lmin));
+}
 
 // The water level of `caps` for `pool_eff`: kIters halvings of [0, hi],
 // keeping sum(min(caps, hi)) >= pool_eff; the level is the last hi. With
@@ -197,115 +272,185 @@ __device__ __forceinline__ double water_level(const double (&caps)[T], double hi
 // resume file at stack depth pn - 1 - r, later ranks the queued file at
 // qptr + r - pn while that is < qlen. Each pays the chunk's per-file dead
 // time; qptr, pn and queue_bytes advance per chunk.
-template <int T, int CW>
+template <int T>
 __device__ __forceinline__ void feed_row(Channels<T>& c, bool enabled, const Queues& q,
                                          const double* qsizes, long long Q, int K,
                                          const WarpSmem& sm, int lane) {
-  for (int k = lane; k < K; k += 32) sm.base[k] = 0;
-  __syncwarp();
-  const unsigned lt = (1u << lane) - 1u;
+  // A column can take a file when it is idle, open and enabled and its
+  // chunk holds a resume file or a queued one. Where none can, no column is
+  // valid below: busy and rem keep their values, dead adds 0.0, and each
+  // chunk's qptr + 0 and pn - 0 are qptr and pn and qb - 0.0 is qb bit for
+  // bit (x - (+0) = x for every x, -0 included), so the feed is skipped.
+  bool idle[T], can = false;
 #pragma unroll
   for (int t = 0; t < T; ++t) {
-    const int col = t * 32 + lane;
     // a column outside the chunk table has no queue to feed from
     const int k = c.ch[t];
-    const bool idle = k >= 0 && k < K && !c.busy[t] && enabled;
-    const int key = idle ? k : -2 - lane;  // non-idle lanes match none
-    const unsigned grp = __match_any_sync(kFull, key);
-    const int rank = idle ? sm.base[k] + __popc(grp & lt) : -1;
+    idle[t] = k >= 0 && k < K && !c.busy[t] && enabled;
+    if (idle[t]) can = can || (q.pn != nullptr && q.pn[k] > 0) || q.qptr[k] < q.qlen[k];
+  }
+  if (!__any_sync(kFull, can)) {
+#pragma unroll
+    for (int t = 0; t < T; ++t) c.dead[t] = c.dead[t] + 0.0;
+    for (int k = lane; k < K; k += 32) {  // the one-step kernel writes new tensors
+      if (q.qptr_out != q.qptr) q.qptr_out[k] = q.qptr[k];
+      if (q.qb_out != q.qb) q.qb_out[k] = q.qb[k];
+    }
+    return;
+  }
+  if constexpr (T > 1) {
+    for (int k = lane; k < K; k += 32) sm.base[k] = 0;
     __syncwarp();
-    if (idle && (grp & lt) == 0) sm.base[k] += __popc(grp);
-    __syncwarp();
+  }
+  const unsigned lt = (1u << lane) - 1u;
+  int key_q[T], key_p[T];  // the chunk a column fed from its queue / stack, else -1
+  double sz[T];
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+    const int k = c.ch[t];
+    const unsigned grp = __match_any_sync(kFull, idle[t] ? k : -2 - lane);  // non-idle match none
+    int rank = idle[t] ? __popc(grp & lt) : -1;
+    if constexpr (T > 1) {  // idle channels of the chunk in earlier tiles
+      if (idle[t]) rank += sm.base[k];
+      __syncwarp();
+      if (idle[t] && (grp & lt) == 0) sm.base[k] += __popc(grp);
+      __syncwarp();
+    }
     bool valid = false, pre = false;
-    double sz = 0.0, fsdt_c = 0.0;
-    if (idle) {
+    double fsdt_c = 0.0;
+    sz[t] = 0.0;
+    if (idle[t]) {
       const long long pn_c = q.pn != nullptr ? q.pn[k] : 0;
       if (rank < pn_c) {
         long long d = pn_c - 1 - rank;
         d = d < 0 ? 0 : (d > q.P - 1 ? q.P - 1 : d);
         valid = pre = true;
-        sz = q.psizes[(long long)k * q.P + d];
+        sz[t] = q.psizes[(long long)k * q.P + d];
       } else {
         const long long fidx = q.qptr[k] + rank - pn_c;
         valid = fidx < q.qlen[k];
         long long flat = q.qoff[k] + fidx;
         flat = flat < 0 ? 0 : (flat > Q - 1 ? Q - 1 : flat);
-        sz = valid ? qsizes[flat] : 0.0;
+        sz[t] = valid ? qsizes[flat] : 0.0;
       }
       fsdt_c = q.fsdt[k];
     }
     c.busy[t] = c.busy[t] || valid;
-    c.rem[t] = valid ? sz : c.rem[t];
+    c.rem[t] = valid ? sz[t] : c.rem[t];
     c.dead[t] = c.dead[t] + (valid ? fsdt_c : 0.0);
-    sm.col_f[col] = sz;
-    sm.col_k[col] = valid && !pre ? k : -1;
-    sm.col_b[col] = pre ? k : -1;
+    key_q[t] = valid && !pre ? k : -1;
+    key_p[t] = pre ? k : -1;
   }
-  __syncwarp();
-  // files and bytes fed per chunk; sizes are integer-valued doubles, so
-  // the order of the sum is exact
-  for (int k = lane; k < K; k += 32) {
+  // files and bytes fed per chunk, over the columns that fed it in column
+  // order (sizes are integer-valued doubles: the sum is exact)
+  unsigned m_fed[T];
+#pragma unroll
+  for (int t = 0; t < T; ++t) m_fed[t] = __ballot_sync(kFull, key_q[t] >= 0 || key_p[t] >= 0);
+  for (int k0 = 0; k0 < K; k0 += 32) {
+    const int k = k0 + lane;
     long long cnt = 0, popped = 0;
     double fed = 0.0;
-#pragma unroll 8
-    for (int col = 0; col < (kLoopCols<T, CW>); ++col) {
-      if (sm.col_k[col] == k) {
-        ++cnt;
-        fed += sm.col_f[col];
-      }
-      if (sm.col_b[col] == k) {
-        ++popped;
-        fed += sm.col_f[col];
-      }
+#pragma unroll
+    for (int t = 0; t < T; ++t) {
+      each_column(m_fed[t], [&](int src) {
+        const double x = __shfl_sync(kFull, sz[t], src);
+        const int kq = __shfl_sync(kFull, key_q[t], src);
+        const int kp = __shfl_sync(kFull, key_p[t], src);
+        if (kq == k) {
+          ++cnt;
+          fed += x;
+        }
+        if (kp == k) {
+          ++popped;
+          fed += x;
+        }
+      });
     }
-    q.qptr_out[k] = q.qptr[k] + cnt;
-    q.qb_out[k] = q.qb[k] - fed;
-    if (q.pn != nullptr) q.pn[k] -= popped;
+    if (k < K) {
+      q.qptr_out[k] = q.qptr[k] + cnt;
+      q.qb_out[k] = q.qb[k] - fed;
+      if (q.pn != nullptr) q.pn[k] -= popped;
+    }
   }
   __syncwarp();
 }
 
-// A step's first part (read only): the transferring channels, their caps,
-// their total (summed lane by lane, then the butterfly) and largest cap, and
-// the row's rate pool (disk_pool).
+// A step's first part (read only): the transferring channels, their caps
+// and the row's rate pool (disk_pool); the caps' total (summed lane by
+// lane, then the butterfly) and largest in the cache, taken again when the
+// caps are its own (cache.same).
 template <int T>
 __device__ __forceinline__ double row_load(const Channels<T>& c, const Link& link, bool (&tr)[T],
-                                           double (&caps)[T], double& total, double& hi) {
+                                           double (&caps)[T], RowCache<T>& cache) {
   long long n_t = 0;
-  total = 0.0;
-  hi = 0.0;
+  bool eq = cache.valid;
 #pragma unroll
   for (int t = 0; t < T; ++t) {
     tr[t] = c.busy[t] && c.dead[t] <= kEps;
     caps[t] = tr[t] ? c.cap[t] : 0.0;
-    n_t += tr[t] ? 1 : 0;
-    total += caps[t];
-    hi = fmax(hi, caps[t]);
+    n_t += __popc(__ballot_sync(kFull, tr[t]));
+    eq = eq && bits(caps[t]) == bits(cache.caps[t]);
   }
-  n_t = warp_sum_ll(n_t);
-  total = warp_sum(total);
-  hi = warp_max(hi);
+  cache.same = __all_sync(kFull, eq);
+  if (!cache.same) {
+    double total = 0.0, hi = 0.0;
+#pragma unroll
+    for (int t = 0; t < T; ++t) {
+      total += caps[t];
+      hi = fmax(hi, caps[t]);
+      cache.caps[t] = caps[t];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {  // warp_sum's and warp_max's butterflies, side by side
+      total += __shfl_xor_sync(kFull, total, o);
+      hi = fmax(hi, __shfl_xor_sync(kFull, hi, o));
+    }
+    cache.sh->total = total;
+    cache.sh->hi = hi;
+    cache.valid = false;
+  }
 
   // ---- disk_pool ----
-  const long long over = n_t - link.sat_cc > 0 ? n_t - link.sat_cc : 0;
-  const double agg = link.disk_rate / (1.0 + link.contention * (double)over);
+  double agg;
+  if (n_t != cache.sh->n_t) {
+    const long long over = n_t - link.sat_cc > 0 ? n_t - link.sat_cc : 0;
+    agg = link.disk_rate / (1.0 + link.contention * (double)over);
+    cache.sh->agg = agg;
+    cache.sh->n_t = n_t;
+  } else {
+    agg = cache.sh->agg;
+  }
   return n_t > 0 ? fmin(link.bw, agg) : 0.0;
 }
 
 // A step's water level: the level of the transferring caps under `pool`
-// (the water-fill).
+// (the water-fill), the cached one when its caps and pool_eff are this
+// step's bit for bit.
 template <int T, int CW>
-__device__ __forceinline__ double row_level(const double (&caps)[T], double total, double hi,
-                                            double pool, double* col_f, int lane) {
-  return water_level<T, CW>(caps, hi, fmax(fmin(pool, total), 0.0), col_f, lane);
+__device__ __forceinline__ double row_level(const double (&caps)[T], double pool,
+                                            RowCache<T>& cache, double* col_f, int lane) {
+  CacheSmem& sh = *cache.sh;
+  const double pool_eff = fmax(fmin(pool, sh.total), 0.0);
+  cache.hit = cache.same && bits(pool_eff) == bits(sh.pool_eff);
+  if (cache.hit) {
+    ++cache.reuses;
+    return sh.level;
+  }
+  const double level = water_level<T, CW>(caps, sh.hi, pool_eff, col_f, lane);
+  sh.level = level;
+  sh.pool_eff = pool_eff;
+  cache.valid = true;
+  return level;
 }
 
-// A step's rates under `level` and their sum, and the row's horizon dt
-// (event_horizon; 0 when not enabled).
+// A step's rates under `level` and their sum (the cached one with the
+// cached level), and the row's horizon dt (event_horizon; 0 when not
+// enabled).
 template <int T>
 __device__ __forceinline__ double row_horizon(const Channels<T>& c, const bool (&tr)[T],
                                               const double (&caps)[T], double level, bool enabled,
-                                              double tick_dt, double (&rate)[T], double& rsum) {
+                                              double tick_dt, double (&rate)[T], double& rsum,
+                                              RowCache<T>& cache) {
   double horizon = INFINITY;
   rsum = 0.0;
 #pragma unroll
@@ -315,11 +460,18 @@ __device__ __forceinline__ double row_horizon(const Channels<T>& c, const bool (
     // ---- event_horizon ----
     const double dead_evt = (c.busy[t] && c.dead[t] > kEps) ? c.dead[t] : INFINITY;
     const bool xcond = tr[t] && rate[t] > kEps;
-    const double xfer_evt = xcond ? c.rem[t] / rate[t] : INFINITY;
+    const double xfer_evt = xcond ? quot(c.rem[t], rate[t]) : INFINITY;
     horizon = fmin(horizon, fmin(dead_evt, xfer_evt));
   }
-  rsum = warp_sum(rsum);
-  horizon = warp_min(horizon);
+  // every horizon is a dead time > kEps, rem / rate with rem >= 0 and
+  // rate > kEps, or inf: warp_min_nonneg is warp_min's value
+  horizon = warp_min_nonneg(horizon);
+  if (cache.hit && enabled) {
+    rsum = cache.sh->rsum;
+  } else {
+    rsum = warp_sum(rsum);
+    if (enabled) cache.sh->rsum = rsum;
+  }
   const double dt = fmin(tick_dt, horizon);
   return enabled ? fmax(dt, 0.0) : 0.0;
 }
@@ -356,12 +508,13 @@ __device__ __forceinline__ Step row_step(Channels<T>& c, double (&moved)[T], boo
                                          const WarpSmem& sm, int lane) {
   bool tr[T];
   double caps[T], rate[T];
-  double total, hi, rsum;
-  const double pool = row_load<T>(c, link, tr, caps, total, hi);
-  const double level = row_level<T, CW>(caps, total, hi, pool, sm.col_f, lane);
-  const double dt = row_horizon<T>(c, tr, caps, level, enabled, tick_dt, rate, rsum);
+  double rsum;
+  RowCache<T> cache(sm.cache);
+  const double pool = row_load<T>(c, link, tr, caps, cache);
+  const double level = row_level<T, CW>(caps, pool, cache, sm.col_f, lane);
+  const double dt = row_horizon<T>(c, tr, caps, level, enabled, tick_dt, rate, rsum, cache);
   const bool fin = row_move<T>(c, tr, rate, dt, enabled, moved);
-  feed_row<T, CW>(c, enabled, q, qsizes, Q, K, sm, lane);
+  feed_row<T>(c, enabled, q, qsizes, Q, K, sm, lane);
   return {dt, rsum, fin};
 }
 
@@ -421,10 +574,11 @@ struct StepArgs {
   int warps;
 };
 
-// Shared memory of one warp: col_f (8 bytes a padded column), col_k and
-// col_b (4 each), base (4 a chunk), rounded up to 8 bytes.
+// Shared memory of one warp: the row cache's values, col_f (8 bytes a
+// padded column), col_k and col_b (4 each), base (4 a chunk), rounded up to
+// 8 bytes.
 __host__ __device__ inline size_t step_warp_bytes(int T, int K) {
-  return ((size_t)512 * T + (size_t)4 * K + 7) / 8 * 8;
+  return kCacheBytes + ((size_t)512 * T + (size_t)4 * K + 7) / 8 * 8;
 }
 
 template <int T, int CW>
@@ -438,7 +592,8 @@ __global__ void fused_step_kernel(StepArgs a) {
   const long long rc = row * C, rk = row * K;
   unsigned char* w = smem + warp * step_warp_bytes(T, K);
   WarpSmem sm{};
-  sm.col_f = reinterpret_cast<double*>(w);
+  sm.cache = reinterpret_cast<CacheSmem*>(w);
+  sm.col_f = reinterpret_cast<double*>(w + kCacheBytes);
   sm.col_k = reinterpret_cast<int*>(sm.col_f + 32 * T);
   sm.col_b = sm.col_k + 32 * T;
   sm.base = sm.col_b + 32 * T;
@@ -539,6 +694,7 @@ struct RoundArgs {
   // written
   long long* steps;
   long long* stop;
+  long long* reuses;
   long long* cycles;  // the probe build's (S, kPhases) phase cycles, else unused
   long long S;
   long long Q;
@@ -550,7 +706,7 @@ struct RoundArgs {
   int TL;
   int warps;
 };
-constexpr int kRoundOperands = 61;
+constexpr int kRoundOperands = 62;
 
 // the driver's kind codes and the loop's stop codes (transition.STOP_*)
 constexpr long long kKindCustom = -1, kKindSc = 2, kKindMc = 3;
@@ -566,9 +722,10 @@ struct ChunkSmem {
 };
 
 // Per-chunk arrays of one warp: fifteen of 8 bytes, nine of 4 (with the
-// feed's base); per column three of 8 bytes and three of 4.
+// feed's base); per column three of 8 bytes and three of 4; the row
+// cache's values.
 __host__ __device__ inline size_t round_warp_bytes(int T, int K) {
-  return (size_t)8 * (96 * T + 15 * K) + (size_t)4 * (96 * T + 10 * K);
+  return kCacheBytes + (size_t)8 * (96 * T + 15 * K) + (size_t)4 * (96 * T + 10 * K);
 }
 
 // A row's controller and link constants.
@@ -683,12 +840,12 @@ __device__ __forceinline__ void row_views(const Channels<T>& c, const ChunkSmem&
     const double penalty = 1.0 / (1.0 + rc.contention * (double)over);
     const double agg = rc.disk_rate * penalty;
     const double pool = fmin(rc.bw, agg);
-    const double r0 = fmin(ck.capk[k], pool / (double)total);
-    const double t_file = ck.fsdt[k] + ck.avgfs[k] / fmax(r0, 1e-9);
-    const double pred = (double)nn * ck.avgfs[k] / t_file;
+    const double r0 = fmin(ck.capk[k], quot(pool, (double)total));
+    const double t_file = ck.fsdt[k] + quot(ck.avgfs[k], fmax(r0, 1e-9));
+    const double pred = quot((double)nn * ck.avgfs[k], t_file);
     // controllers.chunk_eta
     const double r = ck.rate[k] > 0.0 ? ck.rate[k] : pred;
-    const double e = r > 0.0 ? br / r : INFINITY;
+    const double e = r > 0.0 ? quot(br, r) : INFINITY;
     ck.brem[k] = br;
     ck.eta[k] = (ck.done[k] || br <= 0.0) ? 0.0 : e;
   }
@@ -768,8 +925,9 @@ __device__ __forceinline__ void setup_row(const RoundArgs& a, long long row, uns
   const int C = a.C, K = a.K, B = a.B, P = a.P, TL = a.TL;
   const long long rc_ = row * C, rk = row * K, rb = row * B;
 
-  // shared memory: 8-byte arrays first, then 4-byte ones
-  double* f8 = reinterpret_cast<double*>(w);
+  // shared memory: the row cache's values, 8-byte arrays, then 4-byte ones
+  sm.cache = reinterpret_cast<CacheSmem*>(w);
+  double* f8 = reinterpret_cast<double*>(w + kCacheBytes);
   sm.col_f = f8;
   sm.col_g = sm.col_f + 32 * T;
   sm.col_h = sm.col_g + 32 * T;
@@ -868,7 +1026,7 @@ __device__ __forceinline__ void setup_row(const RoundArgs& a, long long row, uns
 template <int T>
 __device__ __forceinline__ void store_row(const RoundArgs& a, long long row, const Channels<T>& c,
                                           const ChunkSmem& ck, const RowLoop& st, bool row_done,
-                                          long long stop, int lane) {
+                                          long long stop, long long reuses, int lane) {
   const int C = a.C, K = a.K;
   const long long rc_ = row * C, rk = row * K;
 #pragma unroll
@@ -911,6 +1069,7 @@ __device__ __forceinline__ void store_row(const RoundArgs& a, long long row, con
     a.tl_last_rate[row] = st.tl_last_rate;
     a.steps[row] = st.steps;
     a.stop[row] = stop;
+    a.reuses[row] = reuses;
   }
 }
 
@@ -934,10 +1093,18 @@ __device__ __forceinline__ bool row_error(const Channels<T>& c, const ChunkSmem&
 }
 
 // The bandwidth profile at t: link.bw under the last step at or before t;
-// returns the time of the next step (inf past the last).
-__device__ __forceinline__ double row_profile(const RowEnv& env, double t, Link& link, int lane) {
+// returns the time of the next step (inf past the last). A lookup holds
+// while t, which never decreases, stays below that next step: no step lies
+// between, so the cached one is taken.
+template <int T>
+__device__ __forceinline__ double row_profile(const RowEnv& env, double t, Link& link,
+                                              RowCache<T>& cache, int lane) {
   double next_prof = INFINITY;
   link.bw = env.rc.bw;
+  if (env.B > 1 && cache.prof && t < cache.sh->prof_next) {
+    link.bw = cache.sh->prof_bw;
+    return cache.sh->prof_next;
+  }
   if (env.B > 1) {
     int at = -1;
     for (int b0 = 0; b0 < env.B; b0 += 32) {
@@ -949,6 +1116,9 @@ __device__ __forceinline__ double row_profile(const RowEnv& env, double t, Link&
     next_prof = warp_min(next_prof);
     const double mult = env.prof_mult[at < 0 ? 0 : at];
     link.bw = env.rc.bw * (at >= 0 ? mult : 1.0);
+    cache.prof = true;
+    cache.sh->prof_bw = link.bw;
+    cache.sh->prof_next = next_prof;
   }
   return next_prof;
 }
@@ -1009,29 +1179,43 @@ __device__ __forceinline__ bool row_after_step(const Channels<T>& c, const doubl
   ++st.n_events;
   ++st.steps;
   st.fin_any = s.fin;
+  // each chunk's moved bytes into its total, its columns in column order;
+  // a chunk whose queue and stack are drained completes when none of its
+  // columns is busy (read only when some chunk is drained)
+  unsigned m_moved[T], m_busy[T];
 #pragma unroll
   for (int tt = 0; tt < T; ++tt) {
-    const int col = tt * 32 + lane;
-    sm.col_f[col] = moved[tt];
-    sm.col_k[col] = moved[tt] != 0.0 ? c.ch[tt] : -1;
-    sm.col_b[col] = c.busy[tt] ? c.ch[tt] : -1;
+    m_moved[tt] = __ballot_sync(kFull, moved[tt] != 0.0);
+    m_busy[tt] = __ballot_sync(kFull, c.busy[tt]);
   }
-  __syncwarp();
   comp_any = false;
   bool full = false;
-  for (int k = lane; k < K; k += 32) {
-    double d = ck.deliv[k];
-    int n_busy = 0;
-#pragma unroll 8
-    for (int col = 0; col < (kLoopCols<T, CW>); ++col) {
-      if (sm.col_k[col] == k) d += sm.col_f[col];
-      n_busy += sm.col_b[col] == k ? 1 : 0;
+  for (int k0 = 0; k0 < K; k0 += 32) {
+    const int k = k0 + lane;
+    double d = k < K ? ck.deliv[k] : 0.0;
+#pragma unroll
+    for (int tt = 0; tt < T; ++tt) {
+      each_column(m_moved[tt], [&](int src) {
+        const double x = __shfl_sync(kFull, moved[tt], src);
+        if (__shfl_sync(kFull, c.ch[tt], src) == k) d += x;
+      });
     }
-    ck.deliv[k] = d;
-    const bool cmp = !ck.done[k] && ck.qlen[k] - ck.qptr[k] + ck.pn[k] == 0 && n_busy == 0;
-    ck.comp[k] = cmp;
+    bool cmp = false;
+    if (k < K) {
+      ck.deliv[k] = d;
+      cmp = !ck.done[k] && ck.qlen[k] - ck.qptr[k] + ck.pn[k] == 0;
+      full = full || ck.pn[k] >= env.P;
+    }
+    if (__any_sync(kFull, cmp)) {
+#pragma unroll
+      for (int tt = 0; tt < T; ++tt) {
+        each_column(m_busy[tt], [&](int src) {
+          if (__shfl_sync(kFull, c.ch[tt], src) == k) cmp = false;
+        });
+      }
+    }
+    if (k < K) ck.comp[k] = cmp;
     comp_any = comp_any || cmp;
-    full = full || ck.pn[k] >= env.P;
   }
   comp_any = __any_sync(kFull, comp_any);
   tick_hit = st.t >= st.next_tick - kEps;
@@ -1173,12 +1357,12 @@ __device__ __forceinline__ bool row_transition(Channels<T>& c, bool comp_any, bo
         fed = true;
       }
     }
-    if (fed) feed_row<T, CW>(c, true, q, env.qsizes, env.Q, K, sm, lane);
+    if (fed) feed_row<T>(c, true, q, env.qsizes, env.Q, K, sm, lane);
   }
   // the tick: the rate EMA, then ProMC's check and move
   if (tick_hit) {
     for (int k = lane; k < K; k += 32) {
-      const double inst = (ck.deliv[k] - ck.dat[k]) / env.period;
+      const double inst = quot(ck.deliv[k] - ck.dat[k], env.period);
       ck.rate[k] = ck.rate[k] == 0.0 ? inst : 0.5 * ck.rate[k] + 0.5 * inst;
       ck.dat[k] = ck.deliv[k];
     }
@@ -1266,17 +1450,20 @@ __device__ __forceinline__ bool row_transition(Channels<T>& c, bool comp_any, bo
           }
         }
         ++st.n_moves;
-        feed_row<T, CW>(c, true, q, env.qsizes, env.Q, K, sm, lane);
+        feed_row<T>(c, true, q, env.qsizes, env.Q, K, sm, lane);
       }
     }
     st.next_tick = st.next_tick + env.period;
   }
-  // the done test
-  bool all_done = true;
-  for (int k = lane; k < K; k += 32) all_done = all_done && ck.done[k] != 0;
-  if (__all_sync(kFull, all_done) && (st.fin_any || comp_any)) {
-    st.finish_t = st.t;
-    return true;
+  // the done test (the chunks' flags are read only on a step that
+  // finished a file or completed a chunk)
+  if (st.fin_any || comp_any) {
+    bool all_done = true;
+    for (int k = lane; k < K; k += 32) all_done = all_done && ck.done[k] != 0;
+    if (__all_sync(kFull, all_done)) {
+      st.finish_t = st.t;
+      return true;
+    }
   }
   return false;
 }
@@ -1328,6 +1515,7 @@ __global__ void fused_rounds_kernel(RoundArgs a) {
     if (lane == 0) {
       a.steps[row] = 0;
       a.stop[row] = 0;
+      a.reuses[row] = 0;
     }
     return;
   }
@@ -1340,6 +1528,7 @@ __global__ void fused_rounds_kernel(RoundArgs a) {
   Link link{env.rc.bw, env.rc.disk_rate, env.rc.contention, env.rc.sat_cc};
   bool row_done = false;
   long long stop = 0;
+  RowCache<T> cache(sm.cache);
   PhaseClock<Probe> clk;
   clk.start();
 
@@ -1351,23 +1540,24 @@ __global__ void fused_rounds_kernel(RoundArgs a) {
     }
     clk.mark(kPhError);
     // (a) the bandwidth profile at t
-    const double next_prof = row_profile(env, st.t, link, lane);
+    const double next_prof = row_profile<T>(env, st.t, link, cache, lane);
     clk.mark(kPhProfile);
     // (b) one step: the rate pool, the water level, the rates and the
     // horizon, the advance, then the feed with the resume stack
     bool tr[T];
     double caps[T], rate[T], moved[T];
-    double total, hi, rsum;
-    const double pool = row_load<T>(c, link, tr, caps, total, hi);
+    double rsum;
+    const double pool = row_load<T>(c, link, tr, caps, cache);
     clk.mark(kPhLoad);
-    const double level = row_level<T, CW>(caps, total, hi, pool, sm.col_f, lane);
+    const double level = row_level<T, CW>(caps, pool, cache, sm.col_f, lane);
     clk.mark(kPhLevel);
     const double dt = row_horizon<T>(c, tr, caps, level, true,
-                                     fmin(st.next_tick - st.t, next_prof - st.t), rate, rsum);
+                                     fmin(st.next_tick - st.t, next_prof - st.t), rate, rsum,
+                                     cache);
     clk.mark(kPhHorizon);
     const bool fin = row_move<T>(c, tr, rate, dt, true, moved);
     clk.mark(kPhAdvance);
-    feed_row<T, CW>(c, true, env.q, env.qsizes, env.Q, env.K, sm, lane);
+    feed_row<T>(c, true, env.q, env.qsizes, env.Q, env.K, sm, lane);
     clk.mark(kPhFeed);
     // (c)-(e) the timeline, the clock, the chunk totals and the guards
     const Step s{dt, rsum, fin};
@@ -1398,7 +1588,7 @@ __global__ void fused_rounds_kernel(RoundArgs a) {
     clk.mark(kPhTransition);
   }
   __syncwarp();
-  store_row<T>(a, row, c, ck, st, row_done, stop, lane);
+  store_row<T>(a, row, c, ck, st, row_done, stop, cache.reuses, lane);
   clk.store(a.cycles + row * kPhases, lane);
 }
 
@@ -1550,6 +1740,7 @@ __global__ void __launch_bounds__(32 * kGroupRows) fused_rounds_coupled_kernel(R
                  st, lane);
   }
   Link link{env.rc.bw, env.rc.disk_rate, env.rc.contention, env.rc.sat_cc};
+  RowCache<T> cache(act ? sm.cache : nullptr);
   bool live = act, row_done = false;
   long long stop = 0, gsteps = 0, nsweeps = 0;
 
@@ -1563,18 +1754,18 @@ __global__ void __launch_bounds__(32 * kGroupRows) fused_rounds_coupled_kernel(R
     int err = 0;
     bool tr[T];
     double caps[T];
-    double pool = 0.0, total = 0.0, hi = 0.0, next_prof = INFINITY;
+    double pool = 0.0, next_prof = INFINITY;
     if (live) {
       err = row_error<T, CW>(c, ck, sm, env, st, lane) ? 1 : 0;
       if (!err) {
-        next_prof = row_profile(env, st.t, link, lane);
-        pool = row_load<T>(c, link, tr, caps, total, hi);
+        next_prof = row_profile<T>(env, st.t, link, cache, lane);
+        pool = row_load<T>(c, link, tr, caps, cache);
       }
     }
     if (lane == 0) {
       gs.err[warp] = err;
       gs.live[warp] = live && !err ? 1 : 0;
-      gs.dem[warp] = live && !err ? fmin(pool, total) : 0.0;
+      gs.dem[warp] = live && !err ? fmin(pool, cache.sh->total) : 0.0;
     }
     __syncthreads();
     int any_err = 0, any_live = 0;
@@ -1594,10 +1785,10 @@ __global__ void __launch_bounds__(32 * kGroupRows) fused_rounds_coupled_kernel(R
     double rate[T];
     double rsum = 0.0, dt = 0.0;
     if (live) {
-      const double level = row_level<T, CW>(caps, total, hi, has_links ? gs.grant[warp] : pool,
+      const double level = row_level<T, CW>(caps, has_links ? gs.grant[warp] : pool, cache,
                                             sm.col_f, lane);
       dt = row_horizon<T>(c, tr, caps, level, true, fmin(st.next_tick - st.t, next_prof - st.t),
-                          rate, rsum);
+                          rate, rsum, cache);
     }
     if (lane == 0) gs.gdt[warp] = live ? dt : INFINITY;
     __syncthreads();
@@ -1610,7 +1801,7 @@ __global__ void __launch_bounds__(32 * kGroupRows) fused_rounds_coupled_kernel(R
       double moved[T];
       const double dt_g = fmin(dt, gdt);
       const bool fin = row_move<T>(c, tr, rate, dt_g, true, moved);
-      feed_row<T, CW>(c, true, env.q, env.qsizes, env.Q, env.K, sm, lane);
+      feed_row<T>(c, true, env.q, env.qsizes, env.Q, env.K, sm, lane);
       const Step s{dt_g, rsum, fin};
       guard = row_after_step<T, CW>(c, moved, s, env, st, ck, sm, comp_any, tick_hit, lane) ? 1
                                                                                            : 0;
@@ -1634,10 +1825,11 @@ __global__ void __launch_bounds__(32 * kGroupRows) fused_rounds_coupled_kernel(R
   __syncwarp();
   if (warp == 0 && lane == 0) f.sweeps[g] = nsweeps;
   if (act) {
-    store_row<T>(a, row, c, ck, st, row_done, stop, lane);
+    store_row<T>(a, row, c, ck, st, row_done, stop, cache.reuses, lane);
   } else if (row >= 0 && lane == 0) {
     a.steps[row] = 0;
     a.stop[row] = 0;
+    a.reuses[row] = 0;
   }
 }
 
@@ -1773,6 +1965,7 @@ bool round_args(void* const* ptrs, RoundArgs& a) {
   a.tl_last_rate = static_cast<double*>(next());
   a.steps = static_cast<long long*>(next());
   a.stop = static_cast<long long*>(next());
+  a.reuses = static_cast<long long*>(next());
   return i == kRoundOperands;
 }
 
@@ -1875,8 +2068,9 @@ extern "C" int fused_rounds_probe_f64(void* const* ptrs, void* cycles, long long
   }
   a.cycles = static_cast<long long*>(cycles);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C <= 4) return (int)launch_probe<1, 4>(a, st);
-  if (C <= 8) return (int)launch_probe<1, 8>(a, st);
+  // two instances (a row of C columns runs bit for bit alike in any tile
+  // width >= C: the columns past C hold no chunk and the descent's sums add
+  // their zeros exactly)
   if (C <= 16) return (int)launch_probe<1, 16>(a, st);
   return (int)launch_probe<1, 32>(a, st);
 }

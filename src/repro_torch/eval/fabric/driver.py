@@ -120,7 +120,8 @@ _ROW_ARRAYS = (
     "pair_fast", "pair_slow", "promc_ratio", "promc_patience", "sc_cursor",
     "sc_order", "conc", "par", "cap_k", "avg_fs_k", "nfiles", "setup_cost",
     "n_moves", "prof_t", "prof_mult", "tl_t", "tl_rate", "tl_len",
-    "tl_stride", "tl_seen", "tl_last_t", "tl_last_rate", "steps", "stop",
+    "tl_stride", "tl_seen", "tl_last_t", "tl_last_rate", "steps", "stop", "reuses",
+    "level_reuses",
 )
 
 #: a custom-scheduler row's state that its callbacks read and write, by
@@ -134,6 +135,7 @@ _HOST_S = ("t", "n_moves")
 _RESULT_ARRAYS = (
     "finish_t", "n_events", "completed_at", "delivered", "n_moves", "tl_t",
     "tl_rate", "tl_len", "tl_stride", "tl_seen", "tl_last_t", "tl_last_rate",
+    "level_reuses",
 )
 
 
@@ -378,9 +380,12 @@ class TorchFabricSimulation:
             "tl_seen": (np.zeros(S, dtype=np.int64), i8),
             "tl_last_t": (np.zeros(S), f8),
             "tl_last_rate": (np.zeros(S), f8),
-            # the last loop launch: each row's steps and stop code
+            # the last loop launch: each row's steps, stop code and water
+            # levels reused; and the reuses of every launch so far
             "steps": (np.zeros(S, dtype=np.int64), i8),
             "stop": (np.full(S, STOP_NONE, dtype=np.int64), i8),
+            "reuses": (np.zeros(S, dtype=np.int64), i8),
+            "level_reuses": (np.zeros(S, dtype=np.int64), i8),
         }
         for name, (arr, dtype) in host.items():
             setattr(self, name, self._up(arr, dtype))
@@ -560,6 +565,7 @@ class TorchFabricSimulation:
                 fused_rounds_coupled(self.round_operands(act), self._fab, ROUND_CAP)
             else:
                 fused_rounds(self.round_operands(act), ROUND_CAP)
+            self.level_reuses = self.level_reuses + self.reuses
             return True
         self.n_events = self.n_events + act.to(torch.int64)
         if self.fused_step == "kernel" and n_pre == 0:
@@ -1013,6 +1019,7 @@ class TorchFabricSimulation:
             for r in self.rt:
                 r.archive = {k: v[r.index] for k, v in final.items()}
             self.stats.steps += sum(int(r.archive["n_events"]) for r in all_rt)
+            self.stats.level_reuses += sum(int(r.archive["level_reuses"]) for r in all_rt)
             out = [self._result(r) for r in all_rt]
         finally:
             self._turn = None

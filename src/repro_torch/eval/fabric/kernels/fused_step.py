@@ -105,8 +105,11 @@ ROUND_STATE = {
     "tl_stride": (torch.int64, "S"), "tl_seen": (torch.int64, "S"),
     "tl_last_t": (torch.float64, "S"), "tl_last_rate": (torch.float64, "S"),
 }
-#: per row: the steps taken and the stop code (``transition.STOP_*``)
-ROUND_OUTPUTS = {"steps": (torch.int64, "S"), "stop": (torch.int64, "S")}
+#: per row: the steps taken, the stop code (``transition.STOP_*``) and the
+#: water levels reused (steps whose level inputs were the row's last step's
+#: in the same launch, :func:`_level_reuse`)
+ROUND_OUTPUTS = {"steps": (torch.int64, "S"), "stop": (torch.int64, "S"),
+                 "reuses": (torch.int64, "S")}
 ROUND_OPERANDS = {**ROUND_INPUTS, **ROUND_STATE, **ROUND_OUTPUTS}
 
 #: the timeline ring's tensors, in ``kernels.timeline_push``'s order
@@ -151,19 +154,51 @@ def _entry(name: str):
     return fn
 
 
+def _bits(x):
+    """The float64 ``x``'s bit patterns, as int64."""
+    return x.contiguous().view(torch.int64)
+
+
+def _level_reuse(cache, act, caps, pool):
+    """The loop kernels' water-level cache on the ``act`` rows' step with
+    transferring caps ``caps`` (S, C) and rate pool ``pool`` (S,): a row
+    whose caps and ``pool_eff = max(min(pool, sum(caps)), 0)`` are bit for
+    bit those of its last step in this launch reuses its level (the level
+    is a function of the caps, their largest, which they give, and
+    ``pool_eff``). Adds the reuses into ``cache["reuses"]`` and keeps this
+    step's inputs for the next. ``cache``: a dict :func:`fused_rounds_plain`
+    starts empty at each launch."""
+    pool_eff = _bits(torch.clamp(torch.minimum(pool, lane_sum(caps)), min=0.0))
+    caps = _bits(caps)
+    if "caps" in cache:
+        same = act & cache["seen"] & (caps == cache["caps"]).all(dim=-1) & (
+            pool_eff == cache["pool_eff"])
+        cache["reuses"] = cache["reuses"] + same.to(torch.int64)
+        cache["caps"] = torch.where(act.unsqueeze(-1), caps, cache["caps"])
+        cache["pool_eff"] = torch.where(act, pool_eff, cache["pool_eff"])
+        cache["seen"] = cache["seen"] | act
+    else:
+        cache.update(caps=caps, pool_eff=pool_eff, seen=act.clone(),
+                     reuses=torch.zeros_like(pool_eff))
+
+
 def _advance_plain(
     act, busy, dead, rem, cap, tick_dt, bw, disk_rate, sat_cc, contention, fab=None,
+    cache=None,
 ):
     """The physics half of a step, composed of the fluid kernels: rates,
     horizon, fluid movement. With ``fab`` (the coupled loop's fabric, see
     :func:`fused_rounds_coupled_plain`) the rows of a group take their
-    link grants as pools and advance in lockstep. Returns ``(dt,
-    rate_sum, fin_any, busy, dead, rem, moved)``."""
+    link grants as pools and advance in lockstep. With ``cache`` the step
+    counts the water levels the loop kernels reuse (:func:`_level_reuse`).
+    Returns ``(dt, rate_sum, fin_any, busy, dead, rem, moved)``."""
     transferring = busy & (dead <= _EPS)
     pool = disk_pool(transferring.sum(dim=-1), bw, disk_rate, sat_cc, contention)
     caps = torch.where(transferring, cap, 0.0)
     if fab is not None:
         pool, _ = coupled_pool(pool, lane_sum(caps), act, fab)
+    if cache is not None:
+        _level_reuse(cache, act, caps, pool)
     level = bisect_level(caps, pool)
     rates = torch.where(
         act.unsqueeze(-1), torch.minimum(caps, level.unsqueeze(-1)), 0.0
@@ -260,14 +295,15 @@ def fused_step(
 fused_step.launches = 0
 
 
-def _plain_step(st, run, fab=None):
+def _plain_step(st, run, fab=None, cache=None):
     """One step of the ``run`` rows of the loop operands ``st`` (entries
     replaced): the profile lookup, the physics of :func:`fused_step_plain`
     (coupled through ``fab`` when given), the feed with the resume stack,
     the timeline push, the clock, the event count, the ``delivered``
     scatter, then :func:`..transition.post_transition` on the rows that
     meet no capacity guard and call no custom callback (uncoupled loop
-    only: the coupled loop never holds a custom row). Returns ``(guard,
+    only: the coupled loop never holds a custom row); ``cache``: the
+    launch's water-level cache (:func:`_level_reuse`). Returns ``(guard,
     custom)``, the rows at a guard and the custom rows at a callback
     event, whose transition is left to the host."""
     K = st["qptr"].shape[-1]
@@ -276,7 +312,7 @@ def _plain_step(st, run, fab=None):
     dt, rate_sum, fin, st["busy"], st["dead"], st["rem"], moved = _advance_plain(
         run, st["busy"], st["dead"], st["rem"], st["cap"],
         torch.minimum(st["next_tick"] - t, next_prof - t), eff_bw,
-        st["disk_rate"], st["sat_cc"], st["contention"], fab,
+        st["disk_rate"], st["sat_cc"], st["contention"], fab, cache,
     )
     transition.feed(st, run)
     st.update(zip(_TIMELINE, timeline_push(
@@ -321,18 +357,20 @@ def fused_rounds_plain(s, max_steps: int = ROUND_CAP):
     at a guard or a custom callback event (the step's transition not
     taken) or at ``max_steps``. Host
     reads only skip masked-out work. Returns new tensors for every name of
-    :data:`ROUND_STATE` and :data:`ROUND_OUTPUTS`; ``s`` is left as it
-    was."""
+    :data:`ROUND_STATE` and :data:`ROUND_OUTPUTS` (``reuses``: the steps
+    whose water level the kernel reuses, :func:`_level_reuse`); ``s`` is
+    left as it was."""
     st = dict(s)  # entries are replaced, never written
     steps = torch.zeros_like(st["n_events"])
     stop = torch.full_like(steps, transition.STOP_NONE)
     run = st["act"]
+    cache = {}
     while True:
         err, stop = _stop_errors(st, run, stop)
         run = run & ~err
         if not bool(run.any()):
             break
-        guard, custom = _plain_step(st, run)
+        guard, custom = _plain_step(st, run, cache=cache)
         steps = steps + run.to(torch.int64)
         stop = torch.where(guard, transition.STOP_GUARD, stop)
         stop = torch.where(custom, transition.STOP_CUSTOM, stop)
@@ -341,8 +379,14 @@ def fused_rounds_plain(s, max_steps: int = ROUND_CAP):
         stop = torch.where(go & st["done"], transition.STOP_DONE, stop)
         stop = torch.where(capped, transition.STOP_CAP, stop)
         run = go & ~st["done"] & ~capped
+    return _round_outputs(st, steps, stop, cache)
+
+
+def _round_outputs(st, steps, stop, cache):
+    """A plain loop's results: the state of :data:`ROUND_STATE` and the
+    outputs of :data:`ROUND_OUTPUTS`."""
     out = {name: st[name] for name in ROUND_STATE}
-    out.update(steps=steps, stop=stop)
+    out.update(steps=steps, stop=stop, reuses=cache.get("reuses", torch.zeros_like(steps)))
     return out
 
 
@@ -454,6 +498,7 @@ def fused_rounds_coupled_plain(s, fab, max_steps: int = ROUND_CAP):
     steps = torch.zeros_like(st["n_events"])
     stop = torch.full_like(steps, transition.STOP_NONE)
     run = st["act"]
+    cache = {}
     while True:
         capped = run & (gsteps[block] >= max_steps)
         stop = torch.where(capped, transition.STOP_CAP, stop)
@@ -464,7 +509,7 @@ def fused_rounds_coupled_plain(s, fab, max_steps: int = ROUND_CAP):
         run = run & ~halt
         if not bool(run.any()):
             break
-        guard, _ = _plain_step(st, run, fab)
+        guard, _ = _plain_step(st, run, fab, cache)
         steps = steps + run.to(torch.int64)
         gsteps = gsteps + per_block(run)
         held = in_block(guard)
@@ -473,9 +518,7 @@ def fused_rounds_coupled_plain(s, fab, max_steps: int = ROUND_CAP):
         stop = torch.where(run & ~guard & done, transition.STOP_DONE, stop)
         stop = torch.where(run & held & ~guard & ~done, transition.STOP_GROUP, stop)
         run = run & ~done & ~held
-    out = {name: st[name] for name in ROUND_STATE}
-    out.update(steps=steps, stop=stop)
-    return out
+    return _round_outputs(st, steps, stop, cache)
 
 
 def fused_rounds(s, max_steps: int = ROUND_CAP):
@@ -485,7 +528,9 @@ def fused_rounds(s, max_steps: int = ROUND_CAP):
     output tensors are updated
     in place. Returns ``s["steps"]``. CPU tensors take the plain version;
     CUDA tensors launch the kernel on the current stream (C and K up to
-    1024; no launch for zero rows)."""
+    1024; no launch for zero rows). Afterwards ``fused_rounds.reuses`` is
+    ``s["reuses"]``, each row's steps that reused its last step's water
+    level in this call."""
     if max_steps < 1:
         raise ValueError(f"max_steps must be at least 1, got {max_steps}")
     busy = s["busy"]
@@ -494,19 +539,21 @@ def fused_rounds(s, max_steps: int = ROUND_CAP):
     if busy.device.type == "cpu":
         for name, new in fused_rounds_plain(s, max_steps).items():
             s[name].copy_(new)
-        return s["steps"]
-    if busy.device.type != "cuda":
+    elif busy.device.type != "cuda":
         raise ValueError(f"unsupported device {busy.device}")
-    dims, ptrs = _round_pointers(s, 1024)
-    if dims["S"] == 0:
-        return s["steps"]
-    _launch_rounds("fused_rounds_f64", ptrs, dims, max_steps, busy.device)
-    fused_rounds.launches += 1
+    else:
+        dims, ptrs = _round_pointers(s, 1024)
+        if dims["S"]:
+            _launch_rounds("fused_rounds_f64", ptrs, dims, max_steps, busy.device)
+            fused_rounds.launches += 1
+    fused_rounds.reuses = s["reuses"]
     return s["steps"]
 
 
 #: launches of the loop kernel in this process
 fused_rounds.launches = 0
+#: the last call's water-level reuses a row, (S,) int64
+fused_rounds.reuses = None
 
 
 def _round_pointers(s, max_c):
@@ -583,7 +630,9 @@ def fused_rounds_coupled(s, fab, max_steps: int = ROUND_CAP):
     otherwise, from ``fab["layout"]``). After a launch,
     ``fused_rounds_coupled.sweeps`` (G,) int64 holds the Jacobi sweeps each
     block ran over its group steps (0 for a block without links), in
-    :func:`fabric_layout`'s block order."""
+    :func:`fabric_layout`'s block order. After a call,
+    ``fused_rounds_coupled.reuses`` is ``s["reuses"]`` (as
+    :func:`fused_rounds`')."""
     if max_steps < 1:
         raise ValueError(f"max_steps must be at least 1, got {max_steps}")
     busy = s["busy"]
@@ -598,27 +647,17 @@ def fused_rounds_coupled(s, fab, max_steps: int = ROUND_CAP):
     if busy.device.type == "cpu":
         for name, new in fused_rounds_coupled_plain(s, fab, max_steps).items():
             s[name].copy_(new)
+        fused_rounds_coupled.reuses = s["reuses"]
         return s["steps"]
     if busy.device.type != "cuda":
         raise ValueError(f"unsupported device {busy.device}")
-    dims = {"S": S, "C": C, "K": s["qptr"].shape[1], "B": s["prof_t"].shape[1],
-            "Q": s["qsizes"].shape[0], "P": s["prepend_sizes"].shape[-1],
-            "T": s["tl_t"].shape[-1]}
-    if C > COUPLED_MAX_C or dims["K"] > 1024 or dims["Q"] == 0:
-        raise ValueError(
-            f"the coupled loop kernel takes C <= {COUPLED_MAX_C}, K <= 1024 and Q > 0, "
-            f"got {C}, {dims['K']}, {dims['Q']}"
-        )
     dev = busy.device
+    dims, ptrs = _round_pointers(s, COUPLED_MAX_C)
     lay = fab["layout"]
     if isinstance(lay, ValueError):
         raise lay
     G, R = lay["rows"].shape
     sweeps = torch.zeros((G,), dtype=torch.int64, device=dev)
-    ptrs = (ctypes.c_void_p * len(ROUND_OPERANDS))(*(
-        _build.check(s[name], name, dtype, tuple(dims[a] for a in axes), dev)
-        for name, (dtype, axes) in ROUND_OPERANDS.items()
-    ))
     fptrs = [
         _build.check(lay["rows"], "rows", torch.int64, (G, R), dev),
         _build.check(lay["mask"], "mask", torch.int64, (G, COUPLED_MAX_LINKS), dev),
@@ -627,9 +666,8 @@ def fused_rounds_coupled(s, fab, max_steps: int = ROUND_CAP):
     ]
     if S == 0:
         return s["steps"]
-    fn = _entry("fused_rounds_coupled_f64")
     with torch.cuda.device(dev):
-        err = fn(
+        err = _entry("fused_rounds_coupled_f64")(
             ptrs, *fptrs, S, C, dims["K"], dims["B"], dims["Q"], dims["P"], dims["T"], G, R,
             max_steps, torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -637,6 +675,7 @@ def fused_rounds_coupled(s, fab, max_steps: int = ROUND_CAP):
         raise RuntimeError(f"coupled fused-rounds kernel launch failed: cudaError {err}")
     fused_rounds_coupled.launches += 1
     fused_rounds_coupled.sweeps = sweeps
+    fused_rounds_coupled.reuses = s["reuses"]
     return s["steps"]
 
 
@@ -644,3 +683,5 @@ def fused_rounds_coupled(s, fab, max_steps: int = ROUND_CAP):
 fused_rounds_coupled.launches = 0
 #: the Jacobi sweeps of the last launch's blocks
 fused_rounds_coupled.sweeps = None
+#: the last call's water-level reuses a row, (S,) int64
+fused_rounds_coupled.reuses = None

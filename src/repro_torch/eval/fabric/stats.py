@@ -53,7 +53,10 @@ class SweepStats:
     (``host_transitions``; 0 wherever the plan's bounds size C and P),
     and custom-scheduler rows whose loop stopped at a callback event and
     left the step's transition to the host (``post_row_replays``, the
-    reference's name for the same count; 0 on the built-in grids). Then
+    reference's name for the same count; 0 on the built-in grids), and
+    the row steps whose water level the loop kernels reused from the row's
+    last step (``level_reuses``, on the ``"rounds"`` route; their row steps
+    less these are the level descents the inputs needed). Then
     the host seconds of the plan build (``ingest_s``) and of the chunk
     pipeline's phases (:data:`WALL_KEYS`; the module docstring says what
     each times)."""
@@ -65,6 +68,7 @@ class SweepStats:
     steps: int = 0
     host_transitions: int = 0
     post_row_replays: int = 0
+    level_reuses: int = 0
     ingest_s: float = 0.0
     build_wall_s: float = 0.0
     compute_wall_s: float = 0.0

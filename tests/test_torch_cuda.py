@@ -110,6 +110,59 @@ def test_fused_rounds_matches_its_plain_version_on_the_card(cuda, max_steps, wid
             assert torch.equal(s[name], v), name
 
 
+def _live_smoke_operands(cuda, sweeps=5):
+    drv = TorchFabricSimulation(build_plan(smoke_matrix()), device=cuda, fused_step="kernel")
+    drv.start()
+    for _ in range(sweeps):
+        drv.step()
+    return {k: v.clone() for k, v in drv.round_operands(~drv.done).items()}
+
+
+@pytest.mark.parametrize("max_steps", [16, fs.ROUND_CAP])
+def test_fused_rounds_sums_interleaved_chunk_columns_in_column_order(cuda, max_steps):
+    """The loop kernel's per-chunk sums (moved bytes into ``delivered``,
+    files fed) walk each chunk's ballot mask in column order: on a live
+    smoke state whose channel columns are shuffled (the same permutation in
+    every row) so that chunks interleave, every output, the level reuses
+    included, is bit for bit the plain version's."""
+    s = _live_smoke_operands(cuda)
+    perm = torch.randperm(s["busy"].shape[1], generator=torch.Generator().manual_seed(3))
+    for name in ("busy", "dead", "rem", "cap", "chunk_of"):
+        s[name] = s[name][:, perm.to(cuda)].contiguous()
+    want = fs.fused_rounds_plain(s, max_steps)
+    fs.fused_rounds(s, max_steps)
+    torch.cuda.synchronize()
+    assert fs.fused_rounds.reuses is s["reuses"] and int(s["reuses"].sum()) > 0
+    for name, v in want.items():
+        if v.dtype == torch.float64:
+            torch.testing.assert_close(s[name], v, rtol=0, atol=0, equal_nan=True, msg=name)
+        else:
+            assert torch.equal(s[name], v), name
+
+
+def test_fused_rounds_probe_splits_the_step_and_keeps_the_results(cuda):
+    """The probe build gives the unprobed kernel's results bit for bit and
+    each active row's cycles by phase (every phase of a stepping row
+    positive but the profile's, which a row without a profile may skip)."""
+    s = _live_smoke_operands(cuda)
+    ref = {k: v.clone() for k, v in s.items()}
+    fs.fused_rounds(ref, 64)
+    before = fs.fused_rounds_probe.launches
+    cycles = fs.fused_rounds_probe(s, 64)
+    torch.cuda.synchronize()
+    assert fs.fused_rounds_probe.launches == before + 1
+    assert cycles.shape == (s["act"].shape[0], len(fs.PROBE_PHASES))
+    for name, v in ref.items():
+        if v.dtype == torch.float64:
+            torch.testing.assert_close(s[name], v, rtol=0, atol=0, equal_nan=True, msg=name)
+        else:
+            assert torch.equal(s[name], v), name
+    stepped = s["act"] & (s["steps"] > 1)
+    assert bool((cycles[~s["act"]] == 0).all())
+    level = fs.PROBE_PHASES.index("level")
+    assert bool((cycles[stepped][:, level] > 0).all())
+
+
 @pytest.mark.parametrize("max_steps", [1, 16, fs.ROUND_CAP])
 def test_coupled_loop_matches_its_plain_version_on_the_card(cuda, max_steps):
     """The coupled loop kernel on a live tenant-smoke state against its
