@@ -2897,14 +2897,17 @@ def tenant_phase(wf, fs, by_path, smi):
         fail_if(st.host_transitions != 0,
                 f"tenant matrix ({route}): {st.host_transitions} rows left a transition to the host")
         if route == "rounds":
-            # the launch's least time: its row steps' halvings and the
-            # Jacobi sweeps its blocks ran (the profiled run's count)
+            # the launch's least time: the halvings of the descents its
+            # inputs need (row steps less level reuses) and the Jacobi
+            # sweeps its blocks ran (the profiled run's count)
             drv = TorchFabricSimulation(build_plan(ten), device="cuda")
             sweeps = fs.fused_rounds_coupled.sweeps
-            ops = 2 * 80 * drv.C * st.steps + coupling_ops(sweeps, drv._fab["layout"])
+            descents = st.steps - st.level_reuses
+            ops = 2 * 80 * drv.C * descents + coupling_ops(sweeps, drv._fab["layout"])
             print(f"[tenant] the coupled loop kernel's launch: {int(sweeps.sum())} Jacobi sweeps "
                   f"in {sweeps.numel()} blocks; bound {ops / FP64_FLOPS * 1e6:.3f} us "
-                  f"(operations: {st.steps} row steps x 80 halvings x {drv.C} channels x 2 and "
+                  f"(operations: {descents} descents ({st.steps} row steps less "
+                  f"{st.level_reuses} level reuses) x 80 halvings x {drv.C} channels x 2 and "
                   f"the sweeps' solves, {ops / 1e9:.4f} GFLOP)", flush=True)
     fail_if(launches["rounds"]["fused_rounds_coupled"] == 0,
             "tenant matrix: the coupled loop kernel was never launched on its path")

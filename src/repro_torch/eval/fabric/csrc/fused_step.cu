@@ -20,7 +20,8 @@
 //      the chunk's per-file dead time. qptr, pn and queue_bytes advance per
 //      chunk. The one-step kernel has no stack (pn = 0).
 //
-// Two entry points share it:
+// Entry points (fused_rounds_coupled_f64, the loop for shared fabrics, has
+// its section below):
 //   * fused_step_f64, the Pallas kernel's counterpart: one step of every
 //     active row, written to new outputs dt, rate_sum (S,), fin_any (S,),
 //     busy, dead, rem, moved (S, C), qptr (S, K), queue_bytes (S, K);
@@ -43,26 +44,44 @@
 //     open more channels than the row has free columns, walked over the
 //     column counts first; a ProMC tick with a chunk's stack at P) stop
 //     the row before the transition, which the host then takes. The
-//     driver's own tensors are updated in place.
+//     driver's own tensors are updated in place; `reuses` gets each row's
+//     steps that took the last step's water level;
+//   * fused_rounds_probe_f64, the same loop for rows of C <= 32 with SM
+//     cycles by step phase (enum Phase) added into an (S, kPhases) output.
 // bool tensors are 1 byte, int64 stays int64.
 //
 // What bounds it on an H100: latency, not bytes. A row moves ~40 bytes per
 // channel and ~50 per chunk a step, but a step is a chain of dependent
-// warp-wide steps, and the sweep runs one step after another. The design
-// gives each row one warp and keeps its channels in registers from the
+// warp-wide steps, the sweep runs one step after another, and the full grid
+// waits on its longest rows (14,834 steps, nearly all of them ticks on one
+// channel). Each row has one warp; its channels stay in registers from the
 // first load to the last store (lanes stride over C; the bucketed C is
-// 4..32, one tile; a compaction stages them through shared memory), and,
-// in the loop, its per-chunk state in shared memory
-// for the whole launch. The water level's 80 halvings are the longest part
-// of the chain; with the row in one tile they run as 16 rounds of a 32-way
-// descent (water_level). Per-chunk sums (files fed, bytes fed, bytes moved,
-// busy channels) are serial column loops over shared memory, one lane a
-// chunk, instead of a warp-wide sum a chunk. The transition's decisions
-// (laggard grants, the ProMC check, the SC guard's walk) are serial loops
-// over K, on lane 0 or on every lane alike; they run only on steps with a
-// completion or a tick. Any C up to 1024 and K up to
-// 1024 is handled (fewer warps a block where the shared memory needs it);
-// the wrapper refuses larger shapes.
+// 4..32, one tile; a compaction stages them through shared memory), its
+// per-chunk state in shared memory for the whole launch. The probe build
+// (fused_rounds_probe_f64) reads clock64() at the phase boundaries of each
+// step. On that longest row the step of the first port took 14,163 SM
+// cycles: 8,608 in the water level (16 rounds of the 32-way descent,
+// water_level), then the feed (1,501), the transition (1,453), the
+// after-step sums (1,028) and the horizon (713). The step now:
+//   * keeps what the next step may take again (RowCache): the water level
+//     and its rate sum, the caps' total and largest, the disk aggregate and
+//     the profile lookup, each taken only when its inputs are bit for bit
+//     the last ones' (on a tick of a row whose files run on, all of them);
+//   * skips the feed where no column can take a file;
+//   * sums per chunk over a ballot of the columns that carry something, in
+//     column order (each_column), and reads the busy columns only when a
+//     chunk is drained;
+//   * takes the horizon's min in two 32-bit reductions (warp_min_nonneg)
+//     and keeps a zero dividend off the division's slow routine (quot).
+// That row's step is ~3,300 cycles; the transition (~950, the tick's rate
+// EMA) and the after-step sums (~830) lead it, each a short chain of shared
+// loads, shuffles and float64 operations whose latency the split does not
+// break down further (PERF.md §5). The transition's decisions (laggard
+// grants, the ProMC check, the SC guard's walk) are serial loops over K,
+// on lane 0 or on every lane alike; they run only on steps with a
+// completion or a tick. Any C up to 1024 and K up to 1024 is handled
+// (fewer warps a block where the shared memory needs it); the wrapper
+// refuses larger shapes.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -84,12 +103,6 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
-__device__ __forceinline__ double warp_max(double v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmax(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
 __device__ __forceinline__ double warp_min(double v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmin(v, __shfl_xor_sync(kFull, v, o));
@@ -103,12 +116,6 @@ __device__ __forceinline__ double warp_min(double v) {
 __device__ __forceinline__ double quot(double n, double d) {
   if (n == 0.0 && d > 0.0) return n;
   return n / d;
-}
-
-__device__ __forceinline__ long long warp_sum_ll(long long v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
 }
 
 // A row's channels in registers: column t * 32 + lane in tile t. Columns
@@ -149,6 +156,7 @@ struct CacheSmem;
 
 struct WarpSmem {
   CacheSmem* cache;  // the row's cached step values (RowCache)
+  double* col_c;     // the row's cached caps (RowCache)
   double* col_f;  // caps for the descent; fed file sizes; moved bytes; staging
   double* col_g;  // staging of a compaction (the loop only)
   double* col_h;  // staging of a compaction (the loop only)
@@ -174,10 +182,10 @@ struct Step {
 //   * the disk aggregate of disk_pool is a function of n_t;
 //   * the bandwidth profile's multiplier and next step stay those of the
 //     last lookup while t (which never decreases) is below that next step.
-// The caps stay in registers (a lane its columns'); the warp-uniform values
-// live in the warp's shared memory, where every lane writes the same value
-// and reads back its own write: registers are scarce around the 32-column
-// descent.
+// Everything lives in the warp's shared memory (registers are scarce
+// around the 32-column descent and in wide rows): the caps a lane its own
+// columns', the warp-uniform values written by every lane alike, each lane
+// reading back its own write.
 struct CacheSmem {
   double total, hi;                 // the cached caps' sum and largest
   double pool_eff, level, rsum;     // the level they give, its rate sum
@@ -190,13 +198,13 @@ constexpr size_t kCacheBytes = sizeof(CacheSmem);
 template <int T>
 struct RowCache {
   CacheSmem* sh;
-  double caps[T] = {};   // the last step's transferring caps (per lane)
+  double* caps;          // the last step's transferring caps, a padded column each
   long long reuses = 0;
   bool valid = false;    // the level belongs to caps
   bool same = false;     // this step's caps are caps (row_load)
   bool hit = false;      // this step took the cached level (row_level)
   bool prof = false;     // prof_bw and prof_next hold a lookup
-  __device__ explicit RowCache(CacheSmem* s) : sh(s) {
+  __device__ RowCache(CacheSmem* s, double* c) : sh(s), caps(c) {
     if (s != nullptr) s->n_t = -1;  // no aggregate yet
   }
 };
@@ -208,10 +216,9 @@ __device__ __forceinline__ long long bits(double x) { return __double_as_longlon
 template <int T, int CW>
 constexpr int kLoopCols = CW > 0 ? CW : 32 * T;
 
-// Visits the columns of the ballot `m` of a tile (the same mask on every
-// lane) in column order: f(src) on every lane for each set lane src, which
-// shuffles what it needs from that column's lane. The trip count is
-// popc(m) on every lane, so the shuffles inside run converged.
+// Visits the columns of the ballot `m` of a tile in column order: f(src)
+// for each set lane src. With the same m on every lane the trip count is
+// the same on every lane, so shuffles inside f run converged.
 template <typename F>
 __device__ __forceinline__ void each_column(unsigned m, F f) {
   for (; m != 0u; m &= m - 1u) f(__ffs(m) - 1);
@@ -281,13 +288,14 @@ __device__ __forceinline__ void feed_row(Channels<T>& c, bool enabled, const Que
   // valid below: busy and rem keep their values, dead adds 0.0, and each
   // chunk's qptr + 0 and pn - 0 are qptr and pn and qb - 0.0 is qb bit for
   // bit (x - (+0) = x for every x, -0 included), so the feed is skipped.
-  bool idle[T], can = false;
+  bool can = false;
 #pragma unroll
   for (int t = 0; t < T; ++t) {
     // a column outside the chunk table has no queue to feed from
     const int k = c.ch[t];
-    idle[t] = k >= 0 && k < K && !c.busy[t] && enabled;
-    if (idle[t]) can = can || (q.pn != nullptr && q.pn[k] > 0) || q.qptr[k] < q.qlen[k];
+    if (k >= 0 && k < K && !c.busy[t] && enabled) {
+      can = can || (q.pn != nullptr && q.pn[k] > 0) || q.qptr[k] < q.qlen[k];
+    }
   }
   if (!__any_sync(kFull, can)) {
 #pragma unroll
@@ -303,74 +311,69 @@ __device__ __forceinline__ void feed_row(Channels<T>& c, bool enabled, const Que
     __syncwarp();
   }
   const unsigned lt = (1u << lane) - 1u;
-  int key_q[T], key_p[T];  // the chunk a column fed from its queue / stack, else -1
-  double sz[T];
+  unsigned m_fed[T];  // the columns fed, a ballot a tile
 #pragma unroll
   for (int t = 0; t < T; ++t) {
+    const int col = t * 32 + lane;
     const int k = c.ch[t];
-    const unsigned grp = __match_any_sync(kFull, idle[t] ? k : -2 - lane);  // non-idle match none
-    int rank = idle[t] ? __popc(grp & lt) : -1;
+    const bool idle = k >= 0 && k < K && !c.busy[t] && enabled;  // busy[t] is still the step's
+    const unsigned grp = __match_any_sync(kFull, idle ? k : -2 - lane);  // non-idle match none
+    int rank = idle ? __popc(grp & lt) : -1;
     if constexpr (T > 1) {  // idle channels of the chunk in earlier tiles
-      if (idle[t]) rank += sm.base[k];
+      if (idle) rank += sm.base[k];
       __syncwarp();
-      if (idle[t] && (grp & lt) == 0) sm.base[k] += __popc(grp);
+      if (idle && (grp & lt) == 0) sm.base[k] += __popc(grp);
       __syncwarp();
     }
     bool valid = false, pre = false;
-    double fsdt_c = 0.0;
-    sz[t] = 0.0;
-    if (idle[t]) {
+    double sz = 0.0, fsdt_c = 0.0;
+    if (idle) {
       const long long pn_c = q.pn != nullptr ? q.pn[k] : 0;
       if (rank < pn_c) {
         long long d = pn_c - 1 - rank;
         d = d < 0 ? 0 : (d > q.P - 1 ? q.P - 1 : d);
         valid = pre = true;
-        sz[t] = q.psizes[(long long)k * q.P + d];
+        sz = q.psizes[(long long)k * q.P + d];
       } else {
         const long long fidx = q.qptr[k] + rank - pn_c;
         valid = fidx < q.qlen[k];
         long long flat = q.qoff[k] + fidx;
         flat = flat < 0 ? 0 : (flat > Q - 1 ? Q - 1 : flat);
-        sz[t] = valid ? qsizes[flat] : 0.0;
+        sz = valid ? qsizes[flat] : 0.0;
       }
       fsdt_c = q.fsdt[k];
     }
     c.busy[t] = c.busy[t] || valid;
-    c.rem[t] = valid ? sz[t] : c.rem[t];
+    c.rem[t] = valid ? sz : c.rem[t];
     c.dead[t] = c.dead[t] + (valid ? fsdt_c : 0.0);
-    key_q[t] = valid && !pre ? k : -1;
-    key_p[t] = pre ? k : -1;
+    m_fed[t] = __ballot_sync(kFull, valid);
+    sm.col_f[col] = sz;
+    sm.col_k[col] = valid && !pre ? k : -1;
+    sm.col_b[col] = pre ? k : -1;
   }
+  __syncwarp();
   // files and bytes fed per chunk, over the columns that fed it in column
   // order (sizes are integer-valued doubles: the sum is exact)
-  unsigned m_fed[T];
-#pragma unroll
-  for (int t = 0; t < T; ++t) m_fed[t] = __ballot_sync(kFull, key_q[t] >= 0 || key_p[t] >= 0);
-  for (int k0 = 0; k0 < K; k0 += 32) {
-    const int k = k0 + lane;
+  for (int k = lane; k < K; k += 32) {
     long long cnt = 0, popped = 0;
     double fed = 0.0;
 #pragma unroll
     for (int t = 0; t < T; ++t) {
       each_column(m_fed[t], [&](int src) {
-        const double x = __shfl_sync(kFull, sz[t], src);
-        const int kq = __shfl_sync(kFull, key_q[t], src);
-        const int kp = __shfl_sync(kFull, key_p[t], src);
-        if (kq == k) {
+        const int col = t * 32 + src;
+        if (sm.col_k[col] == k) {
           ++cnt;
-          fed += x;
+          fed += sm.col_f[col];
         }
-        if (kp == k) {
+        if (sm.col_b[col] == k) {
           ++popped;
-          fed += x;
+          fed += sm.col_f[col];
         }
       });
     }
-    if (k < K) {
-      q.qptr_out[k] = q.qptr[k] + cnt;
-      q.qb_out[k] = q.qb[k] - fed;
-      if (q.pn != nullptr) q.pn[k] -= popped;
-    }
+    q.qptr_out[k] = q.qptr[k] + cnt;
+    q.qb_out[k] = q.qb[k] - fed;
+    if (q.pn != nullptr) q.pn[k] -= popped;
   }
   __syncwarp();
 }
@@ -381,7 +384,7 @@ __device__ __forceinline__ void feed_row(Channels<T>& c, bool enabled, const Que
 // caps are its own (cache.same).
 template <int T>
 __device__ __forceinline__ double row_load(const Channels<T>& c, const Link& link, bool (&tr)[T],
-                                           double (&caps)[T], RowCache<T>& cache) {
+                                           double (&caps)[T], RowCache<T>& cache, int lane) {
   long long n_t = 0;
   bool eq = cache.valid;
 #pragma unroll
@@ -389,7 +392,7 @@ __device__ __forceinline__ double row_load(const Channels<T>& c, const Link& lin
     tr[t] = c.busy[t] && c.dead[t] <= kEps;
     caps[t] = tr[t] ? c.cap[t] : 0.0;
     n_t += __popc(__ballot_sync(kFull, tr[t]));
-    eq = eq && bits(caps[t]) == bits(cache.caps[t]);
+    eq = eq && bits(caps[t]) == bits(cache.caps[t * 32 + lane]);
   }
   cache.same = __all_sync(kFull, eq);
   if (!cache.same) {
@@ -398,10 +401,10 @@ __device__ __forceinline__ double row_load(const Channels<T>& c, const Link& lin
     for (int t = 0; t < T; ++t) {
       total += caps[t];
       hi = fmax(hi, caps[t]);
-      cache.caps[t] = caps[t];
+      cache.caps[t * 32 + lane] = caps[t];
     }
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {  // warp_sum's and warp_max's butterflies, side by side
+    for (int o = 16; o > 0; o >>= 1) {  // the sum's and the max's butterflies, side by side
       total += __shfl_xor_sync(kFull, total, o);
       hi = fmax(hi, __shfl_xor_sync(kFull, hi, o));
     }
@@ -509,8 +512,8 @@ __device__ __forceinline__ Step row_step(Channels<T>& c, double (&moved)[T], boo
   bool tr[T];
   double caps[T], rate[T];
   double rsum;
-  RowCache<T> cache(sm.cache);
-  const double pool = row_load<T>(c, link, tr, caps, cache);
+  RowCache<T> cache(sm.cache, sm.col_c);
+  const double pool = row_load<T>(c, link, tr, caps, cache, lane);
   const double level = row_level<T, CW>(caps, pool, cache, sm.col_f, lane);
   const double dt = row_horizon<T>(c, tr, caps, level, enabled, tick_dt, rate, rsum, cache);
   const bool fin = row_move<T>(c, tr, rate, dt, enabled, moved);
@@ -574,11 +577,11 @@ struct StepArgs {
   int warps;
 };
 
-// Shared memory of one warp: the row cache's values, col_f (8 bytes a
-// padded column), col_k and col_b (4 each), base (4 a chunk), rounded up to
-// 8 bytes.
+// Shared memory of one warp: the row cache's values, col_c and col_f (8
+// bytes a padded column each), col_k and col_b (4 each), base (4 a chunk),
+// rounded up to 8 bytes.
 __host__ __device__ inline size_t step_warp_bytes(int T, int K) {
-  return kCacheBytes + ((size_t)512 * T + (size_t)4 * K + 7) / 8 * 8;
+  return kCacheBytes + ((size_t)768 * T + (size_t)4 * K + 7) / 8 * 8;
 }
 
 template <int T, int CW>
@@ -593,7 +596,8 @@ __global__ void fused_step_kernel(StepArgs a) {
   unsigned char* w = smem + warp * step_warp_bytes(T, K);
   WarpSmem sm{};
   sm.cache = reinterpret_cast<CacheSmem*>(w);
-  sm.col_f = reinterpret_cast<double*>(w + kCacheBytes);
+  sm.col_c = reinterpret_cast<double*>(w + kCacheBytes);
+  sm.col_f = sm.col_c + 32 * T;
   sm.col_k = reinterpret_cast<int*>(sm.col_f + 32 * T);
   sm.col_b = sm.col_k + 32 * T;
   sm.base = sm.col_b + 32 * T;
@@ -722,10 +726,10 @@ struct ChunkSmem {
 };
 
 // Per-chunk arrays of one warp: fifteen of 8 bytes, nine of 4 (with the
-// feed's base); per column three of 8 bytes and three of 4; the row
+// feed's base); per column four of 8 bytes and three of 4; the row
 // cache's values.
 __host__ __device__ inline size_t round_warp_bytes(int T, int K) {
-  return kCacheBytes + (size_t)8 * (96 * T + 15 * K) + (size_t)4 * (96 * T + 10 * K);
+  return kCacheBytes + (size_t)8 * (128 * T + 15 * K) + (size_t)4 * (96 * T + 10 * K);
 }
 
 // A row's controller and link constants.
@@ -928,7 +932,8 @@ __device__ __forceinline__ void setup_row(const RoundArgs& a, long long row, uns
   // shared memory: the row cache's values, 8-byte arrays, then 4-byte ones
   sm.cache = reinterpret_cast<CacheSmem*>(w);
   double* f8 = reinterpret_cast<double*>(w + kCacheBytes);
-  sm.col_f = f8;
+  sm.col_c = f8;
+  sm.col_f = sm.col_c + 32 * T;
   sm.col_g = sm.col_f + 32 * T;
   sm.col_h = sm.col_g + 32 * T;
   ck.qoff = reinterpret_cast<long long*>(sm.col_h + 32 * T);
@@ -1528,7 +1533,7 @@ __global__ void fused_rounds_kernel(RoundArgs a) {
   Link link{env.rc.bw, env.rc.disk_rate, env.rc.contention, env.rc.sat_cc};
   bool row_done = false;
   long long stop = 0;
-  RowCache<T> cache(sm.cache);
+  RowCache<T> cache(sm.cache, sm.col_c);
   PhaseClock<Probe> clk;
   clk.start();
 
@@ -1547,7 +1552,7 @@ __global__ void fused_rounds_kernel(RoundArgs a) {
     bool tr[T];
     double caps[T], rate[T], moved[T];
     double rsum;
-    const double pool = row_load<T>(c, link, tr, caps, cache);
+    const double pool = row_load<T>(c, link, tr, caps, cache, lane);
     clk.mark(kPhLoad);
     const double level = row_level<T, CW>(caps, pool, cache, sm.col_f, lane);
     clk.mark(kPhLevel);
@@ -1740,7 +1745,7 @@ __global__ void __launch_bounds__(32 * kGroupRows) fused_rounds_coupled_kernel(R
                  st, lane);
   }
   Link link{env.rc.bw, env.rc.disk_rate, env.rc.contention, env.rc.sat_cc};
-  RowCache<T> cache(act ? sm.cache : nullptr);
+  RowCache<T> cache(act ? sm.cache : nullptr, sm.col_c);
   bool live = act, row_done = false;
   long long stop = 0, gsteps = 0, nsweeps = 0;
 
@@ -1759,7 +1764,7 @@ __global__ void __launch_bounds__(32 * kGroupRows) fused_rounds_coupled_kernel(R
       err = row_error<T, CW>(c, ck, sm, env, st, lane) ? 1 : 0;
       if (!err) {
         next_prof = row_profile<T>(env, st.t, link, cache, lane);
-        pool = row_load<T>(c, link, tr, caps, cache);
+        pool = row_load<T>(c, link, tr, caps, cache, lane);
       }
     }
     if (lane == 0) {
