@@ -22,8 +22,16 @@ Phases, each printing its own lines:
      cap), with resume files and with recording rows (a ring of 8 samples),
      on the default grid with 32 and 64 channel columns (the wide rows'
      one-halving-at-a-time water level) and on a live full-grid chunk, then
-     on that chunk at the main path's cap of 2,048 steps, timed (per launch
-     and per step of the longest row), the coupled loop kernel
+     on both full-grid runner chunks (1,024 and 92 rows) at the main path's
+     cap of 2,048 steps, timed (per launch and per step of the longest
+     row), every case bit for bit with the level reuses equal to the plain
+     count; the loop kernel's probe build on both chunks (SM cycles a step
+     of the longest row by phase, beside the sampled SM clock; its results
+     bit for bit the unprobed kernel's); the loop kernels' registers (no
+     spill at C <= 32); with --parent DIR every loop-kernel case also bit
+     for bit the parent checkout's kernels, timed against them in turns
+     (and, after phase 5, the full grid and the oracle plane); the coupled
+     loop kernel
      (fused_rounds_coupled, one block a fabric group) against its plain
      version bit for bit on a live tenant-smoke state at caps of 1, 16, 256
      and 2,048 steps, with members pushed to max_time and to the SC guard
@@ -59,7 +67,8 @@ Phases, each printing its own lines:
      and read just after; rows/s of each; the two held to each other over
      every row (total_time, throughput, per-chunk bytes within 1e-6
      relative; rows whose event counts differ are counted and listed);
-     host transitions and post-row replays 0 on both; the "rounds" route's host rounds must be
+     host transitions and post-row replays 0 on both, the level reuses of
+     each printed; the "rounds" route's host rounds must be
      the launches each runner chunk's longest row needs at 2,048 steps a
      launch; a
      sample of 64 rows must match the port's own CPU run (plain kernel
