@@ -37,8 +37,14 @@ Phases, each printing its own lines:
      and 2,048 steps, with members pushed to max_time and to the SC guard
      (their groups stop with them), on the default grid's uncoupled rows as
      groups of one (bit for bit the uncoupled loop kernel) and on the live
-     206-row tenant matrix at 64 steps, timed (the bound counts the Jacobi
-     sweeps the kernel ran), the loop kernel on a live mixed batch whose
+     206-row tenant matrix at 64 and 2,048 steps, timed (the bound counts
+     the Jacobi sweeps the kernel ran), its level reuses and reused solves
+     the plain version's counts; the coupled kernel's probe build on the
+     tenant matrix at 2,048 steps (bit for bit the unprobed kernel; SM
+     cycles a group step of the longest group by phase, the barrier waits
+     and the solve's sweeps included, beside the sampled SM clock, and as a
+     yardstick the same rows through the uncoupled probe, each on its own
+     pool); the loop kernel on a live mixed batch whose
      rows include custom-scheduler rows (each stops at its first callback
      event, transition.STOP_CUSTOM) bit for bit, the WKV-6 kernel at the serving
      run's prefill and decode
@@ -1668,6 +1674,86 @@ def probe_split(fs, cases):
     return out
 
 
+def coupled_probe_split(fs, tenant_state, cap):
+    """Phase 3, the coupled loop kernel's group step split by phase: the
+    probe build (fs.fused_rounds_coupled_probe) on a copy of the live tenant
+    matrix at ``cap`` group steps beside the unprobed kernel on another, its
+    results and sweeps bit for bit the unprobed kernel's; then, for the
+    longest group (the block of most group steps), SM cycles a group step by
+    phase (fs.COUPLED_PROBE_PHASES): the slowest member's and the members'
+    mean, the waits at the block's barriers included, beside the SM clock
+    nvidia-smi samples while the probe runs. As a yardstick only, the same
+    rows through the uncoupled probe (fs.fused_rounds_probe), each on its
+    own pool and its own SM's share: cycles a step by phase (the members'
+    mean and the slowest member's), what a member's own step costs when it
+    shares no barrier. Returns the split's row."""
+    import torch
+
+    s0, fab = tenant_state
+    want = {k: v.clone() for k, v in s0.items()}
+    got = {k: v.clone() for k, v in s0.items()}
+    fs.fused_rounds_coupled(want, fab, cap)
+    want_counts = [fs.fused_rounds_coupled.sweeps.clone(),
+                   fs.fused_rounds_coupled.solve_reuses.clone()]
+    before = fs.fused_rounds_coupled_probe.launches
+    cycles = fs.fused_rounds_coupled_probe(got, fab, cap)
+    torch.cuda.synchronize()
+    fail_if(fs.fused_rounds_coupled_probe.launches != before + 1,
+            "fused_rounds_coupled_probe: no launch")
+    label = f"fused_rounds_coupled_probe tenant matrix, cap {cap}"
+    identical(got, list(want.values()), label)
+    identical({"sweeps": fs.fused_rounds_coupled_probe.sweeps,
+               "solve_reuses": fs.fused_rounds_coupled_probe.solve_reuses}, want_counts, label)
+    rows_of = fab["layout"]["rows"].cpu()
+    steps = want["steps"].cpu()
+    gsteps = [int(steps[r[r >= 0]].max()) for r in rows_of]
+    g = max(range(len(gsteps)), key=gsteps.__getitem__)
+    members = rows_of[g][rows_of[g] >= 0]
+    n = gsteps[g]
+    per = cycles.cpu()[members].double() / n  # (members, phases)
+    slowest, mean = per.max(dim=0).values.tolist(), per.mean(dim=0).tolist()
+    total = float(per.sum(dim=1).mean())
+
+    def clone_run(fn):
+        return lambda: fn({k: v.clone() for k, v in s0.items()}, fab, cap)
+
+    probe_ms = device_ms(clone_run(fs.fused_rounds_coupled_probe), 3,
+                         "fused_rounds_coupled_kernel")
+    kernel_ms = device_ms(clone_run(fs.fused_rounds_coupled), 3, "fused_rounds_coupled_kernel")
+    mhz, max_mhz = sampled_sm_clock(clone_run(fs.fused_rounds_coupled_probe), 5)
+    split = ", ".join(f"{k} {a:.0f} / {b:.0f}" for k, a, b in
+                      zip(fs.COUPLED_PROBE_PHASES, slowest, mean))
+    print(f"[probe] fused_rounds_coupled tenant matrix, cap {cap}: longest group {g} "
+          f"({len(members)} members, {n} group steps): {total:.0f} cycles a group step = "
+          f"{split} (phase: slowest member / members' mean) | probe launch {probe_ms:.4f} ms, "
+          f"unprobed {kernel_ms:.4f} ms; nvidia-smi SM clock {mhz:.0f} MHz sampled (max "
+          f"{max_mhz:.0f}) -> {total / mhz:.3f} us a group step at the sampled clock; bit for "
+          "bit the unprobed kernel, sweeps and reused solves included", flush=True)
+
+    # the yardstick: the same rows uncoupled, each on its own pool
+    solo = {k: v.clone() for k, v in s0.items()}
+    ycycles = fs.fused_rounds_probe(solo, cap).cpu()
+    torch.cuda.synchronize()
+    ysteps = solo["steps"].cpu()[members].double().clamp(min=1.0)
+    yper = ycycles[members].double() / ysteps.unsqueeze(-1)
+    ytotal = float(yper.sum(dim=1).mean())
+    ysplit = ", ".join(f"{k} {a:.0f} / {b:.0f}" for k, a, b in zip(
+        fs.PROBE_PHASES, yper.max(dim=0).values.tolist(), yper.mean(dim=0).tolist()))
+    print(f"[probe] yardstick: the longest group's {len(members)} rows uncoupled "
+          f"(fused_rounds_probe, each on its own pool; steps {ysteps.long().tolist()}): "
+          f"{ytotal:.0f} cycles a step (members' mean) = {ysplit} (phase: slowest member / "
+          f"members' mean); {ytotal / mhz:.3f} us a step at the sampled clock", flush=True)
+    return {
+        "entry": "fused_rounds_coupled_probe_f64", "group": g, "members": len(members),
+        "group_steps": n, "cycles_a_group_step": total,
+        "slowest_member": dict(zip(fs.COUPLED_PROBE_PHASES, slowest)),
+        "members_mean": dict(zip(fs.COUPLED_PROBE_PHASES, mean)),
+        "yardstick_cycles_a_step": ytotal,
+        "yardstick_mean": dict(zip(fs.PROBE_PHASES, yper.mean(dim=0).tolist())),
+        "sm_mhz": mhz, "probe_ms": probe_ms, "kernel_ms": kernel_ms,
+    }
+
+
 def round_events(s, out):
     """What the rows of one loop-kernel launch met, from its operands ``s``
     and the plain version's results ``out``: each stop code, and what rows
@@ -2154,6 +2240,32 @@ def identical(outs, refs, label):
     return 0.0
 
 
+def coupled_against_plain(fs, s0, fab, max_steps, label):
+    """The coupled loop kernel on a copy of ``s0`` against its plain version
+    (the host's wall time of which is timed), bit for bit, its level reuses
+    and its reused solves (fs.fused_rounds_coupled.solve_reuses) the plain
+    version's counts. Returns (the plain results, the kernel's operands,
+    the plain version's ms)."""
+    import torch
+
+    counts = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = fs.fused_rounds_coupled_plain(s0, fab, max_steps, counts=counts)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = {k: v.clone() for k, v in s0.items()}
+    before = fs.fused_rounds_coupled.launches
+    fs.fused_rounds_coupled(got, fab, max_steps)
+    torch.cuda.synchronize()
+    fail_if(fs.fused_rounds_coupled.launches != before + 1,
+            f"fused_rounds_coupled {label}: no launch")
+    identical({k: got[k] for k in want}, list(want.values()), f"fused_rounds_coupled {label}")
+    identical({"solve_reuses": fs.fused_rounds_coupled.solve_reuses}, [counts["solve_reuses"]],
+              f"fused_rounds_coupled {label}: reused solves")
+    return want, got, plain_ms
+
+
 def coupling_ops(sweeps, lay) -> int:
     """Floating-point operations of the group solves of a launch: each
     Jacobi sweep a block ran (the kernel's count, ``sweeps`` (G,)) solves
@@ -2200,15 +2312,9 @@ def coupled_rounds_checks(fs, smoke_state, tenant_state, default_state, parent=N
                   fab0, 2048, ("guard", "group")))
     worst = 0.0
     for label, s0, fab, max_steps, must in cases:
-        want = fs.fused_rounds_coupled_plain(s0, fab, max_steps)
-        got = {k: v.clone() for k, v in s0.items()}
-        before = fs.fused_rounds_coupled.launches
-        fs.fused_rounds_coupled(got, fab, max_steps)
-        torch.cuda.synchronize()
-        fail_if(fs.fused_rounds_coupled.launches != before + 1,
-                f"fused_rounds_coupled {label}: no launch")
-        worst = max(worst, identical({k: got[k] for k in want}, list(want.values()),
-                                     f"fused_rounds_coupled {label}"))
+        want, got, _ = coupled_against_plain(fs, s0, fab, max_steps, label)
+        n_sweeps = int(fs.fused_rounds_coupled.sweeps.sum())
+        n_reused = int(fs.fused_rounds_coupled.solve_reuses.sum())
         same_as_parent(fs, parent, got, s0, f"fused_rounds_coupled {label}",
                        lambda x: fs.fused_rounds_coupled(x, fab, max_steps))
         ev = round_events(s0, want)
@@ -2218,8 +2324,9 @@ def coupled_rounds_checks(fs, smoke_state, tenant_state, default_state, parent=N
         print(f"[kernels] fused_rounds_coupled {label}: S={s0['act'].shape[0]} "
               f"C={s0['busy'].shape[1]} K={s0['qptr'].shape[1]}; {int(want['steps'].sum())} row "
               f"steps (longest {int(want['steps'].max())}), {int(want['reuses'].sum())} level "
-              f"reuses; rows by stop and event {ev}; bit for bit the plain version, the reuses "
-              "its count" + ("" if parent is None else " and the parent's kernel"), flush=True)
+              f"reuses, {n_sweeps} Jacobi sweeps, {n_reused} reused solves; rows by stop and "
+              f"event {ev}; bit for bit the plain version, the reuses its counts"
+              + ("" if parent is None else " and the parent's kernel"), flush=True)
 
     # rows outside every group: groups of one, the uncoupled loop kernel's results
     S = default_state["act"].shape[0]
@@ -2237,17 +2344,10 @@ def coupled_rounds_checks(fs, smoke_state, tenant_state, default_state, parent=N
     # timing on the live tenant matrix
     s0, fab = tenant_state
     cap = COUPLED_TIMING_STEPS
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    want = fs.fused_rounds_coupled_plain(s0, fab, cap)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    got = {k: v.clone() for k, v in s0.items()}
-    fs.fused_rounds_coupled(got, fab, cap)
-    torch.cuda.synchronize()
+    want, got, plain_ms = coupled_against_plain(fs, s0, fab, cap,
+                                                f"tenant matrix, cap {cap}")
     sweeps = fs.fused_rounds_coupled.sweeps
-    identical({k: got[k] for k in want}, list(want.values()),
-              f"fused_rounds_coupled tenant matrix, cap {cap}")
+    solve_reuses = int(fs.fused_rounds_coupled.solve_reuses.sum())
     same_as_parent(fs, parent, got, s0, f"fused_rounds_coupled tenant matrix, cap {cap}",
                    lambda x: fs.fused_rounds_coupled(x, fab, cap))
     steps = int(want["steps"].sum())
@@ -2274,34 +2374,41 @@ def coupled_rounds_checks(fs, smoke_state, tenant_state, default_state, parent=N
         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None, "row_steps": steps, "longest": longest, "level_reuses": reuses,
         "groups": int(lay["rows"].shape[0]), "jacobi_sweeps": n_sweeps,
+        "solve_reuses": solve_reuses, "group_steps": group_steps,
         "ptxas": ptxas_of("fused_step", "fused_rounds_coupled_kernel"),
         "parent_ms": min(old) if old else None,
     }
     print(f"[kernels] fused_rounds_coupled tenant matrix S={S} C={C} in {row['groups']} blocks, "
           f"cap {cap}: {steps} row steps, longest row {longest}, {reuses} level reuses, "
           f"{n_sweeps} Jacobi sweeps over {group_steps} group steps "
-          f"({n_sweeps / max(group_steps, 1):.3f} a step); rows by stop and event {ev}; "
+          f"({n_sweeps / max(group_steps, 1):.3f} a step; {solve_reuses} group steps reused the "
+          f"last solve); rows by stop and event {ev}; "
           f"bit for bit the plain version | device {ab_text(new, old)} a launch; "
           f"{ab_text([x / longest for x in new], [x / longest for x in old], 1e3, '.3f', 'us')} "
           f"a group step of the longest | plain {plain_ms:.1f} ms | "
           f"bound {row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}: {nbytes / 1e6:.2f} MB, "
           f"{ops / 1e9:.4f} GFLOP) | ptxas {row['ptxas']}", flush=True)
 
-    # the main path's cap (the plain version takes ~30 ms a group step here:
-    # held to the parent's kernel instead, and timed against it)
+    # the main path's cap (the plain version takes ~30 ms a group step here,
+    # some 25 s in all: run once, not timed), and timed against the parent
     cap = fs.ROUND_CAP
-    got = {k: v.clone() for k, v in s0.items()}
-    fs.fused_rounds_coupled(got, fab, cap)
-    torch.cuda.synchronize()
+    got = coupled_against_plain(fs, s0, fab, cap, f"tenant matrix, cap {cap}")[1]
+    cap_sweeps = int(fs.fused_rounds_coupled.sweeps.sum())
+    cap_reused = int(fs.fused_rounds_coupled.solve_reuses.sum())
+    cap_group_steps = sum(int(got["steps"].cpu()[r[r >= 0]].max()) for r in rows_of)
     same_as_parent(fs, parent, got, s0, f"fused_rounds_coupled tenant matrix, cap {cap}",
                    lambda x: fs.fused_rounds_coupled(x, fab, cap))
     longest = int(got["steps"].max())
     new, old = ab_ms(fs, parent, lambda: fs.fused_rounds_coupled(
         {k: v.clone() for k, v in s0.items()}, fab, cap), 3, "fused_rounds_coupled_kernel")
     row["cap_ms"], row["cap_parent_ms"] = min(new), (min(old) if old else None)
+    row.update(cap_group_steps=cap_group_steps, cap_jacobi_sweeps=cap_sweeps,
+               cap_solve_reuses=cap_reused)
     print(f"[kernels] fused_rounds_coupled tenant matrix, cap {cap}: {int(got['steps'].sum())} "
-          f"row steps, longest row {longest}, {int(got['reuses'].sum())} level reuses"
-          + ("" if parent is None else "; bit for bit the parent's kernel")
+          f"row steps, longest row {longest}, {int(got['reuses'].sum())} level reuses, "
+          f"{cap_sweeps} Jacobi sweeps over {cap_group_steps} group steps, {cap_reused} reused "
+          "solves; bit for bit the plain version, the reuses its counts"
+          + ("" if parent is None else ", and the parent's kernel")
           + f" | device {ab_text(new, old)} a launch; "
           f"{ab_text([x / longest for x in new], [x / longest for x in old], 1e3, '.3f', 'us')} "
           "a group step of the longest", flush=True)
@@ -2914,7 +3021,9 @@ def tenant_phase(wf, fs, by_path, smi):
             descents = st.steps - st.level_reuses
             ops = 2 * 80 * drv.C * descents + coupling_ops(sweeps, drv._fab["layout"])
             print(f"[tenant] the coupled loop kernel's launch: {int(sweeps.sum())} Jacobi sweeps "
-                  f"in {sweeps.numel()} blocks; bound {ops / FP64_FLOPS * 1e6:.3f} us "
+                  f"in {sweeps.numel()} blocks, "
+                  f"{int(fs.fused_rounds_coupled.solve_reuses.sum())} group steps reused the last "
+                  f"solve; bound {ops / FP64_FLOPS * 1e6:.3f} us "
                   f"(operations: {descents} descents ({st.steps} row steps less "
                   f"{st.level_reuses} level reuses) x 80 halvings x {drv.C} channels x 2 and "
                   f"the sweeps' solves, {ops / 1e9:.4f} GFLOP)", flush=True)
@@ -3195,10 +3304,12 @@ def main(argv) -> int:
     probe_split(fs, [("92-row full-grid chunk, cap 2048", tail_state, fs.ROUND_CAP),
                      ("1024-row full-grid chunk, cap 2048", chunk_state, fs.ROUND_CAP)])
     del chunk_state, tail_state
+    tenant_state = live_coupled_state(tenant_matrix(), 10)
     rows["fused_rounds_coupled"] = {"tenant": coupled_rounds_checks(
-        fs, live_coupled_state(tenant_matrix(n_groups=6), 10),
-        live_coupled_state(tenant_matrix(), 10), default_state, parent)}
-    del default_state
+        fs, live_coupled_state(tenant_matrix(n_groups=6), 10), tenant_state, default_state,
+        parent)}
+    coupled_probe = coupled_probe_split(fs, tenant_state, fs.ROUND_CAP)
+    del default_state, tenant_state
     fail_if(bool(spills), "; ".join(spills))
 
     launches = {k: 0 for k in rows}
@@ -3273,7 +3384,11 @@ def main(argv) -> int:
                                     "max_steps": COUPLED_TIMING_STEPS,
                                     "row_steps": row["row_steps"],
                                     "longest_row_steps": row["longest"],
-                                    "jacobi_sweeps": row["jacobi_sweeps"]}
+                                    "jacobi_sweeps": row["jacobi_sweeps"],
+                                    "solve_reuses": row["solve_reuses"]}
+            # the probe build: not on the path, its split of a group step
+            kernels[-1]["probe"] = {k: coupled_probe[k] for k in (
+                "entry", "group_steps", "cycles_a_group_step", "members_mean", "sm_mhz")}
         if name.startswith("flash_attention"):
             kernels[-1]["shape"].update(window=pick[7], dtype=pick[9])
         if name == "rwkv6_scan":  # the model's call, (B, T, H, D) in place

@@ -20,8 +20,9 @@
 //      the chunk's per-file dead time. qptr, pn and queue_bytes advance per
 //      chunk. The one-step kernel has no stack (pn = 0).
 //
-// Entry points (fused_rounds_coupled_f64, the loop for shared fabrics, has
-// its section below):
+// Entry points (fused_rounds_coupled_f64, the loop for shared fabrics, and
+// its probe build fused_rounds_coupled_probe_f64, with SM cycles by phase of
+// a group step (enum CoupledPhase), have their section below):
 //   * fused_step_f64, the Pallas kernel's counterpart: one step of every
 //     active row, written to new outputs dt, rate_sum (S,), fin_any (S,),
 //     busy, dead, rem, moved (S, C), qptr (S, K), queue_bytes (S, K);
@@ -82,6 +83,7 @@
 // completion or a tick. Any C up to 1024 and K up to 1024 is handled
 // (fewer warps a block where the shared memory needs it); the wrapper
 // refuses larger shapes.
+#include <climits>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -1482,30 +1484,38 @@ enum Phase {
 };
 
 // The probe's clock: mark(p) adds the cycles since the last mark to phase
-// p. Every lane reads clock64() (warp-uniform control flow); lane 0's sums
-// are written. A mark sits after the phase's last instruction in program
-// order; a load still in flight there is waited for in the next phase.
-template <bool On>
+// p of N. Every lane reads clock64() (warp-uniform control flow); lane 0's
+// sums are written. A mark sits after the phase's last instruction in
+// program order; a load still in flight there is waited for in the next
+// phase.
+template <bool On, int N = kPhases>
 struct PhaseClock {
-  long long last = 0, acc[kPhases] = {};
+  long long last = 0, acc[N] = {};
   __device__ __forceinline__ void start() { last = clock64(); }
   __device__ __forceinline__ void mark(int p) {
     const long long now = clock64();
     acc[p] += now - last;
     last = now;
   }
+  // mark(p) right after a barrier: the clock is read only under a
+  // predicate on a shared load issued after the barrier (`dep` is never
+  // INT_MIN), so that the compiler cannot read it ahead of the barrier.
+  __device__ __forceinline__ void mark_after(int p, const volatile int* dep) {
+    if (*dep != INT_MIN) mark(p);
+  }
   __device__ __forceinline__ void store(long long* out, int lane) const {
     if (lane == 0) {
 #pragma unroll
-      for (int p = 0; p < kPhases; ++p) out[p] = acc[p];
+      for (int p = 0; p < N; ++p) out[p] = acc[p];
     }
   }
 };
 
-template <>
-struct PhaseClock<false> {
+template <int N>
+struct PhaseClock<false, N> {
   __device__ __forceinline__ void start() {}
   __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void mark_after(int, const volatile int*) {}
   __device__ __forceinline__ void store(long long*, int) const {}
 };
 
@@ -1605,71 +1615,126 @@ constexpr int kGroupRows = 8;    // rows (warps) a group may have
 constexpr int kGroupLinks = 4;   // links a group may have
 constexpr int kCoupledIters = 12;  // Jacobi sweeps (kernels.COUPLED_ITERS)
 constexpr long long kStopGroup = 5;
+// the solve's lanes are link x row (4 x 8); the exchange's reads take its 8 slots
+static_assert(kGroupRows == 8 && kGroupLinks == 4, "a warp is 4 links x 8 rows");
 
 // The fabric layout (kernels.fused_step.fabric_layout): one block a group.
 struct CoupledArgs {
   const long long* rows;  // (G, R): the block's rows, -1 past them
   const long long* mask;  // (G, kGroupLinks): bit j = the block's row j rides the link
   const double* cap;      // (G, kGroupLinks): link capacities
-  long long* sweeps;      // (G,): the Jacobi sweeps the block ran
+  long long* counts;      // (2, G): the Jacobi sweeps each block ran, then the solves it reused
   long long G;
   int R;
 };
 
-// A block's shared exchange: per member warp its demand, grant and horizon,
-// and its flags for the block's uniform decisions.
+constexpr int kLevelSlots = 8;   // inputs a member's level memory keeps
+
+// A member's level memory: the last kLevelSlots distinct (caps, pool_eff)
+// inputs of its steps in the launch (its caps a lane its own column), each
+// with the level they give and its rate sum, and the member's step that
+// last took or filled it (0: empty). A member's grant moves with the other
+// members' demands and often returns to an earlier value, so the row
+// cache's last input alone would send most group steps to some member's
+// descent.
+struct LevelSlots {
+  double caps[kLevelSlots][32];
+  double pool_eff[kLevelSlots], level[kLevelSlots], rsum[kLevelSlots];
+  int stamp[kLevelSlots];
+};
+
+// A block's shared exchange: per member warp its flags (kFlag*) and demand,
+// written before barrier A, and its horizon, written before barrier B. The
+// slots of a block's warps past its rows (and past R) keep no flag and an
+// infinite horizon, so the reads after a barrier take all kGroupRows slots.
+// Then each member's level memory.
 struct GroupSmem {
-  double dem[kGroupRows], grant[kGroupRows], gdt[kGroupRows];
-  int err[kGroupRows], live[kGroupRows], guard[kGroupRows];
+  double dem[kGroupRows], gdt[kGroupRows];
+  int flags[kGroupRows];
+  LevelSlots mem[kGroupRows];
 };
 constexpr size_t kGroupBytes = (sizeof(GroupSmem) + 7) / 8 * 8;
+constexpr int kFlagErr = 1, kFlagLive = 2, kFlagGuard = 4;
+
+// min and max of the solve's values by a compare and a select: where no
+// value is NaN or -0 (levels, caps, demands and horizons are +0, positive
+// or +inf) they give fmin's and fmax's bits, in about a third of fmin's
+// latency on an H100 (`python -m repro_torch.bench.fp64_latency`).
+__device__ __forceinline__ double dmin(double x, double y) { return y < x ? y : x; }
+__device__ __forceinline__ double dmax(double x, double y) { return y > x ? y : x; }
+
+// The least of four values as a tree: min is exact, so with no NaN or -0
+// every order gives the same bits; a tree is two latencies deep where a
+// chain is four.
+__device__ __forceinline__ double min4(const double (&x)[4]) {
+  return dmin(dmin(x[0], x[1]), dmin(x[2], x[3]));
+}
 
 __device__ __forceinline__ void cmpswap(double& x, double& y) {
-  const double lo = fmin(x, y), hi = fmax(x, y);
+  const bool swap = y < x;
+  const double lo = swap ? y : x, hi = swap ? x : y;
   x = lo;
   y = hi;
 }
 
+// The coupled loop's phases of a group step, in the order a member warp
+// runs them: the probe build (fused_rounds_coupled_probe_f64) adds each
+// phase's SM cycles into its row of RoundArgs::cycles. kCpWait1 and
+// kCpWait2 are the waits at barriers A and B (from a warp's arrival to its
+// release); kCpFlags holds the reads of the members' flags and horizons
+// after them; kCpSolve the solve's reuse test and its grant, and
+// kCpExchange .. kCpTest its sweeps: the levels' exchange and the caps'
+// shuffles, the sort, the prefix and candidates, the ballot and the
+// fixed-point test.
+enum CoupledPhase {
+  kCpError, kCpProfile, kCpDemand, kCpWait1, kCpFlags, kCpSolve, kCpExchange, kCpSort,
+  kCpPrefix, kCpTest, kCpLevel, kCpHorizon, kCpWait2, kCpAdvance, kCpFeed, kCpAfterStep,
+  kCpTransition, kCpPhases
+};
+
 // The group's link grants (kernels.waterfill_coupled), on one warp: lane
 // l * 8 + j holds link l and, in each sweep, the cap of the group's row j
-// on it, then sorted position j. Per sweep each lane takes row j's lowest
-// level among its other links (a shuffle a link), caps it at its demand
-// (0 off the link), sorts link l's R caps (every lane of the link the same
-// network), sums the sorted prefix before position j in order (cumsum's),
-// and tests the candidate level (pool_eff - prefix) / (R - j) against the
-// sorted cap; the link's first valid position gives its level, +inf where
-// the link's capacity covers the total. A sweep whose levels equal the last
-// is the fixed point: the sweeps stop there, as 12 would end. Lanes 0..R-1
-// write grant[j] = min(demand_j, the lowest level of row j's links).
-// Returns the sweeps run.
-__device__ __forceinline__ int coupled_shares(GroupSmem& gs, const long long (&m)[kGroupLinks],
-                                              double capl, int R, int lane) {
+// (demand dj) on it, then sorted position j. Per sweep each lane takes row
+// j's lowest level among its other links (a shuffle a link), caps it at its
+// demand (0 off the link), sorts link l's R caps (every lane of the link the
+// same network), sums the sorted prefix before position j in order
+// (cumsum's), and tests the candidate level (pool_eff - prefix) / (R - j)
+// against the sorted cap; the link's first valid position gives its level,
+// +inf where the link's capacity covers the total. A lane past the rows
+// (j >= R) divides by 1 (its candidate is never valid), and a zero dividend
+// (a link without demand) takes quot's exact shortcut: no lane calls the
+// division's slow routine. A sweep whose levels equal the last is the fixed
+// point: the sweeps stop there, as 12 would end. Returns row w's grant,
+// min(demand_w, the lowest level of its links), on every lane, and adds the
+// sweeps run into `sweeps`; `clk` splits the sweeps (the probe build).
+template <typename Clock>
+__device__ __forceinline__ double coupled_grant(double dj, const long long (&m)[kGroupLinks],
+                                                double capl, int R, int w, int lane,
+                                                long long& sweeps, Clock& clk) {
   const int l = lane >> 3, j = lane & 7;
   const bool rowj = j < R;
-  const double dj = rowj ? gs.dem[j] : 0.0;
   const bool mem = rowj && ((m[l] >> j) & 1);
+  const double den = rowj ? (double)(R - j) : 1.0;
   double level = INFINITY;
   int it = 0;
-  while (it < kCoupledIters) {
-    double ex = INFINITY;
-#pragma unroll
-    for (int l2 = 0; l2 < kGroupLinks; ++l2) {
-      const double lv = __shfl_sync(kFull, level, l2 * 8);
-      if (l2 != l && ((m[l2] >> j) & 1)) ex = fmin(ex, lv);
-    }
-    const double cap = mem ? fmin(dj, ex) : 0.0;
+  // the first sweep's levels are all +inf: each cap is the row's demand
+  double cap = mem ? dj : 0.0;
+  clk.mark(kCpSolve);
+  for (;;) {
     double v[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const double x = __shfl_sync(kFull, cap, (l << 3) + i);
       v[i] = i < R ? x : INFINITY;
     }
+    clk.mark(kCpExchange);
     cmpswap(v[0], v[2]); cmpswap(v[1], v[3]); cmpswap(v[4], v[6]); cmpswap(v[5], v[7]);
     cmpswap(v[0], v[4]); cmpswap(v[1], v[5]); cmpswap(v[2], v[6]); cmpswap(v[3], v[7]);
     cmpswap(v[0], v[1]); cmpswap(v[2], v[3]); cmpswap(v[4], v[5]); cmpswap(v[6], v[7]);
     cmpswap(v[2], v[4]); cmpswap(v[3], v[5]);
     cmpswap(v[1], v[4]); cmpswap(v[3], v[6]);
     cmpswap(v[1], v[2]); cmpswap(v[3], v[4]); cmpswap(v[5], v[6]);
+    clk.mark(kCpSort);
     double prev = 0.0, total = 0.0, vj = 0.0, vlast = 0.0;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -1678,9 +1743,10 @@ __device__ __forceinline__ int coupled_shares(GroupSmem& gs, const long long (&m
       if (i == j) vj = v[i];
       if (i == R - 1) vlast = v[i];
     }
-    const double pool_eff = fmax(fmin(capl, total), 0.0);
-    const double lam = (pool_eff - prev) / (double)(R - j);
-    const bool valid = rowj && lam <= vj + 1e-9 * fmax(vj, 1.0);
+    const double pool_eff = dmax(dmin(capl, total), 0.0);
+    const double lam = quot(pool_eff - prev, den);
+    const bool valid = rowj && lam <= vj + 1e-9 * dmax(vj, 1.0);
+    clk.mark(kCpPrefix);
     const unsigned vb = (__ballot_sync(kFull, valid) >> (l << 3)) & 0xffu;
     const int k = vb ? __ffs(vb) - 1 : 0;
     const double lk = __shfl_sync(kFull, lam, (l << 3) + k);
@@ -1688,32 +1754,100 @@ __device__ __forceinline__ int coupled_shares(GroupSmem& gs, const long long (&m
     const bool same = __all_sync(kFull, next == level);
     level = next;
     ++it;
-    if (same) break;
+    clk.mark(kCpTest);
+    if (same || it == kCoupledIters) break;
+    double lv[kGroupLinks];
+#pragma unroll
+    for (int l2 = 0; l2 < kGroupLinks; ++l2) {
+      const double x = __shfl_sync(kFull, level, l2 * 8);
+      lv[l2] = l2 != l && ((m[l2] >> j) & 1) ? x : INFINITY;
+    }
+    cap = mem ? dmin(dj, min4(lv)) : 0.0;
   }
-  double row_lvl = INFINITY;
+  sweeps += it;
+  double lv[kGroupLinks];
 #pragma unroll
   for (int l2 = 0; l2 < kGroupLinks; ++l2) {
-    const double lv = __shfl_sync(kFull, level, l2 * 8);
-    if ((m[l2] >> j) & 1) row_lvl = fmin(row_lvl, lv);
+    const double x = __shfl_sync(kFull, level, l2 * 8);
+    lv[l2] = (m[l2] >> j) & 1 ? x : INFINITY;
   }
-  if (lane < R) gs.grant[lane] = fmin(dj, row_lvl);
-  return it;
+  return __shfl_sync(kFull, dmin(dj, min4(lv)), w);  // lane w: l = 0, j = w
+}
+
+// A member's water level under its grant (row_level's, for one tile): the
+// level its memory `mem` holds for this step's caps and pool_eff bit for
+// bit, else the descent, which the least recently used slot (an empty one
+// first, the lowest of equals) then keeps; `stamp` (> 0) is this step's.
+// The level and its rate sum are functions of those inputs alone, so a
+// step's results do not depend on the memory; `reuses` counts the steps it
+// serves. The lookup runs across the lanes at once: each lane compares its
+// own column of every slot's caps (one AND over the warp gives the slots
+// whose caps are this step's), lane e slot e's stamp and pool_eff (one
+// ballot); the victim is a min over the slots' stamps. Sets cache.hit
+// (and, on a hit, cache.sh->rsum for row_horizon) and `slot`, the slot
+// that served or took the level (its rate sum goes there on a miss). The
+// row cache's caps and their sums stay row_load's (cache.valid).
+template <int CW>
+__device__ __forceinline__ double coupled_level(const double (&caps)[1], double grant,
+                                                RowCache<1>& cache, LevelSlots& mem, int stamp,
+                                                int& slot, double* col_f, int lane) {
+  static_assert(kLevelSlots <= 32, "a lane a slot");
+  CacheSmem& sh = *cache.sh;
+  const double pool_eff = fmax(fmin(grant, sh.total), 0.0);
+  unsigned cols = 0u;  // the slots whose caps hold this lane's column
+#pragma unroll
+  for (int e = 0; e < kLevelSlots; ++e) {
+    cols |= (bits(mem.caps[e][lane]) == bits(caps[0]) ? 1u : 0u) << e;
+  }
+  const int own = lane < kLevelSlots ? mem.stamp[lane] : INT_MAX;
+  const bool keyed = lane < kLevelSlots && own > 0 && bits(mem.pool_eff[lane]) == bits(pool_eff);
+  const unsigned hits = __reduce_and_sync(kFull, cols) & __ballot_sync(kFull, keyed);
+  cache.valid = true;
+  cache.hit = hits != 0u;
+  if (cache.hit) {
+    const int e = __ffs(hits) - 1;
+    ++cache.reuses;
+    mem.stamp[e] = stamp;
+    sh.rsum = mem.rsum[e];
+    slot = e;
+    return mem.level[e];
+  }
+  const double level = water_level<1, CW>(caps, sh.hi, pool_eff, col_f, lane);
+  const int v = __ffs(__ballot_sync(kFull, own == __reduce_min_sync(kFull, own))) - 1;
+  mem.caps[v][lane] = caps[0];
+  mem.pool_eff[v] = pool_eff;
+  mem.level[v] = level;
+  mem.stamp[v] = stamp;
+  slot = v;
+  return level;
 }
 
 // One block a fabric group, one warp a member row (R warps, the widest
 // group's; a block's warps past its rows take part in its barriers only).
-// Every group step: (1) each live member's error test, profile and demand,
-// min(pool, total); a barrier; a member in error stops the group before the
-// step; (2) warp 0 solves the link grants; a barrier; (3) each live member's
-// rates under its grant (a row outside every group: its pool) and its own
-// horizon; a barrier; (4) each live member advances by the least horizon of
-// the group's live members and takes what follows the step; a barrier; a
-// member at a capacity guard stops the group after every other member's
-// transition. A finished member stays in the block with zero demand. The
-// group stops when every member is done or after max_steps group steps.
-// Every loop condition around a barrier is read from shared memory after a
-// barrier, so it is uniform across the block.
-template <int CW>
+// A group step has two barriers:
+//   (1) each live member's error test, profile and demand, min(pool,
+//       total), into the exchange with its flags (in error, live, at a
+//       capacity guard in the last step); barrier A; every warp reads all
+//       flags: a guard stops the group (the last step's transitions taken),
+//       then the step cap, then a member in error (before the step), then a
+//       group with no live member;
+//   (2) every live member (and warp 0, which counts) takes the link grants
+//       itself, the same code on the same demands giving the same grants
+//       on every warp: the solve (coupled_grant), or, where every member's
+//       demand is bit for bit the last solve's, the last solve's grant (the
+//       solve is a function of the demands alone; `counts` gets the reused
+//       solves beside the sweeps); then its rates under its grant (a row
+//       outside every group: its pool) and its own horizon; barrier B;
+//   (3) each live member advances by the least horizon of the group's live
+//       members, takes what follows the step and, unless it met a capacity
+//       guard, its transition: a guard is seen by the others at the next
+//       barrier A, after their transitions, as the plain version stops.
+// A finished member stays in the block with zero demand. The group stops
+// when every member is done or after max_steps group steps. Every loop
+// condition after a barrier is read from shared memory written before it,
+// so it is uniform across the block; a slot is written again only after
+// the other barrier, which every reader of it has passed.
+template <int CW, bool Probe>
 __global__ void __launch_bounds__(32 * kGroupRows) fused_rounds_coupled_kernel(RoundArgs a,
                                                                                CoupledArgs f) {
   constexpr int T = 1;
@@ -1734,6 +1868,14 @@ __global__ void __launch_bounds__(32 * kGroupRows) fused_rounds_coupled_kernel(R
     has_links = has_links || m[l] != 0;
   }
   const double capl = f.cap[g * kGroupLinks + (lane >> 3)];
+  if (warp == 0 && lane >= f.R && lane < kGroupRows) {  // slots of no warp
+    gs.flags[lane] = 0;
+    gs.dem[lane] = 0.0;
+    gs.gdt[lane] = INFINITY;
+  }
+  LevelSlots& mem = gs.mem[warp];
+  if (lane < kLevelSlots) mem.stamp[lane] = 0;
+  __syncwarp();
 
   WarpSmem sm{};
   ChunkSmem ck{};
@@ -1746,91 +1888,122 @@ __global__ void __launch_bounds__(32 * kGroupRows) fused_rounds_coupled_kernel(R
   }
   Link link{env.rc.bw, env.rc.disk_rate, env.rc.contention, env.rc.sat_cc};
   RowCache<T> cache(act ? sm.cache : nullptr, sm.col_c);
-  bool live = act, row_done = false;
-  long long stop = 0, gsteps = 0, nsweeps = 0;
+  bool live = act, row_done = false, guard = false;
+  long long stop = 0, gsteps = 0, nsweeps = 0, nreused = 0;
+  // the last solve's demand of the lane's row (lane & 7) and row warp's grant
+  bool solved = false;
+  double last_dj = 0.0, last_grant = 0.0;
+  PhaseClock<Probe, kCpPhases> clk;
+  clk.start();
 
   for (;;) {
-    // (0) the group's step cap
-    if (gsteps >= a.max_steps) {
-      if (live) stop = kStopCap;
-      break;
-    }
     // (1) the error test, the profile and the demand
     int err = 0;
     bool tr[T];
     double caps[T];
     double pool = 0.0, next_prof = INFINITY;
-    if (live) {
+    if (live && !guard) {
       err = row_error<T, CW>(c, ck, sm, env, st, lane) ? 1 : 0;
+      clk.mark(kCpError);
       if (!err) {
         next_prof = row_profile<T>(env, st.t, link, cache, lane);
+        clk.mark(kCpProfile);
         pool = row_load<T>(c, link, tr, caps, cache, lane);
       }
     }
+    const bool steps_now = live && !guard && !err;
     if (lane == 0) {
-      gs.err[warp] = err;
-      gs.live[warp] = live && !err ? 1 : 0;
-      gs.dem[warp] = live && !err ? fmin(pool, cache.sh->total) : 0.0;
+      gs.flags[warp] =
+          (err ? kFlagErr : 0) | (steps_now ? kFlagLive : 0) | (guard ? kFlagGuard : 0);
+      gs.dem[warp] = steps_now ? fmin(pool, cache.sh->total) : 0.0;
     }
-    __syncthreads();
-    int any_err = 0, any_live = 0;
-    for (int w = 0; w < f.R; ++w) {
-      any_err |= gs.err[w];
-      any_live |= gs.live[w];
+    clk.mark(kCpDemand);
+    __syncthreads();  // barrier A
+    clk.mark_after(kCpWait1, &gs.flags[warp]);
+    int any = 0;
+#pragma unroll
+    for (int w = 0; w < kGroupRows; ++w) any |= gs.flags[w];
+    clk.mark(kCpFlags);
+    if (any & kFlagGuard) {
+      if (live) stop = guard ? kStopGuard : kStopGroup;
+      break;
     }
-    if (any_err) {
+    if (gsteps >= a.max_steps) {
+      if (live) stop = kStopCap;
+      break;
+    }
+    if (any & kFlagErr) {
       if (live) stop = err ? kStopError : kStopGroup;
       break;
     }
-    if (!any_live) break;
-    // (2) the group's link grants
-    if (has_links && warp == 0) nsweeps += coupled_shares(gs, m, capl, nrows, lane);
-    __syncthreads();
-    // (3) the rates under the grant and the row's own horizon
+    if (!(any & kFlagLive)) break;
+    // (2) the group's link grants, then the rates under the grant and the
+    // row's own horizon
+    double grant = pool;
+    if (has_links && (live || warp == 0)) {
+      const double dj = (lane & 7) < nrows ? gs.dem[lane & 7] : 0.0;
+      if (solved && __all_sync(kFull, bits(dj) == bits(last_dj))) {
+        grant = last_grant;
+        ++nreused;
+      } else {
+        grant = coupled_grant(dj, m, capl, nrows, warp, lane, nsweeps, clk);
+        last_dj = dj;
+        last_grant = grant;
+        solved = true;
+      }
+    }
+    clk.mark(kCpSolve);
     double rate[T];
     double rsum = 0.0, dt = 0.0;
     if (live) {
-      const double level = row_level<T, CW>(caps, has_links ? gs.grant[warp] : pool, cache,
-                                            sm.col_f, lane);
+      // a row of a group: its level memory; a row alone: the uncoupled step's
+      int slot = 0;
+      const double level =
+          has_links ? coupled_level<CW>(caps, grant, cache, mem, (int)gsteps + 1, slot, sm.col_f,
+                                        lane)
+                    : row_level<T, CW>(caps, grant, cache, sm.col_f, lane);
+      clk.mark(kCpLevel);
       dt = row_horizon<T>(c, tr, caps, level, true, fmin(st.next_tick - st.t, next_prof - st.t),
                           rate, rsum, cache);
+      if (has_links && !cache.hit) mem.rsum[slot] = rsum;
     }
     if (lane == 0) gs.gdt[warp] = live ? dt : INFINITY;
-    __syncthreads();
-    double gdt = INFINITY;
-    for (int w = 0; w < f.R; ++w) gdt = fmin(gdt, gs.gdt[w]);
-    // (4) the step at the group's dt, then what follows it
-    int guard = 0;
-    bool comp_any = false, tick_hit = false;
+    clk.mark(kCpHorizon);
+    __syncthreads();  // barrier B
+    clk.mark_after(kCpWait2, &gs.flags[warp]);
+    const double gdt = dmin(min4({gs.gdt[0], gs.gdt[1], gs.gdt[2], gs.gdt[3]}),
+                            min4({gs.gdt[4], gs.gdt[5], gs.gdt[6], gs.gdt[7]}));
+    clk.mark(kCpFlags);
+    // (3) the step at the group's dt, what follows it and the transition
     if (live) {
       double moved[T];
       const double dt_g = fmin(dt, gdt);
       const bool fin = row_move<T>(c, tr, rate, dt_g, true, moved);
+      clk.mark(kCpAdvance);
       feed_row<T>(c, true, env.q, env.qsizes, env.Q, env.K, sm, lane);
+      clk.mark(kCpFeed);
       const Step s{dt_g, rsum, fin};
-      guard = row_after_step<T, CW>(c, moved, s, env, st, ck, sm, comp_any, tick_hit, lane) ? 1
-                                                                                           : 0;
+      bool comp_any, tick_hit;
+      guard = row_after_step<T, CW>(c, moved, s, env, st, ck, sm, comp_any, tick_hit, lane);
+      clk.mark(kCpAfterStep);
+      if (!guard && row_transition<T, CW>(c, comp_any, tick_hit, env, st, ck, sm, lane)) {
+        row_done = true;
+        live = false;
+        stop = kStopDone;
+      }
     }
-    if (lane == 0) gs.guard[warp] = guard;
     ++gsteps;
-    __syncthreads();
-    int any_guard = 0;
-    for (int w = 0; w < f.R; ++w) any_guard |= gs.guard[w];
-    if (live && !guard && row_transition<T, CW>(c, comp_any, tick_hit, env, st, ck, sm, lane)) {
-      row_done = true;
-      live = false;
-      stop = kStopDone;
-    }
-    if (any_guard) {
-      if (live) stop = guard ? kStopGuard : kStopGroup;
-      break;
-    }
     __syncwarp();
+    clk.mark(kCpTransition);
   }
   __syncwarp();
-  if (warp == 0 && lane == 0) f.sweeps[g] = nsweeps;
+  if (warp == 0 && lane == 0) {
+    f.counts[g] = nsweeps;
+    f.counts[f.G + g] = nreused;
+  }
   if (act) {
     store_row<T>(a, row, c, ck, st, row_done, stop, cache.reuses, lane);
+    clk.store(a.cycles + row * kCpPhases, lane);
   } else if (row >= 0 && lane == 0) {
     a.steps[row] = 0;
     a.stop[row] = 0;
@@ -1890,17 +2063,17 @@ cudaError_t launch_probe(const RoundArgs& a, cudaStream_t stream) {
   return (int)cudaErrorInvalidValue
 
 // The coupled loop over f.G blocks of f.R warps.
-template <int CW>
+template <int CW, bool Probe = false>
 cudaError_t launch_coupled(const RoundArgs& a, const CoupledArgs& f, cudaStream_t stream) {
   const size_t smem = kGroupBytes + (size_t)f.R * round_warp_bytes(1, a.K);
   if (smem > kSmemMax) return cudaErrorInvalidValue;
   if (smem > kSmemDefault) {
-    const cudaError_t e = cudaFuncSetAttribute(fused_rounds_coupled_kernel<CW>,
+    const cudaError_t e = cudaFuncSetAttribute(fused_rounds_coupled_kernel<CW, Probe>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (int)smem);
     if (e != cudaSuccess) return e;
   }
-  fused_rounds_coupled_kernel<CW><<<(unsigned)f.G, 32 * f.R, smem, stream>>>(a, f);
+  fused_rounds_coupled_kernel<CW, Probe><<<(unsigned)f.G, 32 * f.R, smem, stream>>>(a, f);
   return cudaGetLastError();
 }
 
@@ -2083,31 +2256,76 @@ extern "C" int fused_rounds_probe_f64(void* const* ptrs, void* cycles, long long
 // The number of phases the probe build splits a step into.
 extern "C" int fused_rounds_probe_phases() { return kPhases; }
 
+namespace {
+
+// Fill `a` and `f` for a coupled loop launch; false on a bad shape or
+// operand count.
+bool coupled_setup(void* const* ptrs, const void* rows, const void* mask, const void* cap,
+                   void* counts, RoundArgs& a, CoupledArgs& f, long long S, long long C,
+                   long long K, long long B, long long Q, long long P, long long TL, long long G,
+                   long long R, long long max_steps) {
+  // the level memory stamps a member's steps as int
+  if (C > 32 || R <= 0 || R > kGroupRows || max_steps >= INT_MAX) return false;
+  if (!rounds_setup(ptrs, a, S, C, K, B, Q, P, TL, max_steps)) return false;
+  a.warps = (int)R;
+  f.rows = static_cast<const long long*>(rows);
+  f.mask = static_cast<const long long*>(mask);
+  f.cap = static_cast<const double*>(cap);
+  f.counts = static_cast<long long*>(counts);
+  f.G = G;
+  f.R = (int)R;
+  return true;
+}
+
+}  // namespace
+
 // `ptrs` as fused_rounds_f64's; `rows` (G, R) int64, `mask` (G, 4) int64
 // and `cap` (G, 4) float64 the fabric layout, one block a group (R <= 8
-// rows, C <= 32 columns); `sweeps` (G,) int64 receives each block's Jacobi
-// sweeps. Each active row takes 0 to max_steps steps, its group's steps in
+// rows, C <= 32 columns); `counts` (2, G) int64 receives each block's
+// Jacobi sweeps, then the group steps that reused the last solve. Each
+// active row takes 0 to max_steps (< 2^31 - 1) steps, its group's steps in
 // lockstep. Returns the launch's cudaError_t.
 extern "C" int fused_rounds_coupled_f64(void* const* ptrs, const void* rows, const void* mask,
-                                        const void* cap, void* sweeps, long long S, long long C,
+                                        const void* cap, void* counts, long long S, long long C,
                                         long long K, long long B, long long Q, long long P,
                                         long long TL, long long G, long long R,
                                         long long max_steps, void* stream) {
   if (S <= 0 || G <= 0) return (int)cudaSuccess;
-  if (C > 32 || R <= 0 || R > kGroupRows) return (int)cudaErrorInvalidValue;
   RoundArgs a;
-  if (!rounds_setup(ptrs, a, S, C, K, B, Q, P, TL, max_steps)) return (int)cudaErrorInvalidValue;
-  a.warps = (int)R;
   CoupledArgs f;
-  f.rows = static_cast<const long long*>(rows);
-  f.mask = static_cast<const long long*>(mask);
-  f.cap = static_cast<const double*>(cap);
-  f.sweeps = static_cast<long long*>(sweeps);
-  f.G = G;
-  f.R = (int)R;
+  if (!coupled_setup(ptrs, rows, mask, cap, counts, a, f, S, C, K, B, Q, P, TL, G, R,
+                     max_steps)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (C <= 4) return (int)launch_coupled<4>(a, f, st);
   if (C <= 8) return (int)launch_coupled<8>(a, f, st);
   if (C <= 16) return (int)launch_coupled<16>(a, f, st);
   return (int)launch_coupled<32>(a, f, st);
 }
+
+// The probe build of fused_rounds_coupled_f64: the same loop, results bit
+// for bit, and `cycles` (S, kCpPhases) int64 receives each active row's SM
+// cycles by phase of its group steps (enum CoupledPhase), summed over the
+// launch; two instances, as fused_rounds_probe_f64's.
+extern "C" int fused_rounds_coupled_probe_f64(void* const* ptrs, const void* rows,
+                                              const void* mask, const void* cap, void* counts,
+                                              void* cycles, long long S, long long C, long long K,
+                                              long long B, long long Q, long long P, long long TL,
+                                              long long G, long long R, long long max_steps,
+                                              void* stream) {
+  if (S <= 0 || G <= 0) return (int)cudaSuccess;
+  RoundArgs a;
+  CoupledArgs f;
+  if (!coupled_setup(ptrs, rows, mask, cap, counts, a, f, S, C, K, B, Q, P, TL, G, R,
+                     max_steps)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  a.cycles = static_cast<long long*>(cycles);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C <= 16) return (int)launch_coupled<16, true>(a, f, st);
+  return (int)launch_coupled<32, true>(a, f, st);
+}
+
+// The number of phases the coupled probe build splits a group step into.
+extern "C" int fused_rounds_coupled_probe_phases() { return kCpPhases; }

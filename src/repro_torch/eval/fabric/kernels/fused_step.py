@@ -37,6 +37,10 @@ the reference's device loop around it (``jax_backend``'s four phases in a
   (:func:`.waterfill_coupled`, solved in the block) as pools and step in
   lockstep on the group's earliest event.
 
+:func:`fused_rounds_probe` and :func:`fused_rounds_coupled_probe` are the
+loop kernels' probe builds (the card only): the same launches, and SM
+cycles by phase of a step or of a group step.
+
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 the plain version only for CPU tensors.
 """
@@ -127,6 +131,8 @@ _ARGTYPES = {
     + [ctypes.c_void_p],
     "fused_rounds_probe_f64": [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 8
     + [ctypes.c_void_p],
+    "fused_rounds_coupled_probe_f64": [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 10
+    + [ctypes.c_void_p],
 }
 
 #: the phases of a loop step that :func:`fused_rounds_probe` times, in the
@@ -135,6 +141,24 @@ PROBE_PHASES = (
     "error", "profile", "load", "level", "horizon", "advance", "feed", "after_step",
     "transition",
 )
+
+#: the phases of a coupled group step that :func:`fused_rounds_coupled_probe`
+#: times, in the order a member warp runs them (the kernel's ``enum
+#: CoupledPhase``): ``wait1`` and ``wait2`` are the waits at the block's
+#: barriers A and B, ``flags`` the reads of the members' flags and horizons
+#: after them, ``solve`` the test for the last solve's grants and the grant,
+#: ``exchange`` .. ``test`` the sweeps of a solve (the levels' exchange and
+#: the caps' shuffles, the sort, the prefix and candidates, the ballot and
+#: the fixed-point test)
+COUPLED_PROBE_PHASES = (
+    "error", "profile", "demand", "wait1", "flags", "solve", "exchange", "sort", "prefix",
+    "test", "level", "horizon", "wait2", "advance", "feed", "after_step", "transition",
+)
+
+#: water levels a row of a fabric group keeps in the coupled loop kernel
+#: (its level memory: the last distinct inputs of its steps); every other
+#: row keeps its last step's
+COUPLED_LEVEL_SLOTS = 8
 
 #: the coupled loop kernel's limits: rows a fabric group (a block's warps),
 #: links a group (a lane of the group's solve per link and sorted position)
@@ -159,27 +183,91 @@ def _bits(x):
     return x.contiguous().view(torch.int64)
 
 
-def _level_reuse(cache, act, caps, pool):
+def _level_reuse(cache, act, caps, pool, slots=1):
     """The loop kernels' water-level cache on the ``act`` rows' step with
     transferring caps ``caps`` (S, C) and rate pool ``pool`` (S,): a row
     whose caps and ``pool_eff = max(min(pool, sum(caps)), 0)`` are bit for
-    bit those of its last step in this launch reuses its level (the level
-    is a function of the caps, their largest, which they give, and
-    ``pool_eff``). Adds the reuses into ``cache["reuses"]`` and keeps this
-    step's inputs for the next. ``cache``: a dict :func:`fused_rounds_plain`
-    starts empty at each launch."""
+    bit those of one of the inputs it keeps reuses that input's level (the
+    level is a function of the caps, their largest, which they give, and
+    ``pool_eff``). A row keeps the last ``slots`` distinct inputs of its
+    steps in this launch (an int, or an (S,) int64 tensor of each row's),
+    the least recently used one (an empty one first, the lowest slot of
+    equals) giving way to a new input: 1, the last step's, in the loop
+    kernels' row cache; :data:`COUPLED_LEVEL_SLOTS` in the coupled loop
+    kernel's level memory. Adds the reuses into ``cache["reuses"]`` and
+    keeps this step's input. ``cache``: a dict the plain loops start empty
+    at each launch."""
     pool_eff = _bits(torch.clamp(torch.minimum(pool, lane_sum(caps)), min=0.0))
     caps = _bits(caps)
-    if "caps" in cache:
-        same = act & cache["seen"] & (caps == cache["caps"]).all(dim=-1) & (
-            pool_eff == cache["pool_eff"])
-        cache["reuses"] = cache["reuses"] + same.to(torch.int64)
-        cache["caps"] = torch.where(act.unsqueeze(-1), caps, cache["caps"])
-        cache["pool_eff"] = torch.where(act, pool_eff, cache["pool_eff"])
-        cache["seen"] = cache["seen"] | act
+    if "caps" not in cache:
+        slots = torch.as_tensor(slots, dtype=torch.int64, device=caps.device).expand(
+            caps.shape[0])
+        k = int(slots.max())
+        cache.update(caps=caps.unsqueeze(1).repeat(1, k, 1), pool_eff=pool_eff.unsqueeze(1).repeat(
+            1, k), stamp=torch.zeros_like(pool_eff).unsqueeze(1).repeat(1, k), tick=0,
+            usable=torch.arange(k, device=caps.device) < slots.unsqueeze(1),
+            reuses=torch.zeros_like(pool_eff))
+    cache["tick"] += 1
+    stamp = cache["stamp"]
+    match = (cache["usable"] & (stamp > 0) & (cache["caps"] == caps.unsqueeze(1)).all(dim=-1)
+             & (cache["pool_eff"] == pool_eff.unsqueeze(1)))
+    hit = act & match.any(dim=-1)
+    cache["reuses"] = cache["reuses"] + hit.to(torch.int64)
+    lru = torch.where(cache["usable"], stamp, torch.iinfo(torch.int64).max).argmin(dim=-1)
+    slot = torch.where(hit, match.to(torch.int64).argmax(dim=-1), lru)
+    rows = torch.nonzero(act).squeeze(-1)
+    stamp[rows, slot[rows]] = cache["tick"]
+    miss = torch.nonzero(act & ~hit).squeeze(-1)
+    cache["caps"][miss, slot[miss]] = caps[miss]
+    cache["pool_eff"][miss, slot[miss]] = pool_eff[miss]
+
+
+def _level_slots(fab):
+    """Each row's water-level slots in the coupled loop kernel, (S,) int64:
+    :data:`COUPLED_LEVEL_SLOTS` for a row of a fabric group with links (its
+    level memory), 1 for a row alone (its block steps as the uncoupled loop
+    kernel does)."""
+    gid = fab["group_id"]
+    grouped = gid >= 0
+    rides = torch.zeros(max(fab["n_groups"], 1), dtype=torch.int64, device=gid.device)
+    if fab["n_groups"]:
+        rides = rides.scatter_reduce(0, gid[grouped], fab["member"].any(dim=0)[grouped].to(
+            torch.int64), "amax")
+    linked = grouped & (rides[gid.clamp(min=0)] > 0)
+    return torch.where(linked, COUPLED_LEVEL_SLOTS, 1)
+
+
+def _solve_reuse(cache, fab, act, demand):
+    """The coupled loop kernel's solve cache on a group step of the ``act``
+    rows with demands ``demand`` (S,) (0 off the ``act`` rows): a fabric
+    group with links that steps, and whose members' demands are bit for bit
+    those of its last step in this launch, takes that step's link grants
+    without solving (the solve is a function of the demands alone: a member
+    that does not step offers 0). Adds these steps into
+    ``cache["solve_reuses"]`` (n_groups,) int64 and keeps this step's
+    demands of the groups that step. ``cache``: the launch's dict, as
+    :func:`_level_reuse`'s."""
+    n = fab["n_groups"]
+    gid = fab["group_id"]
+    grouped = gid >= 0
+    gi = gid[grouped]
+
+    def per_group(x, how):
+        init = 1 if how == "amin" else 0
+        return torch.full((n,), init, dtype=torch.int64, device=gid.device).scatter_reduce(
+            0, gi, x[grouped].to(torch.int64), how) > 0
+
+    steps = per_group(act, "amax") & per_group(fab["member"].any(dim=0), "amax")
+    bits = _bits(demand)
+    if "dem" in cache:
+        same = per_group(bits == cache["dem"], "amin")
+        cache["solve_reuses"] = cache["solve_reuses"] + (steps & cache["solved"] & same).to(
+            torch.int64)
+        cache["dem"] = torch.where(grouped & steps[gid.clamp(min=0)], bits, cache["dem"])
+        cache["solved"] = cache["solved"] | steps
     else:
-        cache.update(caps=caps, pool_eff=pool_eff, seen=act.clone(),
-                     reuses=torch.zeros_like(pool_eff))
+        cache.update(dem=bits, solved=steps, solve_reuses=torch.zeros(
+            n, dtype=torch.int64, device=gid.device))
 
 
 def _advance_plain(
@@ -190,15 +278,21 @@ def _advance_plain(
     horizon, fluid movement. With ``fab`` (the coupled loop's fabric, see
     :func:`fused_rounds_coupled_plain`) the rows of a group take their
     link grants as pools and advance in lockstep. With ``cache`` the step
-    counts the water levels the loop kernels reuse (:func:`_level_reuse`).
-    Returns ``(dt, rate_sum, fin_any, busy, dead, rem, moved)``."""
+    counts the water levels the loop kernels reuse (:func:`_level_reuse`)
+    and, coupled, the group solves the coupled kernel reuses
+    (:func:`_solve_reuse`). Returns ``(dt, rate_sum, fin_any, busy, dead,
+    rem, moved)``."""
     transferring = busy & (dead <= _EPS)
     pool = disk_pool(transferring.sum(dim=-1), bw, disk_rate, sat_cc, contention)
     caps = torch.where(transferring, cap, 0.0)
     if fab is not None:
-        pool, _ = coupled_pool(pool, lane_sum(caps), act, fab)
+        total = lane_sum(caps)
+        if cache is not None and fab["n_groups"]:
+            _solve_reuse(cache, fab, act, torch.where(
+                act & (fab["group_id"] >= 0), torch.minimum(pool, total), 0.0))
+        pool, _ = coupled_pool(pool, total, act, fab)
     if cache is not None:
-        _level_reuse(cache, act, caps, pool)
+        _level_reuse(cache, act, caps, pool, 1 if fab is None else _level_slots(fab))
     level = bisect_level(caps, pool)
     rates = torch.where(
         act.unsqueeze(-1), torch.minimum(caps, level.unsqueeze(-1)), 0.0
@@ -464,7 +558,7 @@ def fabric_layout(group_id, member, link_cap, names=None) -> dict:
     return {"rows": rows, "mask": mask, "cap": cap}
 
 
-def fused_rounds_coupled_plain(s, fab, max_steps: int = ROUND_CAP):
+def fused_rounds_coupled_plain(s, fab, max_steps: int = ROUND_CAP, counts=None):
     """Plain PyTorch version of the coupled loop kernel, on the loop
     operands ``s`` and the fabric ``fab`` (:func:`fabric_operands`). A
     fabric group steps in lockstep: each step its live rows offer their
@@ -477,7 +571,10 @@ def fused_rounds_coupled_plain(s, fab, max_steps: int = ROUND_CAP):
     row stops its group before the step (the others with
     ``transition.STOP_GROUP``); a row at a capacity guard stops its group
     after the step, the others' transitions taken. Returns what
-    :func:`fused_rounds_plain` returns; ``s`` is left as it was."""
+    :func:`fused_rounds_plain` returns; ``s`` is left as it was. With a dict
+    ``counts``, ``counts["solve_reuses"]`` receives the group steps whose
+    solve the kernel takes again (:func:`_solve_reuse`), (G,) int64 in
+    :func:`fabric_layout`'s block order (0 for a row outside every group)."""
     st = dict(s)
     gid = fab["group_id"]
     n_groups = fab["n_groups"]
@@ -518,6 +615,11 @@ def fused_rounds_coupled_plain(s, fab, max_steps: int = ROUND_CAP):
         stop = torch.where(run & ~guard & done, transition.STOP_DONE, stop)
         stop = torch.where(run & held & ~guard & ~done, transition.STOP_GROUP, stop)
         run = run & ~done & ~held
+    if counts is not None:
+        reused = torch.zeros(n_blocks, dtype=torch.int64, device=gid.device)
+        if "solve_reuses" in cache:
+            reused[:n_groups] = cache["solve_reuses"]
+        counts["solve_reuses"] = reused
     return _round_outputs(st, steps, stop, cache)
 
 
@@ -627,12 +729,17 @@ def fused_rounds_coupled(s, fab, max_steps: int = ROUND_CAP):
     group and one warp a row: rows of at most :data:`COUPLED_MAX_C`
     columns, groups of at most :data:`COUPLED_MAX_ROWS` rows and
     :data:`COUPLED_MAX_LINKS` links (a ``ValueError`` before any launch
-    otherwise, from ``fab["layout"]``). After a launch,
+    otherwise, from ``fab["layout"]``). After a launch, in
+    :func:`fabric_layout`'s block order (0 for a block without links):
     ``fused_rounds_coupled.sweeps`` (G,) int64 holds the Jacobi sweeps each
-    block ran over its group steps (0 for a block without links), in
-    :func:`fabric_layout`'s block order. After a call,
-    ``fused_rounds_coupled.reuses`` is ``s["reuses"]`` (as
-    :func:`fused_rounds`')."""
+    block ran, over the group steps that solved; ``fused_rounds_coupled
+    .solve_reuses`` (G,) int64 the group steps that took the last solve's
+    grants instead, every member's demand bit for bit the last solve's (the
+    plain version's count, ``counts`` of :func:`fused_rounds_coupled_plain`,
+    which a CPU call sets too). After a call, ``fused_rounds_coupled.reuses``
+    is ``s["reuses"]`` (as :func:`fused_rounds`'; a row of a group with
+    links reuses the level of any of its last :data:`COUPLED_LEVEL_SLOTS`
+    distinct inputs, its level memory, :func:`_level_reuse`)."""
     if max_steps < 1:
         raise ValueError(f"max_steps must be at least 1, got {max_steps}")
     busy = s["busy"]
@@ -645,36 +752,18 @@ def fused_rounds_coupled(s, fab, max_steps: int = ROUND_CAP):
             f"{tuple(fab['group_id'].shape)} and {tuple(fab['member'].shape)}"
         )
     if busy.device.type == "cpu":
-        for name, new in fused_rounds_coupled_plain(s, fab, max_steps).items():
+        counts = {}
+        for name, new in fused_rounds_coupled_plain(s, fab, max_steps, counts=counts).items():
             s[name].copy_(new)
         fused_rounds_coupled.reuses = s["reuses"]
+        fused_rounds_coupled.solve_reuses = counts["solve_reuses"]
         return s["steps"]
     if busy.device.type != "cuda":
         raise ValueError(f"unsupported device {busy.device}")
-    dev = busy.device
-    dims, ptrs = _round_pointers(s, COUPLED_MAX_C)
-    lay = fab["layout"]
-    if isinstance(lay, ValueError):
-        raise lay
-    G, R = lay["rows"].shape
-    sweeps = torch.zeros((G,), dtype=torch.int64, device=dev)
-    fptrs = [
-        _build.check(lay["rows"], "rows", torch.int64, (G, R), dev),
-        _build.check(lay["mask"], "mask", torch.int64, (G, COUPLED_MAX_LINKS), dev),
-        _build.check(lay["cap"], "cap", torch.float64, (G, COUPLED_MAX_LINKS), dev),
-        sweeps.data_ptr(),
-    ]
-    if S == 0:
-        return s["steps"]
-    with torch.cuda.device(dev):
-        err = _entry("fused_rounds_coupled_f64")(
-            ptrs, *fptrs, S, C, dims["K"], dims["B"], dims["Q"], dims["P"], dims["T"], G, R,
-            max_steps, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"coupled fused-rounds kernel launch failed: cudaError {err}")
-    fused_rounds_coupled.launches += 1
-    fused_rounds_coupled.sweeps = sweeps
+    counts = _launch_coupled("fused_rounds_coupled_f64", s, fab, max_steps)
+    if counts is not None:
+        fused_rounds_coupled.launches += 1
+        fused_rounds_coupled.sweeps, fused_rounds_coupled.solve_reuses = counts
     fused_rounds_coupled.reuses = s["reuses"]
     return s["steps"]
 
@@ -683,5 +772,74 @@ def fused_rounds_coupled(s, fab, max_steps: int = ROUND_CAP):
 fused_rounds_coupled.launches = 0
 #: the Jacobi sweeps of the last launch's blocks
 fused_rounds_coupled.sweeps = None
+#: the group steps of the last launch's blocks that reused their last solve
+fused_rounds_coupled.solve_reuses = None
 #: the last call's water-level reuses a row, (S,) int64
 fused_rounds_coupled.reuses = None
+
+
+def _launch_coupled(entry, s, fab, max_steps, *extra):
+    """Launch the coupled loop entry point ``entry`` on the CUDA operands
+    ``s`` and the fabric ``fab`` (``extra``: pointers after the counts
+    output) on the rows' current stream; raises on a bad layout or a launch
+    error. Returns the launch's (2, G) int64 counts, each block's Jacobi
+    sweeps and the group steps that reused its last solve, or None for zero
+    rows (no launch)."""
+    dev = s["busy"].device
+    dims, ptrs = _round_pointers(s, COUPLED_MAX_C)
+    lay = fab["layout"]
+    if isinstance(lay, ValueError):
+        raise lay
+    G, R = lay["rows"].shape
+    counts = torch.zeros((2, G), dtype=torch.int64, device=dev)
+    fptrs = [
+        _build.check(lay["rows"], "rows", torch.int64, (G, R), dev),
+        _build.check(lay["mask"], "mask", torch.int64, (G, COUPLED_MAX_LINKS), dev),
+        _build.check(lay["cap"], "cap", torch.float64, (G, COUPLED_MAX_LINKS), dev),
+        counts.data_ptr(),
+    ]
+    if dims["S"] == 0:
+        return None
+    with torch.cuda.device(dev):
+        err = _entry(entry)(
+            ptrs, *fptrs, *extra, dims["S"], dims["C"], dims["K"], dims["B"], dims["Q"],
+            dims["P"], dims["T"], G, R, max_steps, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+    return counts
+
+
+def fused_rounds_coupled_probe(s, fab, max_steps: int = ROUND_CAP):
+    """The probe build of the coupled loop kernel on the CUDA operands ``s``
+    and fabric ``fab``: the launch of :func:`fused_rounds_coupled` (``s``
+    updated in place, bit for bit the same; ``fused_rounds_coupled_probe
+    .sweeps`` and ``.solve_reuses`` the launch's), and each active row's SM
+    cycles by phase
+    of its group steps (:data:`COUPLED_PROBE_PHASES`), summed over the
+    launch, as a new (S, phases) int64 tensor (0 on inactive rows). Each
+    member warp reads ``clock64()`` at the phase boundaries, its waits at
+    the block's barriers included. The probe has no plain version and
+    raises for CPU tensors. Not on any path of the sweep: ``chip_smoke.py``
+    calls it to split the group step."""
+    if max_steps < 1:
+        raise ValueError(f"max_steps must be at least 1, got {max_steps}")
+    busy = s["busy"]
+    if busy.device.type != "cuda":
+        raise ValueError(
+            f"the coupled loop kernel's probe runs on the card only, not on {busy.device}")
+    cycles = torch.zeros((busy.shape[0], len(COUPLED_PROBE_PHASES)), dtype=torch.int64,
+                         device=busy.device)
+    counts = _launch_coupled("fused_rounds_coupled_probe_f64", s, fab, max_steps,
+                             cycles.data_ptr())
+    if counts is not None:
+        fused_rounds_coupled_probe.launches += 1
+        fused_rounds_coupled_probe.sweeps, fused_rounds_coupled_probe.solve_reuses = counts
+    return cycles
+
+
+#: launches of the coupled loop kernel's probe build in this process
+fused_rounds_coupled_probe.launches = 0
+#: the Jacobi sweeps and the reused solves of the last probe launch's blocks
+fused_rounds_coupled_probe.sweeps = None
+fused_rounds_coupled_probe.solve_reuses = None

@@ -163,6 +163,46 @@ def test_fused_rounds_probe_splits_the_step_and_keeps_the_results(cuda):
     assert bool((cycles[stepped][:, level] > 0).all())
 
 
+def test_fused_rounds_coupled_probe_splits_the_group_step_and_keeps_the_results(cuda):
+    """The coupled loop kernel's probe build on a live tenant-smoke state:
+    the unprobed kernel's results, sweeps and reused solves bit for bit,
+    the reused solves the plain version's count, and SM cycles by phase
+    positive for every row that stepped (0 on inactive rows)."""
+    from repro_torch.eval.scenarios import tenant_matrix
+
+    drv = TorchFabricSimulation(build_plan(tenant_matrix(n_groups=6)), device=cuda,
+                                fused_step="none")
+    drv.start()
+    for _ in range(5):
+        drv.step()
+    s = {k: v.clone() for k, v in drv.round_operands(~drv.done).items()}
+    fab = drv._fab
+    counts = {}
+    fs.fused_rounds_coupled_plain(s, fab, 64, counts=counts)
+    ref = {k: v.clone() for k, v in s.items()}
+    fs.fused_rounds_coupled(ref, fab, 64)
+    want = (fs.fused_rounds_coupled.sweeps, fs.fused_rounds_coupled.solve_reuses)
+    before = fs.fused_rounds_coupled_probe.launches
+    cycles = fs.fused_rounds_coupled_probe(s, fab, 64)
+    torch.cuda.synchronize()
+    assert fs.fused_rounds_coupled_probe.launches == before + 1
+    assert cycles.shape == (s["act"].shape[0], len(fs.COUPLED_PROBE_PHASES))
+    for name, v in ref.items():
+        if v.dtype == torch.float64:
+            torch.testing.assert_close(s[name], v, rtol=0, atol=0, equal_nan=True, msg=name)
+        else:
+            assert torch.equal(s[name], v), name
+    assert torch.equal(fs.fused_rounds_coupled_probe.sweeps, want[0])
+    assert torch.equal(fs.fused_rounds_coupled_probe.solve_reuses, want[1])
+    assert torch.equal(want[1].cpu(), counts["solve_reuses"].cpu())
+    stepped = s["act"] & (s["steps"] > 0)
+    assert bool(stepped.any())
+    assert bool((cycles[~s["act"]] == 0).all())
+    assert bool((cycles[stepped].sum(dim=1) > 0).all())
+    level = fs.COUPLED_PROBE_PHASES.index("level")
+    assert bool((cycles[stepped][:, level] > 0).all())
+
+
 @pytest.mark.parametrize("max_steps", [1, 16, fs.ROUND_CAP])
 def test_coupled_loop_matches_its_plain_version_on_the_card(cuda, max_steps):
     """The coupled loop kernel on a live tenant-smoke state against its

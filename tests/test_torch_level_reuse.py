@@ -1,11 +1,13 @@
 """The loop kernels' water-level reuse, counted by the plain loop on the CPU.
 
 The loop kernels (``fused_rounds_f64``, ``fused_rounds_coupled_f64``) keep a
-row's last water level in registers and take it again, without the
-descent, on a step whose transferring caps and ``pool_eff`` are bit for bit
-the last step's in the same launch (the level is a function of those
-alone). The plain loops count the same reuses by the same rule
-(``fused_step._level_reuse``) and return them as ``reuses``; the card's
+row's last water level and take it again, without the descent, on a step
+whose transferring caps and ``pool_eff`` are bit for bit the last step's in
+the same launch (the level is a function of those alone); a row of a fabric
+group in the coupled kernel keeps the levels of its last
+``fused_step.COUPLED_LEVEL_SLOTS`` distinct inputs (its level memory, least
+recently used out first). The plain loops count the same reuses by the same
+rule (``fused_step._level_reuse``) and return them as ``reuses``; the card's
 phase 3 holds the kernels' counts to them. Here:
 
 * counting changes nothing: the plain loop with its counter gives every
@@ -105,23 +107,30 @@ class _Recorder:
         monkeypatch.setattr(fs, "_advance_plain", advance_rec)
         monkeypatch.setattr(fs, "bisect_level", level_rec)
 
-    def recount(self):
-        """Each row's steps whose caps and pool_eff are bit for bit its last
-        step's, counted row by row in Python; asserts each such step's
-        level is the last step's."""
+    def recount(self, slots=None):
+        """Each row's steps whose caps and pool_eff are bit for bit those of
+        one of the last ``slots[r]`` distinct inputs of its steps (1, its
+        last step's, by default), counted row by row in Python with a list
+        in least recently used order; asserts each such step's level is the
+        one that input gave."""
         S = self.steps[0]["act"].shape[0]
+        slots = [1] * S if slots is None else [int(x) for x in slots]
         count = [0] * S
-        last = [None] * S
+        kept = [[] for _ in range(S)]  # (key, level), least recently used first
         for rec in self.steps:
             pool_eff = torch.clamp(torch.minimum(rec["pool"], lane_sum(rec["caps"])), min=0.0)
             for r in range(S):
                 if not bool(rec["act"][r]):
                     continue
                 key = (rec["caps"][r].numpy().tobytes(), pool_eff[r].numpy().tobytes())
-                if last[r] is not None and last[r][0] == key:
+                hit = [i for i, (k, _) in enumerate(kept[r]) if k == key]
+                if hit:
                     count[r] += 1
-                    assert bool(rec["level"][r] == last[r][1]), r  # the same level
-                last[r] = (key, rec["level"][r].clone())
+                    _, level = kept[r].pop(hit[0])
+                    assert bool(rec["level"][r] == level), r  # the same level
+                elif len(kept[r]) == slots[r]:
+                    kept[r].pop(0)
+                kept[r].append((key, rec["level"][r].clone()))
         return torch.tensor(count, dtype=torch.int64)
 
 
@@ -190,8 +199,10 @@ def test_coupled_loop_counts_the_same_reuses(monkeypatch):
     s = {k: v.clone() for k, v in drv.round_operands(~drv.done).items()}
     rec = _Recorder(monkeypatch)
     out = fs.fused_rounds_coupled_plain(s, drv._fab, 64)
-    assert torch.equal(out["reuses"], rec.recount())
-    assert int(out["reuses"].sum()) > 0
+    slots = fs._level_slots(drv._fab)
+    assert bool((slots == fs.COUPLED_LEVEL_SLOTS).all())  # every row rides a link
+    assert torch.equal(out["reuses"], rec.recount(slots))
+    assert int(out["reuses"].sum()) > int(rec.recount().sum()) > 0  # the memory serves more
 
 
 def test_wrappers_expose_the_reuses():
