@@ -2289,8 +2289,10 @@ def coupled_rounds_checks(fs, smoke_state, tenant_state, default_state, parent=N
     (their groups stop with them), on the default grid's uncoupled rows as
     groups of one (equal to the uncoupled loop kernel), and on the live
     206-row tenant matrix at COUPLED_TIMING_STEPS group steps, timed there
-    against the plain version and the bound; with ``parent`` also bit for
-    bit the parent's kernel on every case, and timed against it at
+    against the plain version and the bound, and at the main path's cap
+    (the plain version untimed); the level reuses and reused solves the
+    plain version's counts on every case; with ``parent`` also bit for bit
+    the parent's kernel on every case, and timed against it at
     COUPLED_TIMING_STEPS and at the main path's cap. Returns the timing
     row."""
     import numpy as np

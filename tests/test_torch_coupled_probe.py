@@ -16,7 +16,10 @@ count to). Here:
   group by group, and each such step's grants equal the last solve's;
 * counting changes no result;
 * the count is (G,) in the kernel's block order, 0 for a row outside every
-  group.
+  group;
+* a row of a group keeps ``COUPLED_LEVEL_SLOTS`` level inputs (the kernel's
+  ``kLevelSlots``), a row outside every group one (it steps as the
+  uncoupled loop).
 """
 from __future__ import annotations
 
@@ -78,6 +81,13 @@ def test_coupled_probe_phases_name_the_kernel_enum():
     snake = tuple(re.sub(r"(?<!^)(?=[A-Z])", "_", n[3:]).lower() for n in names[:-1])
     assert snake == fs.COUPLED_PROBE_PHASES
     assert {"wait1", "wait2", "solve", "level"} <= set(snake)
+
+
+def test_level_memory_size_is_the_kernels():
+    """The plain count keeps as many inputs a grouped row as the kernel's
+    level memory has slots (``kLevelSlots``)."""
+    slots = re.search(r"constexpr int kLevelSlots = (\d+);", fs.SOURCE.read_text()).group(1)
+    assert fs.COUPLED_LEVEL_SLOTS == int(slots)
 
 
 class _Demands:
@@ -145,7 +155,8 @@ def test_counting_solves_changes_no_result(monkeypatch):
 
 def test_solve_reuses_are_zero_outside_every_group():
     """A batch of two fabric groups and two rows on no shared link: four
-    blocks in the layout's order, the lone rows' counts 0."""
+    blocks in the layout's order, the lone rows' counts 0 and one level
+    input each."""
     tenants = tenant_matrix(n_groups=2)
     lone = [dataclasses.replace(sc, shared_fabric=None) for sc in smoke_matrix()[:2]]
     s, fab = _state(tenants + lone, 3)
@@ -156,3 +167,6 @@ def test_solve_reuses_are_zero_outside_every_group():
     assert reused.shape == (n + 2,) and n == 2
     assert torch.equal(reused[n:], torch.zeros(2, dtype=torch.int64))
     assert int(reused[:n].sum()) > 0
+    slots, grouped = fs._level_slots(fab), fab["group_id"] >= 0
+    assert bool((slots[grouped] == fs.COUPLED_LEVEL_SLOTS).all())
+    assert bool((slots[~grouped] == 1).all())
