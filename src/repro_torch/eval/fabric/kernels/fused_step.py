@@ -815,9 +815,9 @@ def fused_rounds_coupled_probe(s, fab, max_steps: int = ROUND_CAP):
     and fabric ``fab``: the launch of :func:`fused_rounds_coupled` (``s``
     updated in place, bit for bit the same; ``fused_rounds_coupled_probe
     .sweeps`` and ``.solve_reuses`` the launch's), and each active row's SM
-    cycles by phase
-    of its group steps (:data:`COUPLED_PROBE_PHASES`), summed over the
-    launch, as a new (S, phases) int64 tensor (0 on inactive rows). Each
+    cycles by phase of its group steps (:data:`COUPLED_PROBE_PHASES`),
+    summed over the launch, as a new (S, phases) int64 tensor (0 on
+    inactive rows). Each
     member warp reads ``clock64()`` at the phase boundaries, its waits at
     the block's barriers included. The probe has no plain version and
     raises for CPU tensors. Not on any path of the sweep: ``chip_smoke.py``
