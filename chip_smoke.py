@@ -36,7 +36,7 @@ Phases, each printing its own lines:
      version bit for bit on a live tenant-smoke state at caps of 1, 16, 256
      and 2,048 steps, with members pushed to max_time and to the SC guard
      (their groups stop with them), on the default grid's uncoupled rows as
-     groups of one (bit for bit the uncoupled loop kernel) and on the live
+     groups of one (the uncoupled loop kernel's results) and on the live
      206-row tenant matrix at 64 and 2,048 steps, timed (the bound counts
      the Jacobi sweeps the kernel ran), its level reuses and reused solves
      the plain version's counts; the coupled kernel's probe build on the
@@ -2287,7 +2287,7 @@ def coupled_rounds_checks(fs, smoke_state, tenant_state, default_state, parent=N
     card, bit for bit, on the live tenant-smoke state at each cap of
     ROUND_CHECK_STEPS, with members pushed to max_time and to the SC guard
     (their groups stop with them), on the default grid's uncoupled rows as
-    groups of one (equal to the uncoupled loop kernel), and on the live
+    groups of one (the uncoupled loop kernel's results), and on the live
     206-row tenant matrix at COUPLED_TIMING_STEPS group steps, timed there
     against the plain version and the bound, and at the main path's cap
     (the plain version untimed); the level reuses and reused solves the
@@ -2330,18 +2330,24 @@ def coupled_rounds_checks(fs, smoke_state, tenant_state, default_state, parent=N
               f"event {ev}; bit for bit the plain version, the reuses its counts"
               + ("" if parent is None else " and the parent's kernel"), flush=True)
 
-    # rows outside every group: groups of one, the uncoupled loop kernel's results
+    # rows outside every group: groups of one, the uncoupled loop kernel's
+    # results; their level reuses (the level memory's) the plain count
     S = default_state["act"].shape[0]
     solo = fs.fabric_operands(np.full(S, -1), np.zeros((0, S), dtype=bool), np.zeros(0), "cuda")
+    label = f"the live default grid's {S} uncoupled rows (one block each), cap 256"
+    b = coupled_against_plain(fs, default_state, solo, 256, label)[1]
     a = {k: v.clone() for k, v in default_state.items()}
-    b = {k: v.clone() for k, v in default_state.items()}
     fs.fused_rounds(a, 256)
-    fs.fused_rounds_coupled(b, solo, 256)
     torch.cuda.synchronize()
-    identical({k: b[k] for k in a}, list(a.values()),
+    names = [k for k in a if k != "reuses"]
+    identical({k: b[k] for k in names}, [a[k] for k in names],
               "fused_rounds_coupled on uncoupled rows against fused_rounds")
-    print(f"[kernels] fused_rounds_coupled on the live default grid's {S} uncoupled rows (one "
-          "block each), cap 256: bit for bit the uncoupled loop kernel", flush=True)
+    same_as_parent(fs, parent, b, default_state, f"fused_rounds_coupled {label}",
+                   lambda x: fs.fused_rounds_coupled(x, solo, 256))
+    print(f"[kernels] fused_rounds_coupled on {label}: bit for bit the plain version, the "
+          f"reuses its count ({int(b['reuses'].sum())}; the uncoupled kernel's "
+          f"{int(a['reuses'].sum())}), and the uncoupled loop kernel's results"
+          + ("" if parent is None else " and the parent's kernel"), flush=True)
 
     # timing on the live tenant matrix
     s0, fab = tenant_state

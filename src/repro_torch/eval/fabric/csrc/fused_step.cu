@@ -1630,7 +1630,8 @@ struct CoupledArgs {
 
 constexpr int kLevelSlots = 8;   // inputs a member's level memory keeps
 
-// A member's level memory: the last kLevelSlots distinct (caps, pool_eff)
+// A member's level memory (every row of the coupled loop keeps one, a row
+// outside every group too): the last kLevelSlots distinct (caps, pool_eff)
 // inputs of its steps in the launch (its caps a lane its own column), each
 // with the level they give and its rate sum, and the member's step that
 // last took or filled it (0: empty). A member's grant moves with the other
@@ -1658,8 +1659,8 @@ constexpr int kFlagErr = 1, kFlagLive = 2, kFlagGuard = 4;
 
 // min and max of the solve's values by a compare and a select: where no
 // value is NaN or -0 (levels, caps, demands and horizons are +0, positive
-// or +inf) they give fmin's and fmax's bits, in about a third of fmin's
-// latency on an H100 (`python -m repro_torch.bench.fp64_latency`).
+// or +inf) they give fmin's and fmax's bits, in less latency than fmin's
+// on an H100: the solve's chains of mins run shorter.
 __device__ __forceinline__ double dmin(double x, double y) { return y < x ? y : x; }
 __device__ __forceinline__ double dmax(double x, double y) { return y > x ? y : x; }
 
@@ -1837,7 +1838,8 @@ __device__ __forceinline__ double coupled_level(const double (&caps)[1], double 
 //       demand is bit for bit the last solve's, the last solve's grant (the
 //       solve is a function of the demands alone; `counts` gets the reused
 //       solves beside the sweeps); then its rates under its grant (a row
-//       outside every group: its pool) and its own horizon; barrier B;
+//       outside every group: its pool), the level from its level memory
+//       (coupled_level), and its own horizon; barrier B;
 //   (3) each live member advances by the least horizon of the group's live
 //       members, takes what follows the step and, unless it met a capacity
 //       guard, its transition: a guard is seen by the others at the next
@@ -1956,16 +1958,13 @@ __global__ void __launch_bounds__(32 * kGroupRows) fused_rounds_coupled_kernel(R
     double rate[T];
     double rsum = 0.0, dt = 0.0;
     if (live) {
-      // a row of a group: its level memory; a row alone: the uncoupled step's
       int slot = 0;
       const double level =
-          has_links ? coupled_level<CW>(caps, grant, cache, mem, (int)gsteps + 1, slot, sm.col_f,
-                                        lane)
-                    : row_level<T, CW>(caps, grant, cache, sm.col_f, lane);
+          coupled_level<CW>(caps, grant, cache, mem, (int)gsteps + 1, slot, sm.col_f, lane);
       clk.mark(kCpLevel);
       dt = row_horizon<T>(c, tr, caps, level, true, fmin(st.next_tick - st.t, next_prof - st.t),
                           rate, rsum, cache);
-      if (has_links && !cache.hit) mem.rsum[slot] = rsum;
+      if (!cache.hit) mem.rsum[slot] = rsum;
     }
     if (lane == 0) gs.gdt[warp] = live ? dt : INFINITY;
     clk.mark(kCpHorizon);

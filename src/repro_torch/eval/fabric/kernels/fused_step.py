@@ -155,9 +155,9 @@ COUPLED_PROBE_PHASES = (
     "test", "level", "horizon", "wait2", "advance", "feed", "after_step", "transition",
 )
 
-#: water levels a row of a fabric group keeps in the coupled loop kernel
-#: (its level memory: the last distinct inputs of its steps); every other
-#: row keeps its last step's
+#: water levels a row keeps in the coupled loop kernel (its level memory:
+#: the last distinct inputs of its steps); the uncoupled loop kernels keep
+#: the last step's
 COUPLED_LEVEL_SLOTS = 8
 
 #: the coupled loop kernel's limits: rows a fabric group (a block's warps),
@@ -190,51 +190,31 @@ def _level_reuse(cache, act, caps, pool, slots=1):
     bit those of one of the inputs it keeps reuses that input's level (the
     level is a function of the caps, their largest, which they give, and
     ``pool_eff``). A row keeps the last ``slots`` distinct inputs of its
-    steps in this launch (an int, or an (S,) int64 tensor of each row's),
-    the least recently used one (an empty one first, the lowest slot of
-    equals) giving way to a new input: 1, the last step's, in the loop
-    kernels' row cache; :data:`COUPLED_LEVEL_SLOTS` in the coupled loop
-    kernel's level memory. Adds the reuses into ``cache["reuses"]`` and
-    keeps this step's input. ``cache``: a dict the plain loops start empty
-    at each launch."""
+    steps in this launch, the least recently used one (an empty one first,
+    the lowest slot of equals) giving way to a new input: 1, the last
+    step's, in the uncoupled loop kernels' row cache;
+    :data:`COUPLED_LEVEL_SLOTS` in the coupled loop kernel's level memory.
+    Adds the reuses into ``cache["reuses"]`` and keeps this step's input.
+    ``cache``: a dict the plain loops start empty at each launch."""
     pool_eff = _bits(torch.clamp(torch.minimum(pool, lane_sum(caps)), min=0.0))
     caps = _bits(caps)
     if "caps" not in cache:
-        slots = torch.as_tensor(slots, dtype=torch.int64, device=caps.device).expand(
-            caps.shape[0])
-        k = int(slots.max())
-        cache.update(caps=caps.unsqueeze(1).repeat(1, k, 1), pool_eff=pool_eff.unsqueeze(1).repeat(
-            1, k), stamp=torch.zeros_like(pool_eff).unsqueeze(1).repeat(1, k), tick=0,
-            usable=torch.arange(k, device=caps.device) < slots.unsqueeze(1),
-            reuses=torch.zeros_like(pool_eff))
+        cache.update(caps=caps.unsqueeze(1).repeat(1, slots, 1),
+                     pool_eff=pool_eff.unsqueeze(1).repeat(1, slots),
+                     stamp=torch.zeros_like(pool_eff).unsqueeze(1).repeat(1, slots), tick=0,
+                     reuses=torch.zeros_like(pool_eff))
     cache["tick"] += 1
     stamp = cache["stamp"]
-    match = (cache["usable"] & (stamp > 0) & (cache["caps"] == caps.unsqueeze(1)).all(dim=-1)
+    match = ((stamp > 0) & (cache["caps"] == caps.unsqueeze(1)).all(dim=-1)
              & (cache["pool_eff"] == pool_eff.unsqueeze(1)))
     hit = act & match.any(dim=-1)
     cache["reuses"] = cache["reuses"] + hit.to(torch.int64)
-    lru = torch.where(cache["usable"], stamp, torch.iinfo(torch.int64).max).argmin(dim=-1)
-    slot = torch.where(hit, match.to(torch.int64).argmax(dim=-1), lru)
+    slot = torch.where(hit, match.to(torch.int64).argmax(dim=-1), stamp.argmin(dim=-1))
     rows = torch.nonzero(act).squeeze(-1)
     stamp[rows, slot[rows]] = cache["tick"]
     miss = torch.nonzero(act & ~hit).squeeze(-1)
     cache["caps"][miss, slot[miss]] = caps[miss]
     cache["pool_eff"][miss, slot[miss]] = pool_eff[miss]
-
-
-def _level_slots(fab):
-    """Each row's water-level slots in the coupled loop kernel, (S,) int64:
-    :data:`COUPLED_LEVEL_SLOTS` for a row of a fabric group with links (its
-    level memory), 1 for a row alone (its block steps as the uncoupled loop
-    kernel does)."""
-    gid = fab["group_id"]
-    grouped = gid >= 0
-    rides = torch.zeros(max(fab["n_groups"], 1), dtype=torch.int64, device=gid.device)
-    if fab["n_groups"]:
-        rides = rides.scatter_reduce(0, gid[grouped], fab["member"].any(dim=0)[grouped].to(
-            torch.int64), "amax")
-    linked = grouped & (rides[gid.clamp(min=0)] > 0)
-    return torch.where(linked, COUPLED_LEVEL_SLOTS, 1)
 
 
 def _solve_reuse(cache, fab, act, demand):
@@ -292,7 +272,7 @@ def _advance_plain(
                 act & (fab["group_id"] >= 0), torch.minimum(pool, total), 0.0))
         pool, _ = coupled_pool(pool, total, act, fab)
     if cache is not None:
-        _level_reuse(cache, act, caps, pool, 1 if fab is None else _level_slots(fab))
+        _level_reuse(cache, act, caps, pool, 1 if fab is None else COUPLED_LEVEL_SLOTS)
     level = bisect_level(caps, pool)
     rates = torch.where(
         act.unsqueeze(-1), torch.minimum(caps, level.unsqueeze(-1)), 0.0
@@ -565,7 +545,8 @@ def fused_rounds_coupled_plain(s, fab, max_steps: int = ROUND_CAP, counts=None):
     demand, :func:`.coupled_pool` turns the demands into link grants (one
     :func:`.waterfill_coupled` over the whole (L, S) table), and each live
     row advances by its group's least horizon (:func:`.lockstep_dt`); a
-    row outside every group steps as in :func:`fused_rounds_plain`. Stops
+    row outside every group steps as in :func:`fused_rounds_plain` (its
+    ``reuses`` counted with the coupled kernel's level memory). Stops
     are per group: a finished row offers zero demand until the group is
     done; a group stops when it has taken ``max_steps`` steps; an erring
     row stops its group before the step (the others with
@@ -737,9 +718,9 @@ def fused_rounds_coupled(s, fab, max_steps: int = ROUND_CAP):
     grants instead, every member's demand bit for bit the last solve's (the
     plain version's count, ``counts`` of :func:`fused_rounds_coupled_plain`,
     which a CPU call sets too). After a call, ``fused_rounds_coupled.reuses``
-    is ``s["reuses"]`` (as :func:`fused_rounds`'; a row of a group with
-    links reuses the level of any of its last :data:`COUPLED_LEVEL_SLOTS`
-    distinct inputs, its level memory, :func:`_level_reuse`)."""
+    is ``s["reuses"]`` (as :func:`fused_rounds`'; a row reuses the level of
+    any of its last :data:`COUPLED_LEVEL_SLOTS` distinct inputs, its level
+    memory, :func:`_level_reuse`)."""
     if max_steps < 1:
         raise ValueError(f"max_steps must be at least 1, got {max_steps}")
     busy = s["busy"]

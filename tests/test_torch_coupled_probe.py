@@ -17,9 +17,9 @@ count to). Here:
 * counting changes no result;
 * the count is (G,) in the kernel's block order, 0 for a row outside every
   group;
-* a row of a group keeps ``COUPLED_LEVEL_SLOTS`` level inputs (the kernel's
-  ``kLevelSlots``), a row outside every group one (it steps as the
-  uncoupled loop).
+* a row keeps ``COUPLED_LEVEL_SLOTS`` level inputs (the kernel's
+  ``kLevelSlots``); a row outside every group steps as the uncoupled loop
+  and reuses at least the levels that loop reuses.
 """
 from __future__ import annotations
 
@@ -84,8 +84,8 @@ def test_coupled_probe_phases_name_the_kernel_enum():
 
 
 def test_level_memory_size_is_the_kernels():
-    """The plain count keeps as many inputs a grouped row as the kernel's
-    level memory has slots (``kLevelSlots``)."""
+    """The plain count keeps as many inputs a row as the kernel's level
+    memory has slots (``kLevelSlots``)."""
     slots = re.search(r"constexpr int kLevelSlots = (\d+);", fs.SOURCE.read_text()).group(1)
     assert fs.COUPLED_LEVEL_SLOTS == int(slots)
 
@@ -155,18 +155,22 @@ def test_counting_solves_changes_no_result(monkeypatch):
 
 def test_solve_reuses_are_zero_outside_every_group():
     """A batch of two fabric groups and two rows on no shared link: four
-    blocks in the layout's order, the lone rows' counts 0 and one level
-    input each."""
+    blocks in the layout's order, the lone rows' counts 0; the lone rows'
+    results are the uncoupled loop's, their level reuses at least its (the
+    level memory keeps the last input too)."""
     tenants = tenant_matrix(n_groups=2)
     lone = [dataclasses.replace(sc, shared_fabric=None) for sc in smoke_matrix()[:2]]
     s, fab = _state(tenants + lone, 3)
     counts = {}
-    fs.fused_rounds_coupled_plain(s, fab, 64, counts=counts)
+    got = fs.fused_rounds_coupled_plain(s, fab, 64, counts=counts)
     reused = counts["solve_reuses"]
     n = fab["n_groups"]
     assert reused.shape == (n + 2,) and n == 2
     assert torch.equal(reused[n:], torch.zeros(2, dtype=torch.int64))
     assert int(reused[:n].sum()) > 0
-    slots, grouped = fs._level_slots(fab), fab["group_id"] >= 0
-    assert bool((slots[grouped] == fs.COUPLED_LEVEL_SLOTS).all())
-    assert bool((slots[~grouped] == 1).all())
+    alone = fab["group_id"] < 0
+    want = fs.fused_rounds_plain(s, 64)
+    for name, v in want.items():
+        if name != "reuses":
+            assert _same(got[name][alone], v[alone]), name
+    assert bool((got["reuses"][alone] >= want["reuses"][alone]).all())

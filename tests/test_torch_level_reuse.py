@@ -3,8 +3,8 @@
 The loop kernels (``fused_rounds_f64``, ``fused_rounds_coupled_f64``) keep a
 row's last water level and take it again, without the descent, on a step
 whose transferring caps and ``pool_eff`` are bit for bit the last step's in
-the same launch (the level is a function of those alone); a row of a fabric
-group in the coupled kernel keeps the levels of its last
+the same launch (the level is a function of those alone); a row in the
+coupled kernel (of a fabric group or alone) keeps the levels of its last
 ``fused_step.COUPLED_LEVEL_SLOTS`` distinct inputs (its level memory, least
 recently used out first). The plain loops count the same reuses by the same
 rule (``fused_step._level_reuse``) and return them as ``reuses``; the card's
@@ -18,7 +18,8 @@ phase 3 holds the kernels' counts to them. Here:
   recount from the plain step's own water-level inputs, each reused step's
   level equal to the last step's;
 * the same recount holds on live states with completions, grants, ProMC
-  moves and resume pushes, and on the coupled loop;
+  moves and resume pushes, and on the coupled loop (its groups, and rows
+  outside every group);
 * the driver adds each launch's reuses into ``SweepStats.level_reuses`` on
   the ``"rounds"`` route (0 elsewhere);
 * the plain per-chunk sum the kernels must equal adds a chunk's columns in
@@ -26,6 +27,7 @@ phase 3 holds the kernels' counts to them. Here:
 """
 from __future__ import annotations
 
+import numpy as np
 import pytest
 import torch
 
@@ -107,14 +109,13 @@ class _Recorder:
         monkeypatch.setattr(fs, "_advance_plain", advance_rec)
         monkeypatch.setattr(fs, "bisect_level", level_rec)
 
-    def recount(self, slots=None):
+    def recount(self, slots=1):
         """Each row's steps whose caps and pool_eff are bit for bit those of
-        one of the last ``slots[r]`` distinct inputs of its steps (1, its
-        last step's, by default), counted row by row in Python with a list
-        in least recently used order; asserts each such step's level is the
+        one of the last ``slots`` distinct inputs of its steps (1, its last
+        step's, by default), counted row by row in Python with a list in
+        least recently used order; asserts each such step's level is the
         one that input gave."""
         S = self.steps[0]["act"].shape[0]
-        slots = [1] * S if slots is None else [int(x) for x in slots]
         count = [0] * S
         kept = [[] for _ in range(S)]  # (key, level), least recently used first
         for rec in self.steps:
@@ -128,7 +129,7 @@ class _Recorder:
                     count[r] += 1
                     _, level = kept[r].pop(hit[0])
                     assert bool(rec["level"][r] == level), r  # the same level
-                elif len(kept[r]) == slots[r]:
+                elif len(kept[r]) == slots:
                     kept[r].pop(0)
                 kept[r].append((key, rec["level"][r].clone()))
         return torch.tensor(count, dtype=torch.int64)
@@ -199,10 +200,20 @@ def test_coupled_loop_counts_the_same_reuses(monkeypatch):
     s = {k: v.clone() for k, v in drv.round_operands(~drv.done).items()}
     rec = _Recorder(monkeypatch)
     out = fs.fused_rounds_coupled_plain(s, drv._fab, 64)
-    slots = fs._level_slots(drv._fab)
-    assert bool((slots == fs.COUPLED_LEVEL_SLOTS).all())  # every row rides a link
-    assert torch.equal(out["reuses"], rec.recount(slots))
+    assert torch.equal(out["reuses"], rec.recount(fs.COUPLED_LEVEL_SLOTS))
     assert int(out["reuses"].sum()) > int(rec.recount().sum()) > 0  # the memory serves more
+
+
+def test_coupled_loop_counts_the_reuses_of_rows_alone(monkeypatch):
+    """Rows outside every group (groups of one) keep the coupled kernel's
+    level memory too: the count is the recount with its slots."""
+    s = _state(smoke_matrix()[:12], 5)[0]
+    S = s["act"].shape[0]
+    solo = fs.fabric_operands(np.full(S, -1), np.zeros((0, S), dtype=bool), np.zeros(0))
+    rec = _Recorder(monkeypatch)
+    out = fs.fused_rounds_coupled_plain(s, solo, 200)
+    assert torch.equal(out["reuses"], rec.recount(fs.COUPLED_LEVEL_SLOTS))
+    assert int(out["reuses"].sum()) > 0
 
 
 def test_wrappers_expose_the_reuses():

@@ -446,7 +446,8 @@ def _loop_state(scenarios, sweeps):
 
 def test_coupled_loop_on_uncoupled_rows_equals_the_loop():
     """Rows outside every group run as groups of one: the uncoupled loop's
-    results, bit for bit."""
+    results, bit for bit; their level memory reuses at least the levels
+    the uncoupled loop's last-input cache reuses."""
     drv = _loop_state(smoke_matrix()[:12], 5)
     s = {k: v.clone() for k, v in drv.round_operands(~drv.done).items()}
     S = s["act"].shape[0]
@@ -455,6 +456,9 @@ def test_coupled_loop_on_uncoupled_rows_equals_the_loop():
         want = fs.fused_rounds_plain(s, cap)
         got = fs.fused_rounds_coupled_plain(s, solo, cap)
         for k, v in want.items():
+            if k == "reuses":
+                assert bool((got[k] >= v).all())
+                continue
             assert torch.equal(v, got[k]) or (v.is_floating_point() and torch.equal(
                 torch.nan_to_num(v, nan=-1.0), torch.nan_to_num(got[k], nan=-1.0))), k
 
