@@ -174,3 +174,20 @@ def test_solve_reuses_are_zero_outside_every_group():
         if name != "reuses":
             assert _same(got[name][alone], v[alone]), name
     assert bool((got["reuses"][alone] >= want["reuses"][alone]).all())
+
+
+@pytest.mark.parametrize("slots", [1, fs.COUPLED_LEVEL_SLOTS])
+def test_level_memory_keeps_the_last_distinct_inputs(slots):
+    """``_level_reuse`` with ``slots`` inputs a row: a row cycling over
+    ``slots`` distinct inputs reuses every step after the first round; one
+    cycling over ``slots + 1`` never does (the least recently used input is
+    the one that comes back next); a row that does not step counts none."""
+    for n, want in ((slots, 2 * slots), (slots + 1, 0)):
+        cache = {}
+        act = torch.tensor([True, False])
+        for _ in range(3):
+            for v in range(n):
+                caps = torch.tensor([[1.0 + v, 2.0], [1.0 + v, 2.0]], dtype=torch.float64)
+                fs._level_reuse(cache, act, caps, torch.full((2,), 1e9, dtype=torch.float64),
+                                slots)
+        assert cache["reuses"].tolist() == [want, 0], n
