@@ -52,8 +52,11 @@ Phases, each printing its own lines:
      kernel at recurrentgemma-9b's prefill, decode and long-prompt shapes,
      an odd width and bf16 inputs (rtol = atol = 1e-6), the two
      flash-attention kernels (bf16 with D % 8 == 0 on the tensor-core
-     kernel, the rest on the CUDA-core kernel) at gemma3-1b's and
-     recurrentgemma-9b's serving prefill shapes, the reference's FA cases in
+     kernel, the rest on the CUDA-core kernel) at gemma3-1b's,
+     recurrentgemma-9b's, deepseek-moe-16b's, paligemma-3b's and
+     whisper-base's serving prefill shapes (whisper's encoder at T = 1,500,
+     no multiple of a tile, and its cross attention of 64 queries over
+     1,500 keys, both without a mask), the reference's FA cases in
      fp32 and bf16 and ragged and edge shapes (rtol = atol = 2e-5 fp32, 2e-2
      bf16, and bf16 also normwise within 2^-10 of the plain version's norm;
      window 1 returns v exactly; a query no key may attend gets zeros,
@@ -189,7 +192,38 @@ Phases, each printing its own lines:
      atol 2e-2), exactly 6 flash launches in the card's prefill; the
      free-running drift printed beside that of a second card run with the
      plain attention in place of the kernel;
- 13. a {"kernels": [...]} JSON line, then the nvidia-smi name/power line,
+ 13. the MoE serving path: deepseek-moe-16b at full width and depth (28
+     layers of 64 routed experts, top 6, and 2 shared; 16,879,568,896 fp32
+     parameters from a seeded generator, 2,830,747,648 active a token)
+     serves 8 prompts of 512 tokens with 32 new greedy tokens; each
+     prefill layer attends through the tensor-core flash kernel at (8, 16,
+     16, 512, 512, 128) causal (exactly 28 launches a run, decode none);
+     prefill and decode timed, each profiled, peak device memory under 80
+     GB (every earlier model freed first);
+ 14. deepseek-moe-16b cut to 2 layers at full width on the card against
+     the port's CPU run: 2 x 64 prompt tokens, 4 forced steps, each block on
+     the CPU's inputs with phase 12's limits; each MoE call's expert ids on
+     the CPU's MoE input equal the CPU's but at near-ties (within 4 fp32
+     ulps, listed); a token that keeps other experts in the card's replay
+     (its own input) is listed and left out of the block output check, its
+     flip explained by the input's change;
+ 15. the VLM serving path: paligemma-3b at full width and depth (18
+     layers, 2,508,662,784 parameters) serves 8 requests of 256 seeded
+     prefix rows and 512 text tokens with 32 new tokens (exactly 18 flash
+     launches a run at (8, 8, 1, 768, 768, 256) causal); timed, profiled,
+     peak memory;
+ 16. paligemma-3b cut to 2 layers on the card against the CPU run (1 x
+     (256 + 64) prefill, 4 forced steps), as phase 14;
+ 17. the encoder-decoder serving path: whisper-base at full width and
+     depth (6 + 6 layers, 70,611,456 parameters) serves 8 x 1,500 seeded
+     frames with 64-token decoder prompts and 32 new tokens (exactly 18 flash
+     launches a run: 6 encoder at (8, 8, 8, 1500, 1500, 64) and 6 cross at
+     (8, 8, 8, 64, 1500, 64) without a mask, 6 decoder self at (8, 8, 8,
+     64, 64, 64) causal); timed, profiled, peak memory;
+ 18. the whole whisper-base on the card against the CPU run (2 x 1,500
+     frames, 2 x 16 prompt tokens, 4 forced steps), each encoder and decoder
+     block on the CPU's inputs, as phase 14;
+ 19. a {"kernels": [...]} JSON line, then the nvidia-smi name/power line,
      then the result line {"ok": true, "device": {...}}.
 
 Any failure exits non-zero without the result line. The script imports
@@ -279,7 +313,20 @@ FA_SERVING = [(8, 4, 1, 512, 512, 256, True, w, 0.0, "bfloat16") for w in (512, 
 #: 512 (the kernel's block skipping at length)
 FA_FP32 = FA_SERVING[0][:-1] + ("float32",)
 FA_FP32_TIMED = [FA_FP32, FA_SERVING[1][:-1] + ("float32",), FA_SERVING[2][:-1] + ("float32",)]
-FA_TIMED = FA_SERVING + FA_FP32_TIMED
+#: the prefill shapes of the MoE, VLM and encoder-decoder serving runs
+#: (bf16, the tensor-core kernel), timed: deepseek-moe-16b (16 heads of 128,
+#: 16 KV heads), paligemma-3b (256 prefix rows + 512 tokens, 8 heads of 256,
+#: 1 KV head), whisper-base's encoder (1,500 frames: no multiple of a tile,
+#: no mask), its decoder's self attention and its cross attention (64
+#: queries over 1,500 keys, no mask)
+FA_FAMILIES = [
+    (8, 16, 16, 512, 512, 128, True, None, 0.0, "bfloat16"),
+    (8, 8, 1, 768, 768, 256, True, None, 0.0, "bfloat16"),
+    (8, 8, 8, 1500, 1500, 64, False, None, 0.0, "bfloat16"),
+    (8, 8, 8, 64, 64, 64, True, None, 0.0, "bfloat16"),
+    (8, 8, 8, 64, 1500, 64, False, None, 0.0, "bfloat16"),
+]
+FA_TIMED = FA_SERVING + FA_FP32_TIMED + FA_FAMILIES
 #: each route's kernel, as the profiler names it
 FA_KERNEL = {"tensor_cores": "flash_fwd_sm90_kernel", "cuda_cores": "flash_fwd_kernel"}
 FA_CASES = [
@@ -307,7 +354,7 @@ FA_CHECKS = FA_SERVING + [FA_FP32] + [
     # recurrentgemma-9b's serving prefills: 16 query heads, 1 KV head of 256,
     # window 2048
     (b, 16, 1, s, s, 256, True, 2048, 0.0, "bfloat16") for b, s, _ in HYB_RUNS
-] + FA_FP32_TIMED[1:]
+] + FA_FP32_TIMED[1:] + FA_FAMILIES
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: bf16 checks are also held normwise: ||out - plain|| <= FA_BF16_NORMWISE
 #: ||plain|| over the whole output. At long shapes an output is about as
@@ -324,6 +371,18 @@ DENSE_RUNS = [(8, 512, 32), (1, 8192, 8)]
 #: the dense card-against-CPU check: one "LLLLLG" period at full width, one
 #: request of 640 tokens (longer than the 512 window), 4 forced steps
 DENSE_CHECK_LAYERS, DENSE_CHECK_B, DENSE_CHECK_PROMPT = 6, 1, 640
+#: the serving runs of the MoE, VLM and encoder-decoder families: (requests,
+#: prompt tokens, new tokens); paligemma's requests carry 256 prefix rows
+#: each, whisper's 1,500 frames
+MOE_RUNS, VLM_RUNS, ENCDEC_RUNS = [(8, 512, 32)], [(8, 512, 32)], [(8, 64, 32)]
+#: their card-against-CPU checks: (layers, requests, prompt tokens), 4
+#: forced steps each; deepseek-moe-16b and paligemma-3b cut to 2 layers,
+#: whisper-base whole (6 + 6)
+MOE_CHECK, VLM_CHECK, ENCDEC_CHECK = (2, 2, 64), (2, 1, 64), (None, 2, 16)
+#: a routing flip between the card and the CPU on the same MoE input is a
+#: near-tie: the two experts' router probabilities within this many fp32
+#: ulps of each other
+ROUTE_ULPS = 4
 
 
 class SmokeFailure(RuntimeError):
@@ -787,7 +846,7 @@ def flash_checks(fa, ref):
             t_ops = flops / (BF16_TC_FLOPS if dt == torch.bfloat16 else FP32_FLOPS) * 1e3
             if window is None:
                 lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                    q, k, v, is_causal=True, enable_gqa=True)
+                    q, k, v, is_causal=causal, enable_gqa=True)
             else:
                 pos = torch.arange(S, device="cuda")
                 mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
@@ -811,7 +870,8 @@ def flash_checks(fa, ref):
             if route == fa.CUDA_CORES:
                 dmax = 64 if D <= 64 else 128 if D <= 128 else 256
                 row["ptxas"] = ptxas_of("flash_attention", f"flash_fwd_kernel<float, {dmax}>")
-            print(f"[kernels] {name} B={B} H={H} KV={KV} S={S} D={D} window={window} {dtype}: "
+            print(f"[kernels] {name} B={B} H={H} KV={KV} S={S} T={T} D={D} causal={causal} "
+                  f"window={window} {dtype}: "
                   f"max_abs_err {err:.3g} | device {row['ms'] * 1e3:.2f} us "
                   f"({flops / row['ms'] / 1e9:.1f} TFLOP/s of kept work) | wrapper call "
                   f"{row['call_ms'] * 1e3:.1f} us | plain {row['plain_ms'] * 1e3:.1f} us | "
@@ -1119,23 +1179,27 @@ def to_device(tree, dev):
     return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
 
 
-def forced_run(m, prompt, forced, calls=None):
-    """The prefill of ``prompt`` (B, S) and one teacher-forced decode step
-    for each row of ``forced`` (steps, B) -> [(logits (B, V) fp32, cache)]
-    on the CPU; ``calls`` collects (layer, inputs, outputs) of each block
-    call."""
+def forced_run(m, prompt, forced, calls=None, extra=None, offset=0, blocks=None):
+    """The prefill of ``prompt`` (B, S) (with the batch entries ``extra``:
+    a VLM's ``prefix_embed``, an encoder-decoder's ``frames``) and one
+    teacher-forced decode step for each row of ``forced`` (steps, B), at
+    positions ``offset`` + S + i -> [(logits (B, V) fp32, cache)] on the
+    CPU; ``calls`` collects (block, inputs, outputs) of each call of
+    ``blocks`` (default ``m.layers``)."""
     import torch
 
     s = prompt.shape[1]
+    blocks = m.layers if blocks is None else blocks
     hooks = [blk.register_forward_hook(
              lambda mod, args, out, i=i: calls.append((i, args, out)))
-             for i, blk in enumerate(m.layers)] if calls is not None else []
+             for i, blk in enumerate(blocks)] if calls is not None else []
+    batch = {"tokens": torch.as_tensor(prompt, device=m.device), **to_device(extra or {}, m.device)}
     with torch.inference_mode():
-        lg, c = m.prefill({"tokens": torch.as_tensor(prompt, device=m.device)},
-                          m.init_cache(prompt.shape[0], s + len(forced)))
+        lg, c = m.prefill(batch, m.init_cache(prompt.shape[0], offset + s + len(forced)))
         out = [(lg[:, 0], c)]
         for i, tok in enumerate(forced):
-            out.append(m.decode_step(torch.as_tensor(tok, device=m.device), out[-1][1], s + i))
+            out.append(m.decode_step(torch.as_tensor(tok, device=m.device), out[-1][1],
+                                     offset + s + i))
     for h in hooks:
         h.remove()
     return [(lg.float().cpu(), to_device(c, "cpu")) for lg, c in out]
@@ -1343,100 +1407,6 @@ def hybrid_card_against_cpu(rg, fa):
     return launches, flash
 
 
-def serve_dense(fa, rg, wk):
-    """Phase 11: gemma3-1b at full width and depth through ``generate``.
-    Returns {run: flash launches of its generate}."""
-    import numpy as np
-    import torch
-
-    from repro_torch.models.model import build_model
-    from repro_torch.train.serve_step import generate, make_decode_step, make_prefill
-
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    model = build_model("gemma3-1b", device="cuda")
-    model.init(torch.Generator(device="cuda").manual_seed(0))
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    init_s = time.perf_counter() - t0
-    cfg = model.cfg
-    fail_if(n_params != 999_812_736, f"dense: {n_params:,} parameters")
-    n_local = sum(t == "L" for t in cfg.layer_types())
-    rng = np.random.RandomState(0)
-    generate(model, torch.as_tensor(rng.randint(0, cfg.vocab_size, (2, 16)), device="cuda"), 2)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    print(f"[dense] gemma3-1b full width: {n_params:,} fp32 parameters (init {init_s:.2f}s), "
-          f"{cfg.num_layers} layers ({n_local} local, window {cfg.window_size}; "
-          f"{cfg.num_layers - n_local} global), {cfg.num_heads} heads of {cfg.head_dim}, "
-          f"{cfg.num_kv_heads} KV head", flush=True)
-    prefill, decode = make_prefill(model), make_decode_step(model)
-    by_run = {}
-    for b, s_len, new in DENSE_RUNS:
-        prompt = torch.as_tensor(rng.randint(0, cfg.vocab_size, (b, s_len)), device="cuda")
-        torch.cuda.synchronize()
-        fa.flash_attention.launches = rg.rglru_scan.launches = wk.rwkv6_scan.launches = 0
-        fa.flash_attention.tc_launches = 0
-        t0 = time.perf_counter()
-        tokens = generate(model, prompt, new)
-        torch.cuda.synchronize()
-        gen_s = time.perf_counter() - t0
-        launches, tc = fa.flash_attention.launches, fa.flash_attention.tc_launches
-        other = rg.rglru_scan.launches + wk.rwkv6_scan.launches
-        run = f"serve_{b}x{s_len}"
-        by_run[f"dense_{run}"] = launches
-        fail_if(tuple(tokens.shape) != (b, new), f"{run}: tokens {tuple(tokens.shape)}")
-        fail_if(not (0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size),
-                f"{run}: tokens out of the vocabulary")
-        fail_if(launches != cfg.num_layers or tc != launches or other != 0,
-                f"{run}: {launches} flash launches, {tc} on the tensor cores (expected "
-                f"{cfg.num_layers}: one a layer in the prefill, none in decode, all on the "
-                f"tensor cores), {other} recurrence launches")
-
-        # prefill and decode timed apart, on the same prompts
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, cache = prefill({"tokens": prompt}, model.init_cache(b, s_len + new))
-        torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
-        fail_if(not bool(torch.isfinite(logits.float()).all()), f"{run}: non-finite prefill logits")
-        tok = torch.argmax(logits[:, -1, :], dim=-1)
-        fail_if(not torch.equal(tok, tokens[:, 0]), f"{run}: prefill token differs from generate's")
-        t0 = time.perf_counter()
-        for i in range(new - 1):
-            tok, cache = decode(tok, cache, s_len + i)
-        torch.cuda.synchronize()
-        decode_s = time.perf_counter() - t0
-        fail_if(not torch.equal(tok, tokens[:, -1]), f"{run}: decode tokens differ from generate's")
-        for name, c in cache.items():
-            fail_if(not bool(torch.isfinite(c[:, :, :s_len + new - 1].float()).all()),
-                    f"{run}: non-finite {name} cache")
-            fail_if(bool(c[:, :, s_len + new - 1:].any()), f"{run}: {name} cache written past the last step")
-        steps = new - 1
-        print(f"[dense] {b} requests x {s_len} prompt tokens, {new} new greedy tokens: generate "
-              f"{gen_s:.3f}s, flash launches {launches} ({tc} on the tensor cores; = "
-              f"{cfg.num_layers} layers x 1 prefill; decode attends with the plain attention); "
-              f"prefill {prefill_s * 1e3:.1f} ms "
-              f"({b * s_len / prefill_s:.0f} tokens/s); decode {steps} steps in "
-              f"{decode_s * 1e3:.1f} ms ({decode_s / steps * 1e3:.2f} ms a step, "
-              f"{b * steps / decode_s:.1f} tokens/s)", flush=True)
-        cache0 = model.init_cache(b, s_len + new)
-        print(f"[dense] profiled prefill {b} x {s_len}: "
-              f"{profile_window(lambda: prefill({'tokens': prompt}, cache0), 'flash_fwd_sm90')}",
-              flush=True)
-        if (b, s_len, new) == DENSE_RUNS[0]:
-            print(f"[dense] profiled 4 decode steps: "
-                  f"{profile_window(lambda: [decode(tok, cache, s_len) for _ in range(4)], 'flash_fwd_sm90')}",
-                  flush=True)
-        del cache, cache0, logits
-    peak = torch.cuda.max_memory_allocated()
-    print(f"[dense] peak device memory {peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB)", flush=True)
-    fail_if(not peak < CARD_BYTES, f"dense: peak device memory {peak / 1e9:.2f} GB")
-    del model
-    torch.cuda.empty_cache()
-    return by_run
-
-
 def top_ulp(x) -> float:
     """One bf16 ulp at the largest magnitude of ``x`` (8 significant bits)."""
     top = x.float().abs().max().item()
@@ -1552,6 +1522,369 @@ def dense_card_against_cpu(fa):
           f"{threads} threads worst |logits| {cpu_lg:.3g}, by layer "
           f"{[float(f'{x:.3g}') for x in cpu_kv]}", flush=True)
     fail_if(not worst_lg <= 2e-2, f"dense check: logits differ by {worst_lg:.3g}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def flash_calls():
+    """Within the block, each call of the models' flash wrapper
+    ``ops.flash_attention`` (q (B, S, H, D), k (B, T, KV, D)) is recorded
+    as ((B, H, KV, S, T, D), causal, window) and passed on to it."""
+    from repro_torch.kernels import ops
+
+    real, seen = ops.flash_attention, []
+
+    def spy(q, k, v, **kw):
+        seen.append(((q.shape[0], q.shape[2], k.shape[2], q.shape[1], k.shape[1], q.shape[3]),
+                     kw.get("causal", True), kw.get("window")))
+        return real(q, k, v, **kw)
+
+    ops.flash_attention = spy
+    try:
+        yield seen
+    finally:
+        ops.flash_attention = real
+
+
+def family_flash_calls(cfg, b, s):
+    """The flash calls one prefill of ``b`` requests of ``s`` tokens makes,
+    as ``flash_calls`` records them: each decoder layer's causal
+    self-attention over the prefix rows and the text; for an
+    encoder-decoder first each encoder layer's unmasked attention over the
+    frames, then each decoder layer's self and (unmasked) cross attention."""
+    h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    n = cfg.num_prefix_tokens + s if cfg.frontend == "vision_stub" else s
+    if not cfg.is_encdec:
+        return [((b, h, kv, n, n, d), True, cfg.window_size if t == "L" else None)
+                for t in cfg.layer_types()]
+    f = cfg.encoder_seq
+    return ([((b, h, kv, f, f, d), False, None)] * cfg.encoder_layers
+            + [((b, h, kv, s, s, d), True, None), ((b, h, kv, s, f, d), False, None)]
+            * cfg.num_layers)
+
+
+def family_extra(cfg, b, device, seed):
+    """The batch entries beside the tokens, normal draws from a seeded
+    generator: a VLM's ``prefix_embed`` (B, 256, D), an encoder-decoder's
+    ``frames`` (B, 1,500, D); none for a text-only model."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if cfg.frontend == "vision_stub":
+        return {"prefix_embed": torch.randn((b, cfg.num_prefix_tokens, cfg.d_model),
+                                            generator=gen, device=device)}
+    if cfg.is_encdec:
+        return {"frames": torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=gen,
+                                      device=device)}
+    return {}
+
+
+def serve_family(tag, arch, runs, fa, rg, wk, want_params, want_active):
+    """Phases 11, 13, 15 and 17: ``arch`` at full width and depth through
+    ``generate`` (fp32 weights from a seeded generator; seeded prompts,
+    prefix rows or frames), one run a (requests, prompt tokens, new tokens)
+    of ``runs``, every launch count set to 0 just before and read just
+    after: each prefill attention goes through the tensor-core flash kernel
+    at the shapes ``family_flash_calls`` names, decode attends with the
+    plain attention, no recurrence kernel runs. Then prefill and decode timed
+    apart, each prefill (and the first run's 4 decode steps) profiled, the
+    peak device memory. Returns {run: flash launches of its generate}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.model import build_model, count_active_params
+    from repro_torch.train.serve_step import generate, make_decode_step, make_prefill
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = build_model(arch, device="cuda")
+    model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    init_s = time.perf_counter() - t0
+    cfg = model.cfg
+    active = count_active_params(cfg)
+    fail_if((n_params, active) != (want_params, want_active),
+            f"{tag}: {n_params:,} parameters, {active:,} active; expected {want_params:,}, "
+            f"{want_active:,}")
+    rng = np.random.RandomState(0)
+    warm = torch.as_tensor(rng.randint(0, cfg.vocab_size, (2, 16)), device="cuda")
+    generate(model, warm, 2, extra_batch=family_extra(cfg, 2, "cuda", 1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    types = cfg.layer_types()
+    print(f"[{tag}] {arch} full width and depth: {n_params:,} fp32 parameters ({active:,} "
+          f"active a token; {n_params * 4 / 1e9:.1f} GB, init {init_s:.2f}s), {cfg.num_layers} "
+          f"layers" + (f" + {cfg.encoder_layers} encoder layers" if cfg.is_encdec else "")
+          + (f" ({types.count('L')} local, window {cfg.window_size}; {types.count('G')} global)"
+             if "L" in types else "")
+          + f", {cfg.num_heads} heads of {cfg.head_dim}, {cfg.num_kv_heads} KV heads"
+          + (f", {cfg.num_experts} experts (top {cfg.top_k}, {cfg.num_shared_experts} shared)"
+             if cfg.num_experts else ""), flush=True)
+    prefill, decode = make_prefill(model), make_decode_step(model)
+    offset = cfg.num_prefix_tokens if cfg.frontend == "vision_stub" else 0
+    by_run = {}
+    for b, s_len, new in runs:
+        prompt = torch.as_tensor(rng.randint(0, cfg.vocab_size, (b, s_len)), device="cuda")
+        extra = family_extra(cfg, b, "cuda", 2)
+        torch.cuda.synchronize()
+        fa.flash_attention.launches = fa.flash_attention.tc_launches = 0
+        rg.rglru_scan.launches = wk.rwkv6_scan.launches = 0
+        with flash_calls() as calls:
+            t0 = time.perf_counter()
+            tokens = generate(model, prompt, new, extra_batch=extra)
+            torch.cuda.synchronize()
+            gen_s = time.perf_counter() - t0
+        launches, tc = fa.flash_attention.launches, fa.flash_attention.tc_launches
+        other = rg.rglru_scan.launches + wk.rwkv6_scan.launches
+        want = family_flash_calls(cfg, b, s_len)
+        label = f"{tag} {b}x{s_len}"
+        by_run[f"{tag}_serve_{b}x{s_len}"] = launches
+        fail_if(tuple(tokens.shape) != (b, new), f"{label}: tokens {tuple(tokens.shape)}")
+        fail_if(not (0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size),
+                f"{label}: tokens out of the vocabulary")
+        fail_if(launches != len(want) or tc != launches or other != 0,
+                f"{label}: {launches} flash launches, {tc} on the tensor cores (expected "
+                f"{len(want)}: the prefill's attentions, none in decode, all on the tensor "
+                f"cores), {other} recurrence launches")
+        fail_if(calls != want,
+                f"{label}: flash calls {sorted(set(calls), key=str)}, expected {sorted(set(want), key=str)}")
+
+        # prefill and decode timed apart, on the same inputs
+        batch = {"tokens": prompt, **extra}
+        max_len = offset + s_len + new
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(batch, model.init_cache(b, max_len))
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        fail_if(not bool(torch.isfinite(logits.float()).all()), f"{label}: non-finite prefill logits")
+        tok = torch.argmax(logits[:, -1, :], dim=-1)
+        fail_if(not torch.equal(tok, tokens[:, 0]), f"{label}: prefill token differs from generate's")
+        t0 = time.perf_counter()
+        for i in range(new - 1):
+            tok, cache = decode(tok, cache, offset + s_len + i)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        fail_if(not torch.equal(tok, tokens[:, -1]), f"{label}: decode tokens differ from generate's")
+        for name, c in cache.items():
+            written = c if name == "enc_out" else c[:, :, :max_len - 1]
+            fail_if(not bool(torch.isfinite(written.float()).all()),
+                    f"{label}: non-finite {name} cache")
+            fail_if(name != "enc_out" and bool(c[:, :, max_len - 1:].any()),
+                    f"{label}: {name} cache written past the last step")
+        steps = new - 1
+        shapes = ", ".join(
+            f"{want.count(k)} x {k[0]} {'causal' if k[1] else 'no mask'}"
+            + (f" window {k[2]}" if k[2] is not None else "") for k in dict.fromkeys(want))
+        print(f"[{tag}] {b} requests x {s_len} prompt tokens"
+              + (f" (+ {offset} prefix rows each)" if offset else "")
+              + (f" (+ {cfg.encoder_seq} frames each)" if cfg.is_encdec else "")
+              + f", {new} new greedy tokens: generate {gen_s:.3f}s, flash launches {launches} "
+              f"({tc} on the tensor cores: {shapes}, as (B, H, KV, S, T, D), in the prefill; "
+              f"none in decode); prefill {prefill_s * 1e3:.1f} ms "
+              f"({b * (offset + s_len) / prefill_s:.0f} tokens/s); decode {steps} steps in "
+              f"{decode_s * 1e3:.1f} ms ({decode_s / steps * 1e3:.2f} ms a step, "
+              f"{b * steps / decode_s:.1f} tokens/s)", flush=True)
+        cache0 = model.init_cache(b, max_len)
+        print(f"[{tag}] profiled prefill {b} x {s_len}: "
+              f"{profile_window(lambda: prefill(batch, cache0), 'flash_fwd_sm90')}", flush=True)
+        if (b, s_len, new) == runs[0]:
+            print(f"[{tag}] profiled 4 decode steps: "
+                  f"{profile_window(lambda: [decode(tok, cache, offset + s_len)[0] for _ in range(4)], 'flash_fwd_sm90')}",
+                  flush=True)
+        del cache, cache0, logits
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[{tag}] peak device memory {peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB)", flush=True)
+    fail_if(not peak < CARD_BYTES, f"{tag}: peak device memory {peak / 1e9:.2f} GB")
+    del model
+    torch.cuda.empty_cache()
+    return by_run
+
+
+def kept_experts(r, num_experts):
+    """(tokens, E) bool: the experts that a routing's kept choices reach,
+    token by token."""
+    import torch
+
+    k = r.ids.shape[-1]
+    ids, keep = r.ids.reshape(-1, k), r.keep.reshape(-1, k)
+    out = torch.zeros((ids.shape[0], num_experts), dtype=torch.bool, device=ids.device)
+    return out.scatter_(1, ids, keep)
+
+
+def routing_flips(r_card, r_cpu, where):
+    """The tokens whose top-k expert ids (in order) differ between the
+    card's and the CPU's routing of the same MoE input -> [(where, token,
+    CPU ids, card ids, the widest CPU probability gap between two experts
+    the runs swap, in fp32 ulps of the larger)]."""
+    import numpy as np
+
+    k = r_cpu.ids.shape[-1]
+    a = r_cpu.ids.reshape(-1, k).numpy()
+    b = r_card.ids.reshape(-1, k).cpu().numpy()
+    probs = r_cpu.probs.reshape(a.shape[0], -1).numpy()
+    out = []
+    for t in np.nonzero((a != b).any(axis=1))[0]:
+        ulps = max(abs(probs[t, x] - probs[t, y]) / np.spacing(max(probs[t, x], probs[t, y]))
+                   for x, y in zip(a[t], b[t]) if x != y)
+        out.append((where, int(t), a[t].tolist(), b[t].tolist(), float(ulps)))
+    return out
+
+
+def family_card_against_cpu(tag, arch, check, fa):
+    """Phases 14, 16 and 18: ``arch`` at full width (cut to ``check[0]``
+    layers; whisper-base whole), on the card and in the port's CPU run with
+    the same weights: a prefill of check[1] requests of check[2] tokens (with
+    seeded prefix rows or frames), then 4 teacher-forced decode steps. As in
+    phases 8, 10 and 12, every block call of the CPU run (whisper: encoder
+    and decoder blocks) is replayed on the card's block on the CPU's inputs,
+    and the card's output head is given the CPU's last hidden state, with
+    phase 12's limits: k / v within one bf16 ulp of their largest magnitude,
+    block outputs within two, logits atol 2e-2.
+
+    An MoE layer's routing is also computed on the card from the CPU's MoE
+    input: its expert ids must equal the CPU's but at near-ties (the two
+    experts' CPU probabilities within ROUTE_ULPS fp32 ulps), which are
+    counted and listed. In the replay the card's block routes its own MoE
+    input, which its attention rounds apart from the CPU's. A token whose
+    kept experts differ from the CPU's there is left out of the block output
+    check (routing is not continuous: one flip moves a row by far more than
+    a bf16 ulp), counted and listed; the flip must be one the input's change
+    explains: the swapped experts' CPU probabilities span no more than twice
+    the largest change the card's input made to that token's probabilities.
+    Returns the flash launch count of the phase."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    layers, b, s = check
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    gpu = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(1))
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    rng = np.random.RandomState(3)
+    prompt = rng.randint(0, cfg.vocab_size, (b, s))
+    forced = rng.randint(0, cfg.vocab_size, (CHECK_STEPS, b))
+    extra = family_extra(cfg, b, "cpu", 4)
+    offset = cfg.num_prefix_tokens if cfg.frontend == "vision_stub" else 0
+
+    def blocks(m):
+        return [*m.encoder, *m.decoder] if cfg.is_encdec else list(m.layers)
+
+    gpu_blocks, cpu_blocks = blocks(gpu), blocks(cpu)
+    t0 = time.perf_counter()
+    fa.flash_attention.launches = fa.flash_attention.tc_launches = 0
+    free = forced_run(gpu, prompt, forced, extra=extra, offset=offset, blocks=gpu_blocks)
+    card_launches = fa.flash_attention.launches
+    want = len(family_flash_calls(cfg, b, s))
+    fail_if(card_launches != want or fa.flash_attention.tc_launches != want,
+            f"{tag} check: {card_launches} flash launches in the card's run "
+            f"({fa.flash_attention.tc_launches} on the tensor cores), expected {want} (the "
+            "prefill's attentions, none in decode), all on the tensor cores")
+    calls, moe_in = [], []
+    hooks = [blk.moe.register_forward_hook(lambda mod, args, out: moe_in.append(args[0]))
+             for blk in cpu_blocks if getattr(blk, "moe", None) is not None]
+    ref = forced_run(cpu, prompt, forced, calls, extra=extra, offset=offset, blocks=cpu_blocks)
+    for h in hooks:
+        h.remove()
+    cpu_s = time.perf_counter() - t0
+
+    # the MoE input of each block call that has one, in call order
+    moe_x = iter(moe_in)
+    worst = {"k": 0.0, "v": 0.0, "out": 0.0}
+    same_input, replay, routed = [], [], 0
+    with torch.inference_mode():
+        for n, (i, args, out) in enumerate(calls):
+            block, where = gpu_blocks[i], f"block {i} call {n}"
+            h_out, st_out = (out, {}) if isinstance(out, torch.Tensor) else out
+            rows = None
+            if getattr(block, "moe", None) is None:
+                got = block(*to_device(args, "cuda"))
+            else:
+                x_cpu = next(moe_x)
+                r_cpu = cpu_blocks[i].moe.route(x_cpu)
+                flips = routing_flips(block.moe.route(x_cpu.cuda()), r_cpu, where)
+                same_input += flips
+                fail_if(any(f[-1] > ROUTE_ULPS for f in flips),
+                        f"{tag} check: on the same MoE input the card routes past a near-tie: "
+                        f"{[f for f in flips if f[-1] > ROUTE_ULPS][:5]}")
+                seen = []
+                hook = block.moe.register_forward_hook(lambda mod, a, o: seen.append(a[0]))
+                got = block(*to_device(args, "cuda"))
+                hook.remove()
+                r_card = block.moe.route(seen[0])
+                kept_cpu = kept_experts(r_cpu, cfg.num_experts)
+                kept_card = kept_experts(r_card, cfg.num_experts).cpu()
+                differ = (kept_cpu != kept_card).any(dim=1)
+                routed += differ.numel()
+                probs = r_cpu.probs.reshape(differ.numel(), -1)
+                moved = (r_card.probs.cpu().reshape(differ.numel(), -1) - probs).abs().amax(dim=1)
+                for t in torch.nonzero(differ).flatten().tolist():
+                    swapped = torch.nonzero(kept_cpu[t] ^ kept_card[t]).flatten()
+                    span = (probs[t, swapped].max() - probs[t, swapped].min()).item()
+                    replay.append((where, t, swapped.tolist(), span, moved[t].item()))
+                    fail_if(not span <= 2 * moved[t].item(),
+                            f"{tag} check: {where} token {t} keeps experts {swapped.tolist()} "
+                            f"apart on the card's input; their CPU probabilities span {span:.3g}, "
+                            f"more than twice the input's change {moved[t].item():.3g}")
+                rows = ~differ
+            got_h, st = (got, {}) if isinstance(got, torch.Tensor) else got
+            got_h, want_h = got_h.cpu().float(), h_out.float()
+            if rows is not None:
+                got_h = got_h.reshape(rows.numel(), -1)[rows]
+                want_h = want_h.reshape(rows.numel(), -1)[rows]
+            ulp = top_ulp(h_out)
+            d = (got_h - want_h).abs().max().item() if got_h.numel() else 0.0
+            worst["out"] = max(worst["out"], d / ulp)
+            fail_if(not d <= 2 * ulp, f"{tag} check: {where} output differs by {d:.3g}, more than "
+                    f"two bf16 ulps ({ulp:.3g}) of its largest magnitude")
+            for k, w in st_out.items():
+                d = (st[k].cpu().float() - w.float()).abs().max().item()
+                worst[k] = max(worst[k], d / top_ulp(w))
+                fail_if(not d <= top_ulp(w), f"{tag} check: {where} {k} differs by {d:.3g}, more "
+                        f"than one bf16 ulp ({top_ulp(w):.3g}) of its largest magnitude")
+        last = len(gpu_blocks) - 1
+        finals = [out if isinstance(out, torch.Tensor) else out[0]
+                  for i, _, out in calls if i == last]
+        worst_lg = 0.0
+        for h_last, (want_lg, _) in zip(finals, ref):
+            got = gpu._logits(h_last[:, -1:, :].cuda())[:, 0].float().cpu()
+            fail_if(not bool(torch.isfinite(got).all()), f"{tag} check: non-finite logits on the card")
+            worst_lg = max(worst_lg, (got - want_lg).abs().max().item())
+    secs = time.perf_counter() - t0
+    launches = fa.flash_attention.launches
+    fail_if(launches != 2 * want, f"{tag} check: {launches} flash launches, expected {2 * want} "
+            "(the card's prefill and the replay of its blocks)")
+    free_lg = max((x[0] - y[0]).abs().max().item() for x, y in zip(free, ref))
+    print(f"[{tag}-check] {arch} full width"
+          + (f" cut to {layers} layers" if layers is not None else ", all layers")
+          + f", card vs the port's CPU run ({secs:.1f}s; card and CPU runs {cpu_s:.1f}s): {b} x "
+          f"{s} prefill" + (f" (+ {offset} prefix rows)" if offset else "")
+          + (f" (+ {cfg.encoder_seq} frames)" if cfg.is_encdec else "")
+          + f" + {CHECK_STEPS} forced decode steps; each of {len(gpu_blocks)} blocks on the CPU "
+          f"run's inputs: worst differences k {worst['k']:.3g}, v {worst['v']:.3g} bf16 ulps of "
+          f"their largest magnitude (limit 1), block output {worst['out']:.3g} (limit 2); output "
+          f"head worst |logits| difference {worst_lg:.3g} (limit 2e-2); free-running card vs CPU "
+          f"worst |logits| {free_lg:.3g}; flash launches {launches} ({card_launches} in the "
+          f"card's prefill, none in its decode steps, {want} in the replay)", flush=True)
+    if moe_in:
+        print(f"[{tag}-check] routing of {len(moe_in)} MoE calls: on the CPU's MoE inputs "
+              f"{len(same_input)} tokens take other expert ids on the card (near-ties, limit "
+              f"{ROUTE_ULPS} fp32 ulps; where, token, CPU ids, card ids, ulps): "
+              f"{same_input[:10]}; in the replay on the card's own inputs {len(replay)} of "
+              f"{routed} tokens keep other experts, left out of the block output check (where, "
+              f"token, swapped experts, their CPU probability span, the input's largest change "
+              f"of that token's probabilities): {replay[:10]}", flush=True)
+    fail_if(not worst_lg <= 2e-2, f"{tag} check: logits differ by {worst_lg:.3g}")
     del gpu, cpu
     torch.cuda.empty_cache()
     return launches
@@ -3252,6 +3585,9 @@ def main(argv) -> int:
         return 3
     sys.path.insert(0, str(SRC))
     gc.callbacks.append(GC)
+
+    def elapsed(phases):
+        print(f"[time] phases {phases} done at {time.perf_counter() - t_start:.1f}s", flush=True)
     from repro_torch import _cuda_build as _build
     from repro_torch.eval.fabric.kernels import fused_step as fs
     from repro_torch.eval.fabric.kernels import waterfill_bisect as wf
@@ -3293,6 +3629,7 @@ def main(argv) -> int:
     print(f"[build] flash_attention_sm90: {n_hgmma} HGMMA instructions in its SASS", flush=True)
     fail_if(n_hgmma == 0, "flash_attention_sm90: no HGMMA instruction in the SASS")
     spills = loop_registers()
+    elapsed("2 (build)")
 
     # ---- 3. kernels against their plain versions ----
     rows = kernel_checks(wf, fs, None if quick else live_default_state())
@@ -3301,6 +3638,7 @@ def main(argv) -> int:
     fa_rows = flash_checks(fa, flash_attention_ref)
     rows["flash_attention_sm90"] = fa_rows[fa.TENSOR_CORES]
     rows["flash_attention"] = fa_rows[fa.CUDA_CORES]
+    elapsed("3 (the model kernels' checks)")
     # the loop kernels' plain versions launch millions of small kernels on
     # the card (after them the profiler has kept as few as 5 of 20 WKV
     # launches); the profiled launch counts of the model kernels come first
@@ -3319,6 +3657,7 @@ def main(argv) -> int:
     coupled_probe = coupled_probe_split(fs, tenant_state, fs.ROUND_CAP)
     del default_state, tenant_state
     fail_if(bool(spills), "; ".join(spills))
+    elapsed("3 (the loop kernels' checks)")
 
     launches = {k: 0 for k in rows}
     by_path = {k: {} for k in rows}
@@ -3326,6 +3665,7 @@ def main(argv) -> int:
         launches.update(sweep_paths(wf, fs, by_path))
         if parent is not None:
             sweeps_against_parent(fs, parent)
+        elapsed("4-6 (the sweeps)")
 
         # ---- 7. the serving path: rwkv6-3b at full width ----
         launches["rwkv6_scan"] = serve_full_width(wk)
@@ -3333,6 +3673,7 @@ def main(argv) -> int:
 
         # ---- 8. the card against the port's CPU run, 2 layers ----
         by_path["rwkv6_scan"]["card_vs_cpu"] = card_against_cpu(wk)
+        elapsed("7-8 (rwkv6-3b)")
 
         # ---- 9. the hybrid serving path: recurrentgemma-9b at full width ----
         rg_runs, flash_runs = serve_hybrid(rg, wk, fa)
@@ -3342,20 +3683,39 @@ def main(argv) -> int:
 
         # ---- 10. the card against the port's CPU run, one period ----
         by_path["rglru_scan"]["card_vs_cpu"], hybrid_check = hybrid_card_against_cpu(rg, fa)
+        elapsed("9-10 (recurrentgemma-9b)")
 
         # ---- 11. the dense serving path: gemma3-1b at full width ----
-        by_path["flash_attention_sm90"].update(serve_dense(fa, rg, wk))
-        # the main path's count: the serving runs, not the phase-10 check
-        launches["flash_attention_sm90"] = sum(by_path["flash_attention_sm90"].values())
+        by_path["flash_attention_sm90"].update(serve_family(
+            "dense", "gemma3-1b", DENSE_RUNS, fa, rg, wk, 999_812_736, 999_812_736))
         by_path["flash_attention_sm90"]["hybrid_card_vs_cpu"] = hybrid_check
+
+        # ---- 12. the card against the port's CPU run, one period ----
+        by_path["flash_attention_sm90"]["card_vs_cpu"] = dense_card_against_cpu(fa)
+        elapsed("11-12 (gemma3-1b)")
+
+        # ---- 13-18. the MoE, VLM and encoder-decoder families: each served
+        # at full width, then held to the port's CPU run layer by layer ----
+        for tag, arch, runs, check, n_params, n_active in (
+            ("moe", "deepseek-moe-16b", MOE_RUNS, MOE_CHECK, 16_879_568_896, 2_830_747_648),
+            ("vlm", "paligemma-3b", VLM_RUNS, VLM_CHECK, 2_508_662_784, 2_508_662_784),
+            ("encdec", "whisper-base", ENCDEC_RUNS, ENCDEC_CHECK, 70_611_456, 70_611_456),
+        ):
+            by_path["flash_attention_sm90"].update(
+                serve_family(tag, arch, runs, fa, rg, wk, n_params, n_active))
+            by_path["flash_attention_sm90"][f"{tag}_card_vs_cpu"] = family_card_against_cpu(
+                tag, arch, check, fa)
+            elapsed(f"13-18 ({arch})")
+        # the main path's count: the serving runs, not the card-against-CPU
+        # checks
+        launches["flash_attention_sm90"] = sum(
+            n for run, n in by_path["flash_attention_sm90"].items()
+            if not run.endswith("card_vs_cpu"))
         # every model path attends in bf16 with D % 8 == 0: none reaches the
         # CUDA-core kernel
         launches["flash_attention"] = sum(by_path["flash_attention"].values())
 
-        # ---- 12. the card against the port's CPU run, one period ----
-        by_path["flash_attention_sm90"]["card_vs_cpu"] = dense_card_against_cpu(fa)
-
-    # ---- 13. summary lines ----
+    # ---- 19. summary lines ----
     kernels = []
     for name, src, replaces, pick, shape in (
         ("waterfill", "src/repro_torch/eval/fabric/csrc/waterfill.cu",
@@ -3399,6 +3759,11 @@ def main(argv) -> int:
                 "entry", "group_steps", "cycles_a_group_step", "members_mean", "sm_mhz")}
         if name.startswith("flash_attention"):
             kernels[-1]["shape"].update(window=pick[7], dtype=pick[9])
+        if name == "flash_attention_sm90":  # the other families' prefill shapes
+            kernels[-1]["family_shapes"] = [
+                {"BHKSTD": check[:6], "causal": check[6],
+                 **{k: rows[name][check][k] for k in ("ms", "library_ms", "bound_ms", "bound_by")}}
+                for check in FA_FAMILIES]
         if name == "rwkv6_scan":  # the model's call, (B, T, H, D) in place
             kernels[-1]["model_layout_call_ms"] = row["model_call_ms"]
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)

@@ -13,9 +13,12 @@ from repro_torch.models.model import BaseLM, is_param_leaf, tree_leaves
 def params_from_jax(model: BaseLM, tree: Mapping) -> BaseLM:
     """Load the reference's ``init`` tree of the same model, given as numpy
     arrays, into ``model``: ``{"embed": {...}, "layers": {name: stacked on
-    axis 0}}`` for ``LM`` and ``RwkvLM`` (entry i of a stacked leaf goes to
+    axis 0}}`` for ``LM`` (an MoE block's ``{"moe": {name: stacked}}`` among
+    them) and ``RwkvLM`` (entry i of a stacked leaf goes to
     ``model.layers[i]``); ``{"embed": {...}, "periods": {"l<j>": {name:
-    stacked on axis 0}}, "tail": [{name: array}, ...]}`` for ``HybridLM``.
+    stacked on axis 0}}, "tail": [{name: array}, ...]}`` for ``HybridLM``;
+    ``{"embed": {...}, "enc_norm": array, "encoder": {name: stacked},
+    "decoder": {name: stacked}}`` for ``EncDecLM``.
     Every name and shape must match the model's; a missing, extra or
     misshapen leaf raises ``ValueError``. Returns the model."""
     want = tree_leaves(model.param_shapes(), lambda n: isinstance(n, tuple))

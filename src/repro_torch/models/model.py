@@ -1,16 +1,27 @@
 """Model assembly: ``build_model(config)`` -> an ``nn.Module`` with ``init``,
 ``forward``, ``init_cache``, ``prefill`` and ``decode_step``.
 
-Ported so far: ``LM``, the uniform decoder of attention + FFN blocks (the
-dense family, gemma3's local / global pattern included), ``RwkvLM``, the
-uniform RWKV-6 stack (attention-free), and ``HybridLM``, the Griffin-style
-periodic stack of RG-LRU and local-attention blocks (recurrentgemma). MoE,
-VLM and encoder-decoder models raise ``NotImplementedError``.
+Four families, as in the reference:
+
+* ``LM``, the uniform decoder of attention + FFN blocks: the dense family
+  (gemma3's local / global pattern included), the MoE family (each block's
+  FFN a :class:`repro_torch.models.moe.MoE`; ``forward`` returns the aux
+  loss averaged over the layers) and the VLM family (paligemma: a batch's
+  ``prefix_embed`` rows, precomputed patch embeddings, go before the text);
+* ``RwkvLM``, the uniform RWKV-6 stack (attention-free);
+* ``HybridLM``, the Griffin-style periodic stack of RG-LRU and
+  local-attention blocks (recurrentgemma);
+* ``EncDecLM``, whisper's encoder-decoder with cross attention; the audio
+  frontend is a stub (a batch's ``frames`` are the frame embeddings).
+
+Every prefill attention (self, cross, encoder) goes through the flash
+kernel's wrapper :func:`repro_torch.kernels.ops.flash_attention`; decode
+steps attend over the cache with the plain attention.
 
 The residual stream is bf16, as in the reference: the embedding is cast to
 bf16, each block returns its input's dtype and the residual adds run in
 bf16. Parameters are fp32 ``nn.Parameter``s with the reference's names.
-Each model keeps a flat list of blocks and maps it onto the reference's
+Each model keeps flat lists of blocks and maps them onto the reference's
 init-tree layout (``param_tree``), so that :func:`param_shapes` matches the
 reference's tree leaf for leaf and :mod:`repro_torch.models.convert` can
 carry a reference tree over.
@@ -28,6 +39,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import rwkv6 as rwkv_lib
 from repro_torch.models.config import ModelConfig
@@ -60,6 +72,20 @@ def _params(shapes: Dict[str, Tuple[int, ...]], device) -> Dict[str, nn.Paramete
                            requires_grad=False)
         for name, shape in shapes.items()
     }
+
+
+def stacked(blocks) -> dict:
+    """The blocks' parameters as the reference stacks them: {name: [one per
+    block]}, a submodule's parameters under its name as a nested dict (an
+    ``LM`` block's ``moe``)."""
+    tree: dict = {}
+    for name, _ in blocks[0].named_parameters():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = [b.get_parameter(name) for b in blocks]
+    return tree
 
 
 #: vocabulary columns of one fp32 slice of the logits product
@@ -104,9 +130,7 @@ class BaseLM(nn.Module):
         parameter, or a list of parameters that the reference stacks on a
         leading axis. For a uniform stack (``LM``, ``RwkvLM``): ``{"embed":
         {...}, "layers": {name: [one per layer]}}``."""
-        names = [n for n, _ in self.layers[0].named_parameters()]
-        return {"embed": dict(self.embed.items()),
-                "layers": {n: [getattr(b, n) for b in self.layers] for n in names}}
+        return {"embed": dict(self.embed.items()), "layers": stacked(self.layers)}
 
     def param_shapes(self) -> dict:
         """Shapes in the reference's init-tree layout (stacked leaves with
@@ -152,12 +176,43 @@ class BaseLM(nn.Module):
         return sliced_logits(h, table)
 
 
+def self_attention(p, x: torch.Tensor, positions: torch.Tensor, state: Optional[Cache],
+                   pos: int, *, theta: float, window: Optional[int] = None,
+                   logit_softcap: float = 0.0) -> Tuple[torch.Tensor, Cache]:
+    """Causal self-attention with rope of the block ``p`` (``wq`` .. ``wo``
+    and ``dims``) on x (B, S, D) bf16 at ``positions`` -> (the projected
+    output, {"k", "v"}).
+
+    Without a state (forward, prefill) the S queries at positions 0..S-1
+    attend through the flash kernel, and the new ``k``, ``v`` are this call's
+    keys and values (B, S, KV, Dh) bf16. With a state (a decode step, S = 1
+    at position ``pos``) the key and value go into slot ``pos`` of a copy of
+    the layer's cache (B, max_len, KV, Dh), and the query attends over every
+    slot, masked by slot position."""
+    q, k, v = L.attn_qkv(p, x, p.dims)
+    q = L.rope(q, positions, theta)
+    k = L.rope(k, positions, theta)
+    if state is None:
+        o = ops.flash_attention(q, k, v, causal=True, window=window,
+                                logit_softcap=logit_softcap)
+        new = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+    else:
+        new = {name: state[name].clone() for name in ("k", "v")}
+        new["k"][:, pos] = k[:, 0].to(torch.bfloat16)
+        new["v"][:, pos] = v[:, 0].to(torch.bfloat16)
+        kv_pos = torch.arange(new["k"].shape[1], device=x.device)
+        o = L.attention_scores(q, new["k"], new["v"], positions, kv_pos, causal=True,
+                               window=window, logit_softcap=logit_softcap)
+    return L.attn_out(p, o), new
+
+
 class DenseBlock(nn.Module):
     """One layer of the uniform decoder: ``attn_norm``, attention, residual
-    add, ``ffn_norm``, the (GLU) FFN, residual add. An ``"L"`` layer attends
-    within ``cfg.window_size`` keys with rope theta ``rope_theta``; a ``"G"``
-    layer attends to every earlier key with ``rope_theta_global`` (or
-    ``rope_theta``)."""
+    add, ``ffn_norm``, the (GLU) FFN or, with ``cfg.num_experts``, the MoE
+    FFN (the ``moe`` submodule, the reference's ``layers/moe/*`` tree),
+    residual add. An ``"L"`` layer attends within ``cfg.window_size`` keys
+    with rope theta ``rope_theta``; a ``"G"`` layer attends to every earlier
+    key with ``rope_theta_global`` (or ``rope_theta``)."""
 
     def __init__(self, cfg: ModelConfig, ltype: str, device):
         super().__init__()
@@ -167,67 +222,82 @@ class DenseBlock(nn.Module):
         self.theta = cfg.rope_theta if ltype == "L" else (cfg.rope_theta_global or cfg.rope_theta)
         shapes = {"attn_norm": (cfg.d_model,), "ffn_norm": (cfg.d_model,)}
         shapes.update(L.attn_param_shapes(self.dims))
-        shapes.update(L.ffn_param_shapes(cfg.d_model, cfg.d_ff, cfg.glu))
+        if not cfg.num_experts:
+            shapes.update(L.ffn_param_shapes(cfg.d_model, cfg.d_ff, cfg.glu))
         for name, param in _params(shapes, device).items():
             self.register_parameter(name, param)
+        self.moe = moe_lib.MoE(
+            cfg.d_model, cfg.num_experts, cfg.d_ff_expert, cfg.num_shared_experts, cfg.top_k,
+            cfg.capacity_factor, cfg.act, cfg.glu, device) if cfg.num_experts else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         cfg = self.cfg
         values = L.attn_param_init(generator, self.dims)
-        values.update(L.ffn_param_init(generator, cfg.d_model, cfg.d_ff, cfg.glu))
+        if self.moe is None:
+            values.update(L.ffn_param_init(generator, cfg.d_model, cfg.d_ff, cfg.glu))
+        else:
+            self.moe.reset_parameters(generator)
         values["attn_norm"] = torch.zeros(cfg.d_model)
         values["ffn_norm"] = torch.zeros(cfg.d_model)
         for name, value in values.items():
             getattr(self, name).copy_(value)
 
-    def forward(self, h: torch.Tensor, positions: torch.Tensor,
-                state: Optional[Cache] = None, pos: int = 0) -> Tuple[torch.Tensor, Cache]:
-        """h (B, S, D) bf16 at ``positions`` -> (h, {"k", "v"}).
-
-        Without a state (forward, prefill) the S queries at positions
-        0..S-1 attend through the flash kernel, and the new ``k``, ``v`` are
-        this call's keys and values (B, S, KV, Dh) bf16. With a state (a
-        decode step, S = 1 at position ``pos``) the key and value go into
-        slot ``pos`` of a copy of the layer's cache (B, max_len, KV, Dh),
-        and the query attends over every slot, masked by slot position."""
+    def step(self, h: torch.Tensor, positions: torch.Tensor, state: Optional[Cache] = None,
+             pos: int = 0) -> Tuple[torch.Tensor, Cache, torch.Tensor]:
+        """h (B, S, D) bf16 at ``positions`` -> (h, {"k", "v"}, the MoE aux
+        loss, None without experts); the attention as
+        :func:`self_attention` takes it."""
         cfg = self.cfg
         x = L.rms_norm(h, self.attn_norm, cfg.norm_eps)
-        q, k, v = L.attn_qkv(self, x, self.dims)
-        q = L.rope(q, positions, self.theta)
-        k = L.rope(k, positions, self.theta)
-        if state is None:
-            o = ops.flash_attention(q, k, v, causal=True, window=self.window,
-                                    logit_softcap=cfg.logit_softcap)
-            new = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
-        else:
-            new = {name: state[name].clone() for name in ("k", "v")}
-            new["k"][:, pos] = k[:, 0].to(torch.bfloat16)
-            new["v"][:, pos] = v[:, 0].to(torch.bfloat16)
-            kv_pos = torch.arange(new["k"].shape[1], device=h.device)
-            o = L.attention_scores(q, new["k"], new["v"], positions, kv_pos, causal=True,
-                                   window=self.window, logit_softcap=cfg.logit_softcap)
-        h = h + L.attn_out(self, o)
+        y, new = self_attention(self, x, positions, state, pos, theta=self.theta,
+                                window=self.window, logit_softcap=cfg.logit_softcap)
+        h = h + y
         x = L.rms_norm(h, self.ffn_norm, cfg.norm_eps)
-        return h + L.ffn_apply(self, x, cfg.act, cfg.glu), new
+        if self.moe is None:
+            return h + L.ffn_apply(self, x, cfg.act, cfg.glu), new, None
+        y, aux = self.moe(x)
+        return h + y, new, aux
+
+    def forward(self, h: torch.Tensor, positions: torch.Tensor,
+                state: Optional[Cache] = None, pos: int = 0) -> Tuple[torch.Tensor, Cache]:
+        """:meth:`step` without the aux loss: (h, {"k", "v"})."""
+        h, new, _ = self.step(h, positions, state, pos)
+        return h, new
+
+
+def _with_prefix(h: torch.Tensor, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The text's embedding h (B, S, D) after a batch's ``prefix_embed``
+    (B, P, D) rows cast to bf16, when it has them (the VLM family)."""
+    if "prefix_embed" not in batch:
+        return h
+    return torch.cat([L.cast(batch["prefix_embed"]), h], dim=1)
 
 
 class LM(BaseLM):
-    """Uniform decoder: ``num_layers`` attention + FFN blocks, the layer
-    pattern ("G", or gemma3's "LLLLLG") tiled over them. The serving cache
-    is ``{"k", "v"}``, each (L, B, max_len, KV, Dh) bf16, the reference's
-    layout."""
+    """Uniform decoder: ``num_layers`` attention + FFN (or MoE) blocks, the
+    layer pattern ("G", or gemma3's "LLLLLG") tiled over them. A batch may
+    carry ``prefix_embed`` (B, P, D): those rows go before the text at
+    positions 0..P-1, and ``forward`` leaves them out of its logits. The
+    serving cache is ``{"k", "v"}``, each (L, B, max_len, KV, Dh) bf16, the
+    reference's layout."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__(cfg, device)
         self.layers = nn.ModuleList(DenseBlock(cfg, t, device) for t in cfg.layer_types())
 
     def forward(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-        """-> (logits (B, S, V) bf16, aux loss 0)."""
-        h = self._embed(batch["tokens"])
+        """-> (logits (B, S, V) bf16 of the text positions, the MoE aux loss
+        summed over the layers over ``num_layers``; 0 without experts)."""
+        h = _with_prefix(self._embed(batch["tokens"]), batch)
         positions = torch.arange(h.shape[1], device=h.device)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for block in self.layers:
-            h, _ = block(h, positions)
-        return self._logits(h), torch.zeros((), dtype=torch.float32, device=h.device)
+            h, _, a = block.step(h, positions)
+            if a is not None:
+                aux = aux + a
+        if "prefix_embed" in batch:
+            h = h[:, batch["prefix_embed"].shape[1]:, :]
+        return self._logits(h), aux / self.cfg.num_layers
 
     def init_cache(self, batch_size: int, max_len: int) -> Cache:
         """Zero ``k``, ``v`` caches (L, B, max_len, KV, Dh) bf16."""
@@ -238,9 +308,9 @@ class LM(BaseLM):
 
     def prefill(self, batch: Dict[str, torch.Tensor], cache: Cache) -> Tuple[torch.Tensor, Cache]:
         """-> (logits of the last position (B, 1, V) bf16, new cache): every
-        layer's keys and values in slots 0..S-1 of a fresh cache of the given
-        cache's shape, zeros after."""
-        h = self._embed(batch["tokens"])
+        layer's keys and values in slots 0..P+S-1 (P prefix rows, S tokens)
+        of a fresh cache of the given cache's shape, zeros after."""
+        h = _with_prefix(self._embed(batch["tokens"]), batch)
         s = h.shape[1]
         positions = torch.arange(s, device=h.device)
         new = {name: torch.zeros_like(c) for name, c in cache.items()}
@@ -536,22 +606,213 @@ class HybridLM(BaseLM):
         return self._logits(h)[:, 0, :], new_cache
 
 
+class EncoderBlock(nn.Module):
+    """One encoder layer of the encoder-decoder: ``attn_norm``, non-causal
+    self-attention without rope (through the flash kernel), residual add,
+    ``ffn_norm``, the FFN, residual add."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.cfg = cfg
+        self.dims = L.AttnDims(cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+        shapes = {"attn_norm": (cfg.d_model,), "ffn_norm": (cfg.d_model,)}
+        shapes.update(L.attn_param_shapes(self.dims))
+        shapes.update(L.ffn_param_shapes(cfg.d_model, cfg.d_ff, cfg.glu))
+        for name, param in _params(shapes, device).items():
+            self.register_parameter(name, param)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        cfg = self.cfg
+        values = L.attn_param_init(generator, self.dims)
+        values.update(L.ffn_param_init(generator, cfg.d_model, cfg.d_ff, cfg.glu))
+        values["attn_norm"] = torch.zeros(cfg.d_model)
+        values["ffn_norm"] = torch.zeros(cfg.d_model)
+        for name, value in values.items():
+            getattr(self, name).copy_(value)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        """h (B, F, D) bf16 -> the layer's output (B, F, D) bf16."""
+        cfg = self.cfg
+        x = L.rms_norm(h, self.attn_norm, cfg.norm_eps)
+        q, k, v = L.attn_qkv(self, x, self.dims)
+        h = h + L.attn_out(self, ops.flash_attention(q, k, v, causal=False))
+        x = L.rms_norm(h, self.ffn_norm, cfg.norm_eps)
+        return h + L.ffn_apply(self, x, cfg.act, cfg.glu)
+
+
+class DecoderBlock(nn.Module):
+    """One decoder layer of the encoder-decoder: ``attn_norm``, causal
+    self-attention with rope (:func:`self_attention`), residual add,
+    ``cross_norm``, cross attention (``x_wq`` .. ``x_wo``, no rope,
+    non-causal) over the encoder's output, residual add, ``ffn_norm``, the
+    FFN, residual add."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.cfg = cfg
+        self.dims = L.AttnDims(cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+        shapes = {"attn_norm": (cfg.d_model,), "cross_norm": (cfg.d_model,),
+                  "ffn_norm": (cfg.d_model,)}
+        attn = L.attn_param_shapes(self.dims)
+        shapes.update(attn)
+        shapes.update({f"x_{k}": v for k, v in attn.items()})
+        shapes.update(L.ffn_param_shapes(cfg.d_model, cfg.d_ff, cfg.glu))
+        for name, param in _params(shapes, device).items():
+            self.register_parameter(name, param)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        cfg = self.cfg
+        values = L.attn_param_init(generator, self.dims)
+        values.update({f"x_{k}": v for k, v in L.attn_param_init(generator, self.dims).items()})
+        values.update(L.ffn_param_init(generator, cfg.d_model, cfg.d_ff, cfg.glu))
+        for name in ("attn_norm", "cross_norm", "ffn_norm"):
+            values[name] = torch.zeros(cfg.d_model)
+        for name, value in values.items():
+            getattr(self, name).copy_(value)
+
+    def forward(self, h: torch.Tensor, enc_out: torch.Tensor, positions: torch.Tensor,
+                state: Optional[Cache] = None, pos: int = 0) -> Tuple[torch.Tensor, Cache]:
+        """h (B, S, D) bf16 at ``positions``, the encoder's output enc_out
+        (B, F, D) bf16 -> (h, {"k", "v"}). The self-attention and its cache
+        are :func:`self_attention`'s. The cross attention's keys and values
+        are computed from ``enc_out`` at every call; without a state
+        (forward, prefill) the queries attend through the flash kernel, in
+        a decode step with the plain attention."""
+        cfg = self.cfg
+        b, s, _ = h.shape
+        x = L.rms_norm(h, self.attn_norm, cfg.norm_eps)
+        y, new = self_attention(self, x, positions, state, pos, theta=cfg.rope_theta)
+        h = h + y
+        x = L.rms_norm(h, self.cross_norm, cfg.norm_eps)
+        f = enc_out.shape[1]
+        xq = (x @ L.cast(self.x_wq)).reshape(b, s, cfg.num_heads, cfg.head_dim)
+        xk = (enc_out @ L.cast(self.x_wk)).reshape(b, f, cfg.num_kv_heads, cfg.head_dim)
+        xv = (enc_out @ L.cast(self.x_wv)).reshape(b, f, cfg.num_kv_heads, cfg.head_dim)
+        if state is None:
+            o = ops.flash_attention(xq, xk, xv, causal=False)
+        else:
+            o = L.attention_scores(xq, xk, xv, positions, torch.arange(f, device=h.device),
+                                   causal=False)
+        h = h + o.reshape(b, s, -1) @ L.cast(self.x_wo)
+        x = L.rms_norm(h, self.ffn_norm, cfg.norm_eps)
+        return h + L.ffn_apply(self, x, cfg.act, cfg.glu), new
+
+
+class EncDecLM(BaseLM):
+    """Whisper-style encoder-decoder: ``encoder_layers`` encoder blocks over
+    a batch's ``frames`` (B, F, D) (the audio frontend is a stub: the frames
+    are its output), ``enc_norm``, then ``num_layers`` decoder blocks over
+    the tokens with cross attention to the encoder's output. The parameter
+    tree is the reference's, ``{"embed", "enc_norm", "encoder": {name:
+    stacked}, "decoder": {name: stacked}}``; the serving cache is ``{"k",
+    "v"}`` (L, B, max_len, KV, Dh) bf16 and ``"enc_out"`` (B,
+    encoder_seq, D) bf16."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__(cfg, device)
+        self.enc_norm = nn.Parameter(torch.empty(cfg.d_model, device=device),
+                                     requires_grad=False)
+        self.encoder = nn.ModuleList(EncoderBlock(cfg, device)
+                                     for _ in range(cfg.encoder_layers))
+        self.decoder = nn.ModuleList(DecoderBlock(cfg, device) for _ in range(cfg.num_layers))
+
+    def param_tree(self) -> dict:
+        return {"embed": dict(self.embed.items()), "enc_norm": self.enc_norm,
+                "encoder": stacked(self.encoder), "decoder": stacked(self.decoder)}
+
+    @torch.no_grad()
+    def init(self, generator: Optional[torch.Generator] = None) -> "EncDecLM":
+        """As :meth:`BaseLM.init`: the encoder's blocks, the decoder's, then
+        the embedding; ``enc_norm`` zeros."""
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        for block in (*self.encoder, *self.decoder):
+            block.reset_parameters(generator)
+        self._init_embed(generator)
+        self.enc_norm.zero_()
+        return self
+
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """frames (B, F, D) -> the encoder's output (B, F, D) bf16, after
+        ``enc_norm``."""
+        h = L.cast(frames)
+        for block in self.encoder:
+            h = block(h)
+        return L.rms_norm(h, self.enc_norm, self.cfg.norm_eps)
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """-> (logits (B, S, V) bf16, aux loss 0)."""
+        enc_out = self.encode(batch["frames"])
+        h = self._embed(batch["tokens"])
+        positions = torch.arange(h.shape[1], device=h.device)
+        for block in self.decoder:
+            h, _ = block(h, enc_out, positions)
+        return self._logits(h), torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def init_cache(self, batch_size: int, max_len: int) -> Cache:
+        """Zero ``k``, ``v`` (L, B, max_len, KV, Dh) and ``enc_out`` (B,
+        encoder_seq, D), all bf16."""
+        cfg = self.cfg
+        shape = (cfg.num_layers, batch_size, max_len, cfg.num_kv_heads, cfg.head_dim)
+        cache = {name: torch.zeros(shape, dtype=torch.bfloat16, device=self.device)
+                 for name in ("k", "v")}
+        cache["enc_out"] = torch.zeros((batch_size, cfg.encoder_seq, cfg.d_model),
+                                       dtype=torch.bfloat16, device=self.device)
+        return cache
+
+    def prefill(self, batch: Dict[str, torch.Tensor], cache: Cache) -> Tuple[torch.Tensor, Cache]:
+        """-> (logits of the last position (B, 1, V) bf16, new cache): the
+        encoder's output, and every decoder layer's keys and values in slots
+        0..S-1 of fresh ``k``, ``v`` caches of the given shape, zeros
+        after."""
+        enc_out = self.encode(batch["frames"])
+        h = self._embed(batch["tokens"])
+        s = h.shape[1]
+        positions = torch.arange(s, device=h.device)
+        new = {name: torch.zeros_like(cache[name]) for name in ("k", "v")}
+        for i, block in enumerate(self.decoder):
+            h, st = block(h, enc_out, positions)
+            for name in new:
+                new[name][i, :, :s] = st[name]
+        new["enc_out"] = enc_out
+        return self._logits(h[:, -1:, :]), new
+
+    def decode_step(self, token: torch.Tensor, cache: Cache, pos) -> Tuple[torch.Tensor, Cache]:
+        """token (B,) at position ``pos`` -> (logits (B, V) bf16, new cache);
+        each layer's cross attention recomputes its keys and values from the
+        cached ``enc_out``."""
+        pos = int(pos)
+        h = self._embed(token[:, None])
+        positions = torch.tensor([pos], device=h.device)
+        enc_out = L.cast(cache["enc_out"])
+        new = {"k": [], "v": []}
+        for i, block in enumerate(self.decoder):
+            h, st = block(h, enc_out, positions, {n: cache[n][i] for n in new}, pos)
+            for name in new:
+                new[name].append(st[name])
+        out = {name: torch.stack(v) for name, v in new.items()}
+        out["enc_out"] = cache["enc_out"]
+        return self._logits(h)[:, 0, :], out
+
+
 def build_model(cfg: Union[str, ModelConfig], device=None) -> BaseLM:
     """The module of ``cfg`` with uninitialised parameters on ``device``
-    (default: the card; ``"meta"`` allocates nothing). Call ``init`` or
-    :func:`repro_torch.models.convert.params_from_jax` to fill it."""
+    (default: the card; ``"meta"`` allocates nothing), chosen as the
+    reference chooses: ``EncDecLM`` for an encoder-decoder, ``RwkvLM`` when
+    every layer is RWKV-6, ``HybridLM`` when any is RG-LRU, else ``LM``.
+    Call ``init`` or :func:`repro_torch.models.convert.params_from_jax` to
+    fill it."""
     cfg = get_config(cfg) if isinstance(cfg, str) else cfg
     types = set(cfg.layer_types())
-    if not cfg.is_encdec and types == {"W"}:
-        return RwkvLM(cfg, resolve_device(device))
-    if not cfg.is_encdec and "R" in types:
-        return HybridLM(cfg, resolve_device(device))
-    if cfg.family == "dense":
-        return LM(cfg, resolve_device(device))
-    raise NotImplementedError(
-        f"{cfg.name} ({cfg.family}, layers {cfg.layer_pattern!r}): not ported yet; the "
-        "port has the dense, RWKV-6 and RG-LRU hybrid families; MoE, VLM and "
-        "encoder-decoder models come in a later slice")
+    if cfg.is_encdec:
+        cls = EncDecLM
+    elif types == {"W"}:
+        cls = RwkvLM
+    elif "R" in types:
+        cls = HybridLM
+    else:
+        cls = LM
+    return cls(cfg, resolve_device(device))
 
 
 def param_shapes(cfg: Union[str, ModelConfig]) -> dict:
@@ -561,10 +822,18 @@ def param_shapes(cfg: Union[str, ModelConfig]) -> dict:
 
 
 def count_params(cfg: Union[str, ModelConfig]) -> int:
-    def count(node) -> int:
-        if isinstance(node, dict):
-            return sum(count(v) for v in node.values())
-        if isinstance(node, list):
-            return sum(count(v) for v in node)
-        return math.prod(node)
-    return count(param_shapes(cfg))
+    return sum(math.prod(s) for s in tree_leaves(
+        param_shapes(cfg), lambda n: isinstance(n, tuple)).values())
+
+
+def count_active_params(cfg: Union[str, ModelConfig]) -> int:
+    """Parameters a token activates: each routed-expert leaf (``we_*``)
+    scaled by top_k / num_experts, as the reference counts them."""
+    cfg = get_config(cfg) if isinstance(cfg, str) else cfg
+    total = 0
+    for path, shape in tree_leaves(param_shapes(cfg), lambda n: isinstance(n, tuple)).items():
+        n = math.prod(shape)
+        if str(path[-1]).startswith("we_") and cfg.num_experts:
+            n = n * cfg.top_k // cfg.num_experts
+        total += n
+    return total

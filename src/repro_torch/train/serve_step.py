@@ -7,7 +7,7 @@ sampling from an explicit ``torch.Generator``. Every step runs under
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -48,20 +48,30 @@ def generate(
     prompt: torch.Tensor,
     max_new_tokens: int,
     max_len: Optional[int] = None,
+    extra_batch: Optional[Dict[str, torch.Tensor]] = None,
     temperature: float = 0.0,
     generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """Host-loop generation: prefill ``prompt`` (B, S), take its argmax, then
-    ``max_new_tokens - 1`` decode steps. Returns (B, max_new_tokens) int64
-    tokens on the model's device."""
-    prompt = torch.as_tensor(prompt, dtype=torch.int64, device=model.device)
+    """Host-loop generation: prefill ``prompt`` (B, S) with the entries of
+    ``extra_batch`` beside it (``prefix_embed`` of a VLM, ``frames`` of an
+    encoder-decoder; put on the model's device), take its argmax, then
+    ``max_new_tokens - 1`` decode steps. A vision-stub model's
+    ``num_prefix_tokens`` prefix rows take the cache's first slots: the
+    cache holds ``max_len`` (default S + max_new_tokens) plus them, and
+    decode step i runs at position prefix + S + i. Returns (B,
+    max_new_tokens) int64 tokens on the model's device."""
+    dev = model.device
+    prompt = torch.as_tensor(prompt, dtype=torch.int64, device=dev)
     b, s = prompt.shape
-    cache = model.init_cache(b, max_len or (s + max_new_tokens))
+    prefix = model.cfg.num_prefix_tokens if model.cfg.frontend == "vision_stub" else 0
+    cache = model.init_cache(b, (max_len or (s + max_new_tokens)) + prefix)
+    batch = {"tokens": prompt,
+             **{k: torch.as_tensor(v, device=dev) for k, v in (extra_batch or {}).items()}}
     decode = make_decode_step(model, temperature=temperature)
-    logits, cache = make_prefill(model)({"tokens": prompt}, cache)
+    logits, cache = make_prefill(model)(batch, cache)
     tok = torch.argmax(logits[:, -1, :], dim=-1)
     out = [tok]
     for i in range(max_new_tokens - 1):
-        tok, cache = decode(tok, cache, s + i, generator)
+        tok, cache = decode(tok, cache, prefix + s + i, generator)
         out.append(tok)
     return torch.stack(out, dim=1)

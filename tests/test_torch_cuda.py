@@ -865,6 +865,70 @@ def test_dense_model_on_the_card_matches_its_cpu_run(cuda):
             torch.testing.assert_close(got[name].cpu(), want, rtol=1e-2, atol=1e-2)
 
 
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "paligemma-3b", "whisper-base"])
+def test_family_models_on_the_card_match_their_cpu_run(cuda, arch):
+    """The MoE, VLM and encoder-decoder smoke models: prefill of 2 x 12
+    tokens (with 8 seeded prefix rows or 16 frames) and two decode steps on
+    the card and on the CPU: free-running logits within atol 2e-2; every
+    block call of the CPU run replayed on the card on the CPU's inputs,
+    block output and k / v within rtol = atol = 1e-2 (an MoE block's
+    routing on the same input equal to the CPU's); every prefill attention
+    launches the tensor-core flash kernel once, decode steps never."""
+    cfg = reduce_for_smoke(get_config(arch))
+    gpu = build_model(cfg, device=cuda).init(torch.Generator(device=cuda).manual_seed(0))
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    rng = np.random.RandomState(1)
+    tokens = rng.randint(0, cfg.vocab_size, (2, 12))
+    extra, offset = {}, 0
+    if cfg.frontend == "vision_stub":
+        extra = {"prefix_embed": torch.from_numpy(rng.randn(2, 8, cfg.d_model).astype(np.float32))}
+        offset = cfg.num_prefix_tokens
+    if cfg.is_encdec:
+        extra = {"frames": torch.from_numpy(rng.randn(2, 16, cfg.d_model).astype(np.float32))}
+    blocks = {id(m): [*m.encoder, *m.decoder] if cfg.is_encdec else list(m.layers)
+              for m in (gpu, cpu)}
+    calls, moe_in = [], []
+    hooks = [blk.register_forward_hook(lambda mod, args, out, i=i: calls.append((i, args, out)))
+             for i, blk in enumerate(blocks[id(cpu)])]
+    hooks += [blk.moe.register_forward_hook(lambda mod, args, out: moe_in.append(args[0]))
+              for blk in blocks[id(cpu)] if getattr(blk, "moe", None) is not None]
+    logits = []
+    before = (fa.flash_attention.launches, fa.flash_attention.tc_launches)
+    for m in (gpu, cpu):
+        batch = {"tokens": torch.as_tensor(tokens, device=m.device),
+                 **{k: v.to(m.device) for k, v in extra.items()}}
+        with torch.inference_mode():
+            lg, c = m.prefill(batch, m.init_cache(2, offset + 14))
+            out = [lg[:, 0]]
+            for i in range(2):
+                lg, c = m.decode_step(torch.as_tensor(tokens[:, i], device=m.device), c,
+                                      offset + 12 + i)
+                out.append(lg)
+        logits.append(out)
+    for h in hooks:
+        h.remove()
+    attentions = cfg.encoder_layers + cfg.num_layers * (2 if cfg.is_encdec else 1)
+    assert (fa.flash_attention.launches, fa.flash_attention.tc_launches) == (
+        before[0] + attentions, before[1] + attentions)
+    for lg_g, lg_c in zip(*logits):
+        torch.testing.assert_close(lg_g.float().cpu(), lg_c.float(), rtol=0, atol=2e-2)
+    moe_x = iter(moe_in)
+    for i, args, out in calls:
+        block = blocks[id(gpu)][i]
+        if getattr(block, "moe", None) is not None:
+            x = next(moe_x)
+            assert torch.equal(block.moe.route(x.to(cuda)).ids.cpu(),
+                               blocks[id(cpu)][i].moe.route(x).ids)
+        with torch.inference_mode():
+            got = block(*(_to(a, cuda) for a in args))
+        got_h, got_st = (got, {}) if isinstance(got, torch.Tensor) else got
+        h_out, st_out = (out, {}) if isinstance(out, torch.Tensor) else out
+        torch.testing.assert_close(got_h.cpu(), h_out, rtol=1e-2, atol=1e-2)
+        for name, want in st_out.items():
+            torch.testing.assert_close(got_st[name].cpu(), want, rtol=1e-2, atol=1e-2)
+
+
 def test_dense_logits_make_no_fp32_vocab_buffer(cuda):
     """At gemma3-1b's width and vocabulary (262,144) and 8 x 512 tokens the
     fp32 (B, S, V) logits would be 4.3 GB; ``_logits`` (fp32 sums a

@@ -210,13 +210,12 @@ def test_registry_matches_the_reference():
 
 @pytest.mark.parametrize("arch", sorted(set(ARCHS) - {"rwkv6-3b", "recurrentgemma-9b"}))
 def test_other_families_are_not_ported_yet(arch):
-    """Of the other families the dense one is ported (``LM``); MoE, VLM and
-    encoder-decoder models still raise."""
-    if get_config(arch).family == "dense":
-        assert type(build_model(arch, device="meta")).__name__ == "LM"
-        return
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_model(arch, device="meta")
+    """Every other family is ported too: each configuration builds the
+    reference's class (``LM`` for the dense, MoE and VLM families,
+    ``EncDecLM`` for whisper)."""
+    want = type(ref_build_model(REF_ARCHS[arch])).__name__
+    assert want == ("EncDecLM" if get_config(arch).is_encdec else "LM")
+    assert type(build_model(arch, device="meta")).__name__ == want
 
 
 def test_hybrid_is_ported():
