@@ -60,7 +60,14 @@ Phases, each printing its own lines:
      fp32 and bf16 and ragged and edge shapes (rtol = atol = 2e-5 fp32, 2e-2
      bf16, and bf16 also normwise within 2^-10 of the plain version's norm;
      window 1 returns v exactly; a query no key may attend gets zeros,
-     on each kernel); max error, device time, the plain version's time, one
+     on each kernel); each kernel's autograd Function (kernels/ops.py: the
+     kernel forward, kernels/backward.py's gradients in torch ops, no
+     launch in the backward) against torch.autograd through the plain
+     version on the card: flash bf16 at (2, 4, 1, 256, 256, 256) with
+     window 128 and softcap 50 and at (2, 8, 8, 64, 300, 64) without a
+     mask, dq, dk, dv each within 2^-7 normwise; WKV-6 at (2, 4, 64, 64)
+     with s0 and the final state's gradient, rtol = atol = 1e-4; RG-LRU at
+     (2, 64, 256), 1e-5; max error, device time, the plain version's time, one
      scaled_dot_product_attention call's time for each flash kernel, and the
      bound (bytes moved at 3.35 TB/s, or operations at 34 TFLOP/s float64 /
      67 TFLOP/s float32 / 989 TFLOP/s bf16 on the tensor cores, whichever
@@ -223,8 +230,27 @@ Phases, each printing its own lines:
  18. the whole whisper-base on the card against the CPU run (2 x 1,500
      frames, 2 x 16 prompt tokens, 4 forced steps), each encoder and decoder
      block on the CPU's inputs, as phase 14;
- 19. a {"kernels": [...]} JSON line, then the nvidia-smi name/power line,
-     then the result line {"ok": true, "device": {...}}.
+ 19. training: gemma3-1b at full width and depth (999,812,736 fp32
+     parameters from a seeded generator) through ``init_train_state`` and
+     ``make_train_step``, 20 steps on SyntheticLM batches of 8 x 512 with
+     the reference training test's AdamW (lr 3e-3, 5 warm-up steps, no
+     weight decay): the first batch's gradient finite and non-zero in every
+     parameter, its flash calls the prefill's shapes and none launched by
+     the backward; exactly 26 tensor-core flash launches a step (counts set
+     to 0 just before each step and read just after); the mean loss of the
+     last two steps under 0.9 x that of the first two (the reference's
+     bar); step time (median after the first), tokens/s, peak device memory
+     and one profiled step;
+ 20. the same model cut to one period (L x 5, G) at full width, one train
+     step of 2 x 64 tokens on the card against the port's CPU run from the
+     same weights and batch: loss within atol 2e-2, every gradient leaf
+     within 2^-5 normwise (the change of each side's first update, from
+     zero moments, printed); then, from the card's state on both, a step
+     on a second batch: loss within 2e-2, each parameter's change within
+     2^-4 normwise;
+ 21. a {"kernels": [...]} JSON line (the flash row's launches_by_path
+     gains "train"), then the nvidia-smi name/power line, then the result
+     line {"ok": true, "device": {...}}.
 
 Any failure exits non-zero without the result line. The script imports
 only the port (src/repro_torch) and needs the repository around it.
@@ -383,6 +409,32 @@ MOE_CHECK, VLM_CHECK, ENCDEC_CHECK = (2, 2, 64), (2, 1, 64), (None, 2, 16)
 #: near-tie: the two experts' router probabilities within this many fp32
 #: ulps of each other
 ROUTE_ULPS = 4
+
+#: phase 3's gradient checks of the kernels' autograd Functions (the kernel
+#: forward, kernels/backward.py's gradients) against autograd through the
+#: plain version. Flash, bf16 on the tensor-core kernel, (B, H, KV, S, T, D,
+#: causal, window, softcap): one KV head of 256 with a window and a softcap,
+#: and 64 queries over 300 keys without a mask; dq, dk, dv each normwise
+FA_GRAD_CHECKS = [(2, 4, 1, 256, 256, 256, True, 128, 50.0),
+                  (2, 8, 8, 64, 300, 64, False, None, 0.0)]
+FA_GRAD_NORMWISE = 2.0 ** -7
+#: WKV-6 (B, H, T, D) with s0 and the final state's gradient, rtol = atol
+WKV_GRAD_SHAPE, WKV_GRAD_TOL = (2, 4, 64, 64), 1e-4
+#: RG-LRU (B, T, W) with h0 and the final state's gradient, rtol = atol
+RG_GRAD_SHAPE, RG_GRAD_TOL = (2, 64, 256), 1e-5
+#: phase 19, gemma3-1b trained at full width and depth: batch rows, tokens,
+#: train steps; the optimizer of the reference's training test
+#: (tests/test_train_and_ckpt.py _setup)
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 512, 20
+TRAIN_OPT = dict(lr=3e-3, warmup_steps=5, total_steps=200, weight_decay=0.0)
+#: the reference's bar (test_loss_decreases): the mean loss of the last two
+#: steps under this times that of the first two
+TRAIN_LOSS_BAR = 0.9
+#: phase 20, one period (L x 5, G) at full width: layers, batch rows,
+#: tokens; limits on the loss, each gradient leaf (normwise) and each
+#: parameter's change in a step (normwise)
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_B, TRAIN_CHECK_S = 6, 2, 64
+TRAIN_LOSS_ATOL, TRAIN_GRAD_NORMWISE, TRAIN_CHANGE_NORMWISE = 2e-2, 2.0 ** -5, 2.0 ** -4
 
 
 class SmokeFailure(RuntimeError):
@@ -1888,6 +1940,345 @@ def family_card_against_cpu(tag, arch, check, fa):
     del gpu, cpu
     torch.cuda.empty_cache()
     return launches
+
+
+def normwise(got, want) -> float:
+    """||got - want|| / ||want|| of two tensors, the norms in fp32 (0 where
+    both are zero, inf where only the reference is)."""
+    got, want = got.float(), want.float()
+    num, den = (got - want).norm().item(), want.norm().item()
+    return 0.0 if num == 0.0 else (num / den if den else math.inf)
+
+
+def counts(fa, rg, wk):
+    """(flash launches, of which on the tensor cores, scan launches) since
+    the counts were last set to 0."""
+    return (fa.flash_attention.launches, fa.flash_attention.tc_launches,
+            rg.rglru_scan.launches + wk.rwkv6_scan.launches)
+
+
+def zero_counts(fa, rg, wk):
+    fa.flash_attention.launches = fa.flash_attention.tc_launches = 0
+    rg.rglru_scan.launches = wk.rwkv6_scan.launches = 0
+
+
+def grad_checks(fa, rg, wk):
+    """Phase 3, gradients through the kernels: each autograd Function of
+    kernels/ops.py on the card (its forward launches the kernel once, its
+    backward, kernels/backward.py, launches none) against
+    torch.autograd.grad through the plain version on the same inputs and
+    output gradients: flash (bf16, FA_GRAD_CHECKS) each of dq, dk, dv within
+    FA_GRAD_NORMWISE normwise; WKV-6 at WKV_GRAD_SHAPE with s0 and the final
+    state's gradient within rtol = atol = WKV_GRAD_TOL; RG-LRU at
+    RG_GRAD_SHAPE with h0 and the final state's gradient within
+    RG_GRAD_TOL. The backward and the plain version's autograd are timed.
+    Returns {kernel: {check: row}}."""
+    import torch
+
+    from repro_torch.kernels import backward as bwd
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_ref, rglru_scan_ref, rwkv6_scan_ref
+
+    def run(fn, plain, args, outs_grad, label, kernel):
+        """(the Function's gradients, the plain version's), the Function
+        launching its kernel once, in the forward."""
+        leaves = [x.clone().requires_grad_() for x in args]
+        zero_counts(fa, rg, wk)
+        out = fn(*leaves)
+        fwd = counts(fa, rg, wk)
+        got = torch.autograd.grad(out, leaves, outs_grad)
+        torch.cuda.synchronize()
+        fail_if(counts(fa, rg, wk) != fwd, f"{label}: the backward launched a kernel")
+        fail_if(fwd != kernel, f"{label}: launches {fwd} in the forward, expected {kernel}")
+        ref_leaves = [x.clone().requires_grad_() for x in args]
+        want = torch.autograd.grad(plain(*ref_leaves), ref_leaves, outs_grad)
+        torch.cuda.synchronize()
+        return got, want
+
+    rows = {"flash_attention_sm90": {}, "rwkv6_scan": {}, "rglru_scan": {}}
+    for i, check in enumerate(FA_GRAD_CHECKS):
+        B, H, KV, S, T, D, causal, window, cap = check
+        gen = torch.Generator(device="cuda").manual_seed(200 + i)
+        bf = torch.bfloat16
+        q = torch.randn((B, H, S, D), generator=gen, device="cuda").to(bf)
+        k, v = (torch.randn((B, KV, T, D), generator=gen, device="cuda").to(bf) for _ in range(2))
+        do = torch.randn((B, H, S, D), generator=gen, device="cuda").to(bf)
+        kw = dict(causal=causal, window=window, logit_softcap=cap)
+        label = f"flash gradient {(B, H, KV, S, T, D)} causal={causal} window={window} softcap={cap}"
+        got, want = run(lambda *x: ops.FlashAttention.apply(*x, causal, window, cap),
+                        lambda *x: flash_attention_ref(*x, **kw), (q, k, v), do, label, (1, 1, 0))
+        errs = {}
+        for name, g, w in zip("qkv", got, want):
+            fail_if(g.dtype != bf or g.shape != w.shape, f"{label}: d{name} shape/dtype")
+            errs[f"d{name}"] = normwise(g, w)
+            fail_if(not errs[f"d{name}"] <= FA_GRAD_NORMWISE,
+                    f"{label}: d{name} {errs[f'd{name}']:.3g} normwise > {FA_GRAD_NORMWISE:.3g}")
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        row = {"normwise": errs, "max_abs_err": max((g.float() - w.float()).abs().max().item()
+                                                    for g, w in zip(got, want)),
+               "backward_ms": event_ms(lambda: bwd.flash_attention_bwd(q, k, v, do, **kw), 5),
+               "plain_backward_ms": event_ms(lambda: torch.autograd.grad(
+                   flash_attention_ref(*leaves, **kw), leaves, do), 3)}
+        rows["flash_attention_sm90"][check] = row
+        print(f"[kernels] {label}: kernel forward + kernels/backward.py against autograd through "
+              f"the plain version: normwise {', '.join(f'{k} {e:.3g}' for k, e in errs.items())} "
+              f"(limit {FA_GRAD_NORMWISE:.3g}); backward {row['backward_ms']:.3f} ms, the plain "
+              f"version's autograd {row['plain_backward_ms']:.3f} ms", flush=True)
+
+    B, H, T, D = WKV_GRAD_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(300)
+
+    def draw(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    r, k, v = (draw(B, H, T, D, scale=0.5) for _ in range(3))
+    w = torch.exp(-torch.exp(draw(B, H, T, D, scale=0.5)))
+    args = (r, k, v, w, draw(H, D, scale=0.5), draw(B, H, D, D, scale=0.1))
+    outs_grad = (draw(B, H, T, D), draw(B, H, D, D))
+    label = f"WKV-6 gradient {WKV_GRAD_SHAPE}"
+    got, want = run(ops.RwkvScan.apply, rwkv6_scan_ref, args, outs_grad, label, (0, 0, 1))
+    excess = max(((g - x).abs() - WKV_GRAD_TOL * x.abs()).max().item() for g, x in zip(got, want))
+    fail_if(not excess <= WKV_GRAD_TOL, f"{label}: outside rtol = atol = {WKV_GRAD_TOL}")
+    row = {"max_abs_err": max((g - x).abs().max().item() for g, x in zip(got, want)),
+           "backward_ms": event_ms(lambda: bwd.rwkv6_scan_bwd(*args, *outs_grad), 3)}
+    rows["rwkv6_scan"][WKV_GRAD_SHAPE] = row
+    print(f"[kernels] {label} (s0 and the final state's gradient): dr, dk, dv, dw, du, ds0 within "
+          f"rtol = atol = {WKV_GRAD_TOL} of autograd through the plain version, max |error| "
+          f"{row['max_abs_err']:.3g}; backward {row['backward_ms']:.3f} ms", flush=True)
+
+    B, T, W = RG_GRAD_SHAPE
+    args = (torch.sigmoid(draw(B, T, W)), draw(B, T, W, scale=0.5), draw(B, W, scale=0.5))
+    outs_grad = (draw(B, T, W), draw(B, W))
+    label = f"RG-LRU gradient {RG_GRAD_SHAPE}"
+    got, want = run(ops.RglruScan.apply, rglru_scan_ref, args, outs_grad, label, (0, 0, 1))
+    excess = max(((g - x).abs() - RG_GRAD_TOL * x.abs()).max().item() for g, x in zip(got, want))
+    fail_if(not excess <= RG_GRAD_TOL, f"{label}: outside rtol = atol = {RG_GRAD_TOL}")
+    h = rglru_scan_ref(*args)[0]
+    row = {"max_abs_err": max((g - x).abs().max().item() for g, x in zip(got, want)),
+           "backward_ms": event_ms(lambda: bwd.rglru_scan_bwd(args[0], args[2], h, *outs_grad), 3)}
+    rows["rglru_scan"][RG_GRAD_SHAPE] = row
+    print(f"[kernels] {label} (h0 and the final state's gradient): da, dx, dh0 within rtol = "
+          f"atol = {RG_GRAD_TOL} of autograd through the plain version, max |error| "
+          f"{row['max_abs_err']:.3g}; backward {row['backward_ms']:.3f} ms", flush=True)
+    return rows
+
+
+def train_full_width(fa, rg, wk):
+    """Phase 19: gemma3-1b trained at full width and depth (999,812,736
+    fp32 parameters from a seeded generator) through ``init_train_state``
+    and ``make_train_step`` on SyntheticLM batches of TRAIN_B x TRAIN_S,
+    with TRAIN_OPT. First the gradient of the first batch: the forward's
+    flash calls recorded (one a layer, on the tensor cores, at the prefill's
+    shapes), none launched by the backward, every parameter's gradient
+    finite and non-zero (the tied table takes the head's gradient in every
+    row). Then TRAIN_STEPS steps, each with the launch counts set to 0 just
+    before and read just after (exactly one tensor-core flash launch a
+    layer, no scan launch); the loss must fall by the reference's bar. Step
+    time (median after the first), tokens/s, peak device memory and one
+    profiled step. Returns the flash launches of the steps."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import (StepConfig, init_train_state, make_train_step,
+                                              to_device_batch)
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = build_model("gemma3-1b", device="cuda")
+    state = init_train_state(model, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cfg, params = model.cfg, state["params"]
+    n_params = sum(p.numel() for p in params.values())
+    fail_if(n_params != 999_812_736, f"train: {n_params:,} parameters")
+    t0 = time.perf_counter()
+    batches = list(SyntheticLM(cfg, DataConfig(global_batch=TRAIN_B, seq_len=TRAIN_S))
+                   .batches(TRAIN_STEPS))
+    data_s = time.perf_counter() - t0
+    layers = cfg.num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the first batch's gradient, the launch counts read between forward and backward
+    batch = to_device_batch(batches[0], "cuda")
+    zero_counts(fa, rg, wk)
+    with flash_calls() as calls:
+        loss, _ = model.loss(batch)
+    fwd = counts(fa, rg, wk)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    torch.cuda.synchronize()
+    fail_if(fwd != (layers, layers, 0) or counts(fa, rg, wk) != fwd,
+            f"train: launches (flash, tensor cores, scans) {fwd} in the forward and "
+            f"{counts(fa, rg, wk)} after the backward; expected ({layers}, {layers}, 0) in both")
+    want = family_flash_calls(cfg, TRAIN_B, TRAIN_S)
+    fail_if(calls != want, f"train: flash calls {sorted(set(calls), key=str)}, expected "
+            f"{sorted(set(want), key=str)}")
+    bad = [name for name, g in zip(params, grads)
+           if not bool(torch.isfinite(g).all()) or not bool(g.any())]
+    fail_if(bool(bad), f"train: non-finite or zero gradients: {bad}")
+    first_loss = float(loss.detach())
+    del grads, loss, batch
+
+    step = make_train_step(model, StepConfig(optimizer=AdamWConfig(**TRAIN_OPT)))
+    losses, secs, launches, log = [], [], 0, []
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        zero_counts(fa, rg, wk)
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        got = counts(fa, rg, wk)
+        fail_if(got != (layers, layers, 0),
+                f"train step {i}: launches (flash, tensor cores, scans) {got}, expected "
+                f"({layers}, {layers}, 0): one a layer's forward, none from the backward")
+        launches += got[0]
+        m = {k: float(x) for k, x in metrics.items()}
+        fail_if(not all(math.isfinite(x) for x in m.values()), f"train step {i}: metrics {m}")
+        losses.append(m["loss"])
+        log.append(f"{m['loss']:.4f}/{m['grad_norm']:.3g}")
+    peak = torch.cuda.max_memory_allocated()
+    first, last = float(np.mean(losses[:2])), float(np.mean(losses[-2:]))
+    med = float(np.median(secs[1:]))
+    tokens = TRAIN_B * TRAIN_S
+    print(f"[train] gemma3-1b full width and depth: {n_params:,} fp32 parameters (init with the "
+          f"optimizer state {init_s:.2f}s), {layers} layers; {TRAIN_STEPS} steps of "
+          f"{TRAIN_B} x {TRAIN_S} SyntheticLM tokens (made in {data_s:.2f}s), AdamW {TRAIN_OPT}; "
+          f"first batch's loss {first_loss:.4f}, every gradient finite and non-zero; flash "
+          f"launches {launches} ({layers} a step, all on the tensor cores, none from the "
+          f"backward)", flush=True)
+    print(f"[train] loss / grad norm by step: {' '.join(log)}; mean of the first two "
+          f"{first:.4f}, of the last two {last:.4f} ({last / first:.3f}x, bar "
+          f"{TRAIN_LOSS_BAR})", flush=True)
+    print(f"[train] step time: first {secs[0] * 1e3:.1f} ms, median of the rest "
+          f"{med * 1e3:.1f} ms (min {min(secs[1:]) * 1e3:.1f}, max {max(secs[1:]) * 1e3:.1f}); "
+          f"{tokens / med:.0f} tokens/s; peak device memory {peak / 1e9:.2f} GB "
+          f"({peak / 2**30:.2f} GiB)", flush=True)
+    fail_if(not last < TRAIN_LOSS_BAR * first,
+            f"train: the loss did not fall by the bar: {first:.4f} -> {last:.4f}")
+    fail_if(not peak < CARD_BYTES, f"train: peak device memory {peak / 1e9:.2f} GB")
+    print(f"[train] profiled step: {profile_window(lambda: step(state, batches[-1]), 'flash_fwd_sm90')}",
+          flush=True)
+    del model, state, step, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_card_against_cpu(fa, rg, wk):
+    """Phase 20: gemma3-1b cut to one period (L x 5, G) at full width, on
+    the card and in the port's CPU run from the same weights, TRAIN_CHECK_B
+    x TRAIN_CHECK_S tokens with TRAIN_OPT. The first batch: the loss within
+    TRAIN_LOSS_ATOL and every gradient leaf within TRAIN_GRAD_NORMWISE
+    normwise of the CPU's; then each side's AdamW update on its gradient
+    (the train step's update, from the zero moments), whose change is
+    printed (Adam's first step moves nearly every element by lr whatever
+    its gradient's size, so a gradient within rounding of zero moves it
+    either way: a diagnostic). The CPU then takes
+    the card's state (weights, moments, count) and both take one train step
+    on the second batch: its loss within TRAIN_LOSS_ATOL and each
+    parameter's change within TRAIN_CHANGE_NORMWISE normwise of the CPU's.
+    Returns the flash launches of the card's runs (kept out of the main
+    path's count)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_update
+    from repro_torch.train.train_step import (StepConfig, loss_and_grads, make_train_step,
+                                              to_device_batch, train_state)
+
+    t_start = time.perf_counter()
+    cfg = dataclasses.replace(get_config("gemma3-1b"), num_layers=TRAIN_CHECK_LAYERS)
+    gpu = build_model(cfg, device="cuda").init(torch.Generator(device="cuda").manual_seed(1))
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    batch_a, batch_b = SyntheticLM(cfg, DataConfig(global_batch=TRAIN_CHECK_B,
+                                                   seq_len=TRAIN_CHECK_S, seed=1)).batches(2)
+    models = {"card": gpu, "cpu": cpu}
+    states = {run: train_state(m) for run, m in models.items()}
+    steps = {run: make_train_step(m, StepConfig(optimizer=AdamWConfig(**TRAIN_OPT)))
+             for run, m in models.items()}
+
+    def host(tree):
+        return {n: t.detach().float().cpu().clone() for n, t in tree.items()}
+
+    def changed(run, before):
+        return {n: p - before[n] for n, p in host(states[run]["params"]).items()}
+
+    zero_counts(fa, rg, wk)
+    out, secs = {}, {}
+    opt_cfg = AdamWConfig(**TRAIN_OPT)
+    for run, m in models.items():
+        t0 = time.perf_counter()
+        st = states[run]
+        loss, _, grads = loss_and_grads(m, st["params"], to_device_batch(batch_a, m.device))
+        before = host(st["params"])
+        _, st["opt"], _ = adamw_update(opt_cfg, st["params"], grads, st["opt"])
+        st["step"] = st["step"] + 1
+        out[run] = (float(loss), host(grads), changed(run, before))
+        secs[run] = time.perf_counter() - t0
+        del grads
+    card = counts(fa, rg, wk)
+    fail_if(card != (TRAIN_CHECK_LAYERS, TRAIN_CHECK_LAYERS, 0),
+            f"train check: launches (flash, tensor cores, scans) {card} on the card, expected "
+            f"{TRAIN_CHECK_LAYERS} flash on the tensor cores (one a layer's forward)")
+    loss_err = abs(out["card"][0] - out["cpu"][0])
+    grad_errs = {n: normwise(g, out["cpu"][1][n]) for n, g in out["card"][1].items()}
+    cold = {n: normwise(c, out["cpu"][2][n]) for n, c in out["card"][2].items()}
+    cold_all = normwise(torch.cat([c.flatten() for c in out["card"][2].values()]),
+                        torch.cat([c.flatten() for c in out["cpu"][2].values()]))
+    bad = {n: e for n, e in grad_errs.items() if not e <= TRAIN_GRAD_NORMWISE}
+    # the warm step: the CPU from the card's state
+    with torch.no_grad():
+        cpu.load_state_dict(gpu.state_dict())
+    opt = states["card"]["opt"]
+    states["cpu"]["opt"] = {"m": host(opt["m"]), "v": host(opt["v"]),
+                            "count": opt["count"].cpu().clone()}
+    states["cpu"]["step"] = states["card"]["step"].cpu().clone()
+    warm = {}
+    for run in models:
+        before = host(states[run]["params"])
+        states[run], metrics = steps[run](states[run], batch_b)
+        warm[run] = (float(metrics["loss"]), changed(run, before))
+    card = counts(fa, rg, wk)
+    fail_if(card != (2 * TRAIN_CHECK_LAYERS, 2 * TRAIN_CHECK_LAYERS, 0),
+            f"train check: launches (flash, tensor cores, scans) {card} on the card after the "
+            f"second step, expected {2 * TRAIN_CHECK_LAYERS} flash on the tensor cores")
+    warm_loss_err = abs(warm["card"][0] - warm["cpu"][0])
+    warm_errs = {n: normwise(c, warm["cpu"][1][n]) for n, c in warm["card"][1].items()}
+    worst = lambda errs: max(errs.items(), key=lambda kv: kv[1])  # noqa: E731
+    print(f"[train-check] gemma3-1b full width cut to {TRAIN_CHECK_LAYERS} layers "
+          f"({''.join(cfg.layer_types())}), card vs the port's CPU run "
+          f"({time.perf_counter() - t_start:.1f}s; the first batch's gradient and update: card "
+          f"{secs['card']:.1f}s, CPU {secs['cpu']:.1f}s), {TRAIN_CHECK_B} x {TRAIN_CHECK_S} "
+          f"tokens: loss {out['card'][0]:.5f} / {out['cpu'][0]:.5f} (difference {loss_err:.3g}, "
+          f"limit {TRAIN_LOSS_ATOL}); gradient leaves normwise worst {worst(grad_errs)} (limit "
+          f"{TRAIN_GRAD_NORMWISE:.3g}), median "
+          f"{sorted(grad_errs.values())[len(grad_errs) // 2]:.3g}", flush=True)
+    print(f"[train-check] the first update from zero moments (a diagnostic): change normwise "
+          f"worst leaf {worst(cold)}, all parameters {cold_all:.3g}; the step from the card's "
+          f"state on the second batch: loss difference {warm_loss_err:.3g} (limit "
+          f"{TRAIN_LOSS_ATOL}), change normwise worst leaf {worst(warm_errs)} (limit "
+          f"{TRAIN_CHANGE_NORMWISE:.3g}), median "
+          f"{sorted(warm_errs.values())[len(warm_errs) // 2]:.3g}; flash launches on the card "
+          f"{card[0]}", flush=True)
+    fail_if(not loss_err <= TRAIN_LOSS_ATOL, f"train check: loss differs by {loss_err:.3g}")
+    fail_if(bool(bad), f"train check: gradient leaves past {TRAIN_GRAD_NORMWISE:.3g} "
+            f"normwise: {bad}")
+    fail_if(not warm_loss_err <= TRAIN_LOSS_ATOL,
+            f"train check: the second step's loss differs by {warm_loss_err:.3g}")
+    bad = {n: e for n, e in warm_errs.items() if not e <= TRAIN_CHANGE_NORMWISE}
+    fail_if(bool(bad), f"train check: parameter changes past {TRAIN_CHANGE_NORMWISE:.3g} "
+            f"normwise: {bad}")
+    del gpu, cpu, states, steps
+    torch.cuda.empty_cache()
+    return card[0]
 
 
 #: step caps of phase 3's loop-kernel checks on the live default-grid state
@@ -3638,6 +4029,7 @@ def main(argv) -> int:
     fa_rows = flash_checks(fa, flash_attention_ref)
     rows["flash_attention_sm90"] = fa_rows[fa.TENSOR_CORES]
     rows["flash_attention"] = fa_rows[fa.CUDA_CORES]
+    grad_rows = grad_checks(fa, rg, wk)
     elapsed("3 (the model kernels' checks)")
     # the loop kernels' plain versions launch millions of small kernels on
     # the card (after them the profiler has kept as few as 5 of 20 WKV
@@ -3706,8 +4098,15 @@ def main(argv) -> int:
             by_path["flash_attention_sm90"][f"{tag}_card_vs_cpu"] = family_card_against_cpu(
                 tag, arch, check, fa)
             elapsed(f"13-18 ({arch})")
-        # the main path's count: the serving runs, not the card-against-CPU
-        # checks
+
+        # ---- 19. training: gemma3-1b at full width and depth ----
+        by_path["flash_attention_sm90"]["train"] = train_full_width(fa, rg, wk)
+
+        # ---- 20. one train step, the card against the port's CPU run ----
+        by_path["flash_attention_sm90"]["train_card_vs_cpu"] = train_card_against_cpu(fa, rg, wk)
+        elapsed("19-20 (training)")
+        # the main path's count: the serving and training runs, not the
+        # card-against-CPU checks
         launches["flash_attention_sm90"] = sum(
             n for run, n in by_path["flash_attention_sm90"].items()
             if not run.endswith("card_vs_cpu"))
@@ -3715,7 +4114,7 @@ def main(argv) -> int:
         # CUDA-core kernel
         launches["flash_attention"] = sum(by_path["flash_attention"].values())
 
-    # ---- 19. summary lines ----
+    # ---- 21. summary lines ----
     kernels = []
     for name, src, replaces, pick, shape in (
         ("waterfill", "src/repro_torch/eval/fabric/csrc/waterfill.cu",
@@ -3766,6 +4165,10 @@ def main(argv) -> int:
                 for check in FA_FAMILIES]
         if name == "rwkv6_scan":  # the model's call, (B, T, H, D) in place
             kernels[-1]["model_layout_call_ms"] = row["model_call_ms"]
+        if name in grad_rows:  # the autograd Function's gradient against the plain version's
+            kernels[-1]["gradient_checks"] = [
+                {"shape": list(check), **{k: v for k, v in r.items()}}
+                for check, r in grad_rows[name].items()]
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

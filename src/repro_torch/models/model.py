@@ -14,9 +14,11 @@ Four families, as in the reference:
 * ``EncDecLM``, whisper's encoder-decoder with cross attention; the audio
   frontend is a stub (a batch's ``frames`` are the frame embeddings).
 
-Every prefill attention (self, cross, encoder) goes through the flash
-kernel's wrapper :func:`repro_torch.kernels.ops.flash_attention`; decode
-steps attend over the cache with the plain attention.
+Every prefill and train attention (self, cross, encoder) goes through
+:func:`repro_torch.kernels.ops.flash_attention` (the flash kernel forward,
+its gradient in torch ops); decode steps attend over the cache with the
+plain attention. ``BaseLM.loss`` is the reference's training loss over
+``forward``.
 
 The residual stream is bf16, as in the reference: the embedding is cast to
 bf16, each block returns its input's dtype and the residual adds run in
@@ -66,7 +68,10 @@ def is_param_leaf(node) -> bool:
 
 def _params(shapes: Dict[str, Tuple[int, ...]], device) -> Dict[str, nn.Parameter]:
     """Uninitialised fp32 parameters of the given shapes. They take no
-    gradient: the ported path serves (``requires_grad_()`` turns it on)."""
+    gradient until a caller asks (``requires_grad_()``), as
+    :func:`repro_torch.train.train_step.init_train_state` does: serving
+    builds no graph. The kernels pass gradients through the
+    ``torch.autograd.Function``s of :mod:`repro_torch.kernels.ops`."""
     return {
         name: nn.Parameter(torch.empty(shape, dtype=torch.float32, device=device),
                            requires_grad=False)
@@ -110,8 +115,21 @@ def sliced_logits(h: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """Mean token NLL (fp32 scalar): logits (B, S, V) upcast to fp32,
+    logsumexp less the gold logit of targets (B, S), averaged over the mask
+    (B, S) with a divisor of at least 1."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+
+
 class BaseLM(nn.Module):
-    """Embedding and output head shared by every family."""
+    """Embedding and output head shared by every family, and the training
+    loss."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
@@ -162,6 +180,19 @@ class BaseLM(nn.Module):
         values["final_norm"] = torch.zeros(self.cfg.d_model)
         for name, value in values.items():
             self.embed[name].copy_(value)
+
+    def loss(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """-> (xent + ``router_aux_weight`` aux, {"xent", "aux"}), fp32
+        scalars: the forward's logits against the batch's ``targets`` under
+        its ``mask`` (default: every position)."""
+        logits, aux = self.forward(batch)
+        mask = batch.get("mask")
+        if mask is None:
+            mask = torch.ones(batch["targets"].shape, dtype=torch.float32,
+                              device=logits.device)
+        xent = cross_entropy(logits, batch["targets"], mask)
+        total = xent + self.cfg.router_aux_weight * aux
+        return total, {"xent": xent, "aux": aux}
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         """Token lookup times sqrt(d_model) in fp32, cast to bf16."""

@@ -1,1 +1,1 @@
-"""Serving steps of the LLM scaffold."""
+"""Serving and train steps of the LLM scaffold."""

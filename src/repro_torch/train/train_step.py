@@ -1,0 +1,122 @@
+"""Train step on one device: loss -> gradients -> AdamW, the reference's
+``train/train_step.py`` without a mesh (its single-pod path).
+
+The train state is ``{"params": {name: the model's nn.Parameter}, "opt":
+{"m", "v", "count"}, "step": int32 0-d}``: the parameters are the model's
+own tensors, which :func:`repro_torch.optim.adamw.adamw_update` writes in
+place. Everything runs on the model's device: a batch of numpy arrays or
+tensors is moved there. Gradients pass the kernels through the
+``torch.autograd.Function``s of :mod:`repro_torch.kernels.ops` (the
+kernels forward, their gradients in torch ops).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Mapping, Optional, Tuple
+
+import torch
+
+from repro_torch.models.model import BaseLM
+from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
+
+Batch = Dict[str, torch.Tensor]
+Metrics = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class StepConfig:
+    """The reference's step options that one device reads; its gradient
+    sync, compression and ``gather_once`` options need a mesh."""
+    optimizer: AdamWConfig = AdamWConfig()
+    #: gradient-accumulation microbatches per step (1 = off)
+    accum_steps: int = 1
+
+
+def to_device_batch(batch: Mapping, device) -> Batch:
+    """A batch of numpy arrays or tensors as tensors on ``device``: integer
+    entries (tokens, targets) int64, float entries fp32."""
+    out = {}
+    for name, x in batch.items():
+        t = torch.as_tensor(x)
+        dtype = torch.float32 if t.is_floating_point() else torch.int64
+        out[name] = t.to(device=device, dtype=dtype)
+    return out
+
+
+def train_state(model: BaseLM) -> Dict:
+    """The train state of the model's current parameters (after ``init``,
+    ``load_state_dict`` or ``params_from_jax``): every parameter set to
+    take a gradient, zero AdamW moments, step 0."""
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.requires_grad_(True)
+    return {"params": params, "opt": init_opt_state(params),
+            "step": torch.zeros((), dtype=torch.int32, device=model.device)}
+
+
+def init_train_state(model: BaseLM, generator: Optional[torch.Generator] = None) -> Dict:
+    """``model.init(generator)`` (default: seed 0 on the model's device),
+    then :func:`train_state`."""
+    model.init(generator)
+    return train_state(model)
+
+
+def loss_and_grads(model: BaseLM, params: Dict[str, torch.Tensor],
+                   batch: Batch) -> Tuple[torch.Tensor, Metrics, Dict[str, torch.Tensor]]:
+    """``model.loss(batch)`` and its gradient with respect to ``params``
+    (the model's parameters): (loss, {"xent", "aux"}, {name: gradient}),
+    fp32; a parameter the loss does not reach gets zeros."""
+    loss, metrics = model.loss(batch)
+    grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    grads = {name: torch.zeros_like(p) if g is None else g
+             for (name, p), g in zip(params.items(), grads)}
+    return loss.detach(), {k: m.detach() for k, m in metrics.items()}, grads
+
+
+def make_train_step(model: BaseLM, cfg: StepConfig) -> Callable[[Dict, Mapping], Tuple[Dict, Metrics]]:
+    """Returns step(state, batch) -> (state, metrics): the loss and its
+    gradients, then one AdamW update. With ``accum_steps`` = k > 1 the
+    batch splits into k microbatches on axis 0 (rows i B/k .. (i+1) B/k - 1
+    in the i-th); their fp32 gradients, losses and metrics are summed in
+    order, then divided by k. metrics: ``loss``, ``xent``, ``aux``,
+    ``grad_norm`` (before clipping) and ``lr``, 0-d fp32 tensors on the
+    model's device."""
+
+    def step(state: Dict, batch: Mapping) -> Tuple[Dict, Metrics]:
+        params = state["params"]
+        batch = to_device_batch(batch, model.device)
+        k = cfg.accum_steps
+        if k <= 1:
+            loss, metrics, grads = loss_and_grads(model, params, batch)
+        else:
+            for i in range(k):
+                micro = {name: x.reshape((k, x.shape[0] // k) + x.shape[1:])[i]
+                         for name, x in batch.items()}
+                l, m, g = loss_and_grads(model, params, micro)
+                if i == 0:
+                    loss, metrics, grads = l, m, g
+                    continue
+                loss = loss + l
+                metrics = {name: metrics[name] + m[name] for name in metrics}
+                grads = {name: grads[name] + g[name] for name in grads}
+                del g
+            loss = loss / k
+            metrics = {name: m / k for name, m in metrics.items()}
+            grads = {name: g / k for name, g in grads.items()}
+        _, opt, opt_metrics = adamw_update(cfg.optimizer, params, grads, state["opt"])
+        new_state = {"params": params, "opt": opt, "step": state["step"] + 1}
+        return new_state, {"loss": loss, **metrics, **opt_metrics}
+
+    return step
+
+
+def make_eval_step(model: BaseLM) -> Callable[[Mapping], Metrics]:
+    """Returns step(batch) -> {"loss", "xent", "aux"} of ``model.loss``,
+    without a graph."""
+
+    def step(batch: Mapping) -> Metrics:
+        with torch.no_grad():
+            loss, metrics = model.loss(to_device_batch(batch, model.device))
+        return {"loss": loss, **metrics}
+
+    return step

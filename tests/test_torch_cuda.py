@@ -960,3 +960,106 @@ def test_dense_logits_make_no_fp32_vocab_buffer(cuda):
     e = torch.floor(torch.log2(old.float().abs().clamp(min=2.0 ** -126)))
     bound = torch.exp2(e - 7) + 2 * cfg.d_model * 2.0 ** -24 * mag
     assert bool(((logits[:1].float() - old.float()).abs() <= bound).all())
+
+
+def _normwise(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+@pytest.mark.parametrize("case", [
+    (2, 4, 1, 256, 256, 256, True, 128, 50.0, torch.bfloat16),
+    (2, 8, 8, 64, 300, 64, False, None, 0.0, torch.bfloat16),
+    (2, 4, 2, 96, 96, 64, True, 32, 0.0, torch.float32),
+], ids=str)
+def test_flash_function_gradients_on_the_card(cuda, case):
+    """ops.FlashAttention on the card: the kernel forward (one launch, none
+    in the backward) and kernels/backward.py's gradients against
+    torch.autograd through the plain version on the same inputs; dq, dk, dv
+    within 2^-7 normwise (bf16) or rtol 1e-5, atol 1e-6 (fp32)."""
+    b, h, kv, s, t, d, causal, window, cap, dtype = case
+    g = torch.Generator(device=cuda).manual_seed(s + t)
+    q = torch.randn((b, h, s, d), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((b, kv, t, d), generator=g, device=cuda).to(dtype) for _ in range(2))
+    do = torch.randn((b, h, s, d), generator=g, device=cuda).to(dtype)
+    kw = dict(causal=causal, window=window, logit_softcap=cap)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = fa.flash_attention.launches
+    out = ops.FlashAttention.apply(*leaves, causal, window, cap)
+    assert fa.flash_attention.launches == before + 1
+    got = torch.autograd.grad(out, leaves, do)
+    assert fa.flash_attention.launches == before + 1
+    ref_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_ref(*ref_leaves, **kw), ref_leaves, do)
+    for name, a, w in zip("qkv", got, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        if dtype == torch.bfloat16:
+            assert _normwise(a, w) <= 2.0 ** -7, name
+        else:
+            torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-6, msg=name)
+
+
+def test_scan_function_gradients_on_the_card(cuda):
+    """ops.rwkv6_scan (with s0 and the final state's gradient, rtol = atol
+    = 1e-4) and ops.rglru_scan (1e-5) on the card: the kernels forward, the
+    backward functions' gradients against torch.autograd through the plain
+    versions."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def draw(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=cuda) * scale
+
+    b, h, t, d = 2, 4, 64, 64
+    r, k, v = (draw(b, t, h, d, scale=0.5) for _ in range(3))
+    w = torch.exp(-torch.exp(draw(b, t, h, d, scale=0.5)))
+    args = (r, k, v, w, draw(h, d, scale=0.5), draw(b, h, d, d, scale=0.1))
+    dy, ds = draw(b, t, h, d), draw(b, h, d, d)
+    before = wk.rwkv6_scan.launches
+    leaves = [x.clone().requires_grad_() for x in args]
+    got = torch.autograd.grad(ops.rwkv6_scan(*leaves), leaves, (dy, ds))
+    assert wk.rwkv6_scan.launches == before + 1
+    ref_leaves = [x.clone().requires_grad_() for x in args]
+    y, s_last = rwkv6_scan_ref(*(x.transpose(1, 2) if i < 4 else x
+                                 for i, x in enumerate(ref_leaves)))
+    want = torch.autograd.grad((y.transpose(1, 2), s_last), ref_leaves, (dy, ds))
+    for a, w_ in zip(got, want):
+        torch.testing.assert_close(a, w_, rtol=1e-4, atol=1e-4)
+
+    a = torch.sigmoid(draw(2, 64, 256))
+    args = (a, draw(2, 64, 256, scale=0.5), draw(2, 256, scale=0.5))
+    dh, dl = draw(2, 64, 256), draw(2, 256)
+    before = rg.rglru_scan.launches
+    leaves = [x.clone().requires_grad_() for x in args]
+    got = torch.autograd.grad(ops.rglru_scan(*leaves), leaves, (dh, dl))
+    assert rg.rglru_scan.launches == before + 1
+    ref_leaves = [x.clone().requires_grad_() for x in args]
+    want = torch.autograd.grad(rglru_scan_ref(*ref_leaves), ref_leaves, (dh, dl))
+    for a, w_ in zip(got, want):
+        torch.testing.assert_close(a, w_, rtol=1e-5, atol=1e-5)
+
+
+def test_dense_train_step_on_the_card(cuda):
+    """A 2-layer gemma3-1b at full width, one train step of 2 x 64 tokens
+    on the card: every parameter's gradient finite and non-zero, one
+    tensor-core flash launch a layer (none from the backward), the loss and
+    gradients within the CPU run's limits (loss atol 2e-2, each leaf 2^-5
+    normwise)."""
+    import dataclasses
+
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.train.train_step import loss_and_grads, to_device_batch, train_state
+
+    cfg = dataclasses.replace(get_config("gemma3-1b"), num_layers=2, layer_pattern="LG")
+    gpu = build_model(cfg, device=cuda).init(torch.Generator(device=cuda).manual_seed(0))
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    batch = next(SyntheticLM(cfg, DataConfig(global_batch=2, seq_len=64)).batches())
+    before = (fa.flash_attention.launches, fa.flash_attention.tc_launches)
+    loss, _, grads = loss_and_grads(gpu, train_state(gpu)["params"], to_device_batch(batch, cuda))
+    assert (fa.flash_attention.launches - before[0],
+            fa.flash_attention.tc_launches - before[1]) == (2, 2)
+    want_loss, _, want = loss_and_grads(cpu, train_state(cpu)["params"],
+                                        to_device_batch(batch, "cpu"))
+    assert abs(float(loss) - float(want_loss)) <= 2e-2
+    for name, gr in grads.items():
+        assert bool(torch.isfinite(gr).all()) and bool(gr.any()), name
+        assert _normwise(gr.cpu(), want[name]) <= 2.0 ** -5, name

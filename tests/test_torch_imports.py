@@ -50,6 +50,13 @@ EXECUTOR_MODULES = (
     "repro_torch.eval.fabric.stats",
     "repro_torch.eval.fabric.executor",
 )
+#: modules of the training path on one device
+TRAINING_MODULES = (
+    "repro_torch.data.synthetic",
+    "repro_torch.optim.adamw",
+    "repro_torch.kernels.backward",
+    "repro_torch.train.train_step",
+)
 
 
 def _port_sources():
@@ -67,6 +74,7 @@ def test_port_imports_with_jax_and_reference_blocked():
     assert len(names) >= 20  # every module of the port imported
     assert set(SHARED_FABRIC_MODULES) <= names
     assert set(EXECUTOR_MODULES) <= names
+    assert set(TRAINING_MODULES) <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -231,3 +239,28 @@ def test_dense_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
     q = torch.zeros((1, 2, 4, 8), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fa.flash_attention(q, q, q)
+
+
+def test_train_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """Training runs on the model's device: a model built without a device
+    asks for the card and raises without one; a CPU model trains on the
+    CPU, its batches moved there, and launches no kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.config import reduce_for_smoke
+    from repro_torch.models.model import build_model
+    from repro_torch.train.train_step import StepConfig, init_train_state, make_train_step
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduce_for_smoke(get_config("gemma3-1b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg)
+    model = build_model(cfg, device="cpu")
+    state = init_train_state(model)
+    before = fa.flash_attention.launches
+    batch = next(SyntheticLM(cfg, DataConfig(global_batch=2, seq_len=8)).batches())
+    state, metrics = make_train_step(model, StepConfig())(state, batch)
+    assert all(m.device.type == "cpu" for m in metrics.values())
+    assert all(p.device.type == "cpu" for p in state["params"].values())
+    assert fa.flash_attention.launches == before
