@@ -64,8 +64,11 @@ Phases, each printing its own lines:
      kernel forward, kernels/backward.py's gradients in torch ops, no
      launch in the backward) against torch.autograd through the plain
      version on the card: flash bf16 at (2, 4, 1, 256, 256, 256) with
-     window 128 and softcap 50 and at (2, 8, 8, 64, 300, 64) without a
-     mask, dq, dk, dv each within 2^-7 normwise; WKV-6 at (2, 4, 64, 64)
+     window 128 and softcap 50 (q scaled by 8, so the logits reach the
+     cap: a backward without the softcap's 1 - tanh^2 factor, the plain
+     version's autograd with the factor dropped, must part from the plain
+     gradient by more than the limit) and at (2, 8, 8, 64, 300, 64)
+     without a mask, dq, dk, dv each within 2^-7 normwise; WKV-6 at (2, 4, 64, 64)
      with s0 and the final state's gradient, rtol = atol = 1e-4; RG-LRU at
      (2, 64, 256), 1e-5; max error, device time, the plain version's time, one
      scaled_dot_product_attention call's time for each flash kernel, and the
@@ -244,10 +247,16 @@ Phases, each printing its own lines:
  20. the same model cut to one period (L x 5, G) at full width, one train
      step of 2 x 64 tokens on the card against the port's CPU run from the
      same weights and batch: loss within atol 2e-2, every gradient leaf
-     within 2^-5 normwise (the change of each side's first update, from
-     zero moments, printed); then, from the card's state on both, a step
-     on a second batch: loss within 2e-2, each parameter's change within
-     2^-4 normwise;
+     within 2^-5 normwise; each side's first update, from zero moments:
+     each leaf's first moment within 2^-5 normwise, each parameter's
+     change within 2^-4 normwise over the elements whose CPU gradient
+     exceeds the card's error there (Adam's first step is lr x g / (|g| +
+     eps), lr x sign(g) unless |g| is near eps, so an element whose
+     gradient lies within its error of zero may move either way: the
+     share of such elements and of the change's error on them is
+     printed); then, from the card's state on both, a step on a second
+     batch: loss within 2e-2, each parameter's change within 2^-4
+     normwise;
  21. a {"kernels": [...]} JSON line (the flash row's launches_by_path
      gains "train"), then the nvidia-smi name/power line, then the result
      line {"ok": true, "device": {...}}.
@@ -413,10 +422,11 @@ ROUTE_ULPS = 4
 #: phase 3's gradient checks of the kernels' autograd Functions (the kernel
 #: forward, kernels/backward.py's gradients) against autograd through the
 #: plain version. Flash, bf16 on the tensor-core kernel, (B, H, KV, S, T, D,
-#: causal, window, softcap): one KV head of 256 with a window and a softcap,
-#: and 64 queries over 300 keys without a mask; dq, dk, dv each normwise
-FA_GRAD_CHECKS = [(2, 4, 1, 256, 256, 256, True, 128, 50.0),
-                  (2, 8, 8, 64, 300, 64, False, None, 0.0)]
+#: causal, window, softcap, q's scale): one KV head of 256 with a window and
+#: a softcap, q scaled so the logits (std 8) reach the cap, and 64 queries
+#: over 300 keys without a mask; dq, dk, dv each normwise
+FA_GRAD_CHECKS = [(2, 4, 1, 256, 256, 256, True, 128, 50.0, 8.0),
+                  (2, 8, 8, 64, 300, 64, False, None, 0.0, 1.0)]
 FA_GRAD_NORMWISE = 2.0 ** -7
 #: WKV-6 (B, H, T, D) with s0 and the final state's gradient, rtol = atol
 WKV_GRAD_SHAPE, WKV_GRAD_TOL = (2, 4, 64, 64), 1e-4
@@ -1943,10 +1953,14 @@ def family_card_against_cpu(tag, arch, check, fa):
 
 
 def normwise(got, want) -> float:
-    """||got - want|| / ||want|| of two tensors, the norms in fp32 (0 where
-    both are zero, inf where only the reference is)."""
+    """||got - want|| / ||want|| of two tensors (0 where both are zero, inf
+    where only the reference is), in fp32, the sums of squares by ``sum``
+    (a cascade on the CPU): an fp32 ``norm`` on the CPU stalls past some
+    2^24 terms a lane, so over the 463 M elements of phase 20's
+    parameters it returns under half the true sum of squares."""
     got, want = got.float(), want.float()
-    num, den = (got - want).norm().item(), want.norm().item()
+    num = (got - want).pow(2).sum().sqrt().item()
+    den = want.pow(2).sum().sqrt().item()
     return 0.0 if num == 0.0 else (num / den if den else math.inf)
 
 
@@ -1962,6 +1976,30 @@ def zero_counts(fa, rg, wk):
     rg.rglru_scan.launches = wk.rwkv6_scan.launches = 0
 
 
+def softcap_factor_dropped(q, k, v, *, causal, window, logit_softcap):
+    """kernels.ref.flash_attention_ref whose softcap passes its gradient
+    straight through: the gradient of a backward that forgot the softcap's
+    1 - tanh^2 factor (the forward is the plain version's)."""
+    import numpy as np
+    import torch
+
+    b, h, s, d = q.shape
+    kv, t = k.shape[1], k.shape[2]
+    f4 = torch.float32
+    logits = torch.einsum("bkgsd,bktd->bkgst", q.reshape(b, kv, h // kv, s, d).to(f4), k.to(f4))
+    logits = logits / float(np.sqrt(np.float32(d)))
+    logits = logits + (torch.tanh(logits / logit_softcap) * logit_softcap - logits).detach()
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    p = torch.softmax(logits.masked_fill(~mask, -1e30), dim=-1)
+    return torch.einsum("bkgst,bktd->bkgsd", p, v.to(f4)).reshape(b, h, s, d).to(q.dtype)
+
+
 def grad_checks(fa, rg, wk):
     """Phase 3, gradients through the kernels: each autograd Function of
     kernels/ops.py on the card (its forward launches the kernel once, its
@@ -1971,8 +2009,10 @@ def grad_checks(fa, rg, wk):
     FA_GRAD_NORMWISE normwise; WKV-6 at WKV_GRAD_SHAPE with s0 and the final
     state's gradient within rtol = atol = WKV_GRAD_TOL; RG-LRU at
     RG_GRAD_SHAPE with h0 and the final state's gradient within
-    RG_GRAD_TOL. The backward and the plain version's autograd are timed.
-    Returns {kernel: {check: row}}."""
+    RG_GRAD_TOL. A softcap check also fails unless a backward that dropped
+    the softcap's 1 - tanh^2 factor would part from the plain gradient by
+    more than FA_GRAD_NORMWISE. The backward and the plain version's
+    autograd are timed. Returns {kernel: {check: row}}."""
     import torch
 
     from repro_torch.kernels import backward as bwd
@@ -1997,10 +2037,10 @@ def grad_checks(fa, rg, wk):
 
     rows = {"flash_attention_sm90": {}, "rwkv6_scan": {}, "rglru_scan": {}}
     for i, check in enumerate(FA_GRAD_CHECKS):
-        B, H, KV, S, T, D, causal, window, cap = check
+        B, H, KV, S, T, D, causal, window, cap, q_scale = check
         gen = torch.Generator(device="cuda").manual_seed(200 + i)
         bf = torch.bfloat16
-        q = torch.randn((B, H, S, D), generator=gen, device="cuda").to(bf)
+        q = (torch.randn((B, H, S, D), generator=gen, device="cuda") * q_scale).to(bf)
         k, v = (torch.randn((B, KV, T, D), generator=gen, device="cuda").to(bf) for _ in range(2))
         do = torch.randn((B, H, S, D), generator=gen, device="cuda").to(bf)
         kw = dict(causal=causal, window=window, logit_softcap=cap)
@@ -2014,6 +2054,16 @@ def grad_checks(fa, rg, wk):
             fail_if(not errs[f"d{name}"] <= FA_GRAD_NORMWISE,
                     f"{label}: d{name} {errs[f'd{name}']:.3g} normwise > {FA_GRAD_NORMWISE:.3g}")
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        seen = ""
+        if cap:  # what a backward without the softcap's factor would give
+            dropped = torch.autograd.grad(
+                softcap_factor_dropped(*leaves, **kw), leaves, do)
+            errs["softcap_factor_dropped_dq"] = normwise(dropped[0], want[0])
+            fail_if(not errs["softcap_factor_dropped_dq"] > FA_GRAD_NORMWISE,
+                    f"{label}: dropping the softcap's factor moves dq by only "
+                    f"{errs['softcap_factor_dropped_dq']:.3g}, within the limit")
+            seen = (f"; a backward without the softcap's 1 - tanh^2 factor would be "
+                    f"{errs['softcap_factor_dropped_dq']:.3g} off in dq")
         row = {"normwise": errs, "max_abs_err": max((g.float() - w.float()).abs().max().item()
                                                     for g, w in zip(got, want)),
                "backward_ms": event_ms(lambda: bwd.flash_attention_bwd(q, k, v, do, **kw), 5),
@@ -2021,8 +2071,8 @@ def grad_checks(fa, rg, wk):
                    flash_attention_ref(*leaves, **kw), leaves, do), 3)}
         rows["flash_attention_sm90"][check] = row
         print(f"[kernels] {label}: kernel forward + kernels/backward.py against autograd through "
-              f"the plain version: normwise {', '.join(f'{k} {e:.3g}' for k, e in errs.items())} "
-              f"(limit {FA_GRAD_NORMWISE:.3g}); backward {row['backward_ms']:.3f} ms, the plain "
+              f"the plain version: normwise "
+              f"{', '.join(f'{k} {errs[k]:.3g}' for k in ('dq', 'dk', 'dv'))} (limit {FA_GRAD_NORMWISE:.3g}){seen}; backward {row['backward_ms']:.3f} ms, the plain "
               f"version's autograd {row['plain_backward_ms']:.3f} ms", flush=True)
 
     B, H, T, D = WKV_GRAD_SHAPE
@@ -2173,10 +2223,14 @@ def train_card_against_cpu(fa, rg, wk):
     x TRAIN_CHECK_S tokens with TRAIN_OPT. The first batch: the loss within
     TRAIN_LOSS_ATOL and every gradient leaf within TRAIN_GRAD_NORMWISE
     normwise of the CPU's; then each side's AdamW update on its gradient
-    (the train step's update, from the zero moments), whose change is
-    printed (Adam's first step moves nearly every element by lr whatever
-    its gradient's size, so a gradient within rounding of zero moves it
-    either way: a diagnostic). The CPU then takes
+    (the train step's update, from the zero moments): each leaf's first
+    moment (linear in the clipped gradient) within TRAIN_GRAD_NORMWISE
+    normwise, and each parameter's change within TRAIN_CHANGE_NORMWISE
+    normwise over the elements whose CPU gradient exceeds the card's error
+    there. Adam's first step moves an element by lr x g / (|g| + eps), so
+    an element whose gradient lies within its error of zero may move
+    either way; the share of such elements, and the share of the change's
+    squared error on them, are printed. The CPU then takes
     the card's state (weights, moments, count) and both take one train step
     on the second batch: its loss within TRAIN_LOSS_ATOL and each
     parameter's change within TRAIN_CHANGE_NORMWISE normwise of the CPU's.
@@ -2221,7 +2275,7 @@ def train_card_against_cpu(fa, rg, wk):
         before = host(st["params"])
         _, st["opt"], _ = adamw_update(opt_cfg, st["params"], grads, st["opt"])
         st["step"] = st["step"] + 1
-        out[run] = (float(loss), host(grads), changed(run, before))
+        out[run] = (float(loss), host(grads), changed(run, before), host(st["opt"]["m"]))
         secs[run] = time.perf_counter() - t0
         del grads
     card = counts(fa, rg, wk)
@@ -2230,10 +2284,22 @@ def train_card_against_cpu(fa, rg, wk):
             f"{TRAIN_CHECK_LAYERS} flash on the tensor cores (one a layer's forward)")
     loss_err = abs(out["card"][0] - out["cpu"][0])
     grad_errs = {n: normwise(g, out["cpu"][1][n]) for n, g in out["card"][1].items()}
-    cold = {n: normwise(c, out["cpu"][2][n]) for n, c in out["card"][2].items()}
-    cold_all = normwise(torch.cat([c.flatten() for c in out["card"][2].values()]),
-                        torch.cat([c.flatten() for c in out["cpu"][2].values()]))
+    moment_errs = {n: normwise(m, out["cpu"][3][n]) for n, m in out["card"][3].items()}
+    # the first update's change over the elements whose gradient the card resolves
+    cold, sq_err, sq_cpu, sq_unresolved, n_unresolved, n_all = {}, 0.0, 0.0, 0.0, 0, 0
+    for n, g in out["card"][1].items():
+        g_cpu, d_card, d_cpu = out["cpu"][1][n], out["card"][2][n], out["cpu"][2][n]
+        resolved = g_cpu.abs() > (g - g_cpu).abs()
+        cold[n] = normwise(d_card[resolved], d_cpu[resolved])
+        sq = (d_card - d_cpu).pow(2)
+        sq_err += sq.sum().item()
+        sq_cpu += d_cpu.pow(2).sum().item()
+        sq_unresolved += sq[~resolved].sum().item()
+        n_unresolved += int((~resolved).sum())
+        n_all += resolved.numel()
     bad = {n: e for n, e in grad_errs.items() if not e <= TRAIN_GRAD_NORMWISE}
+    bad_moment = {n: e for n, e in moment_errs.items() if not e <= TRAIN_GRAD_NORMWISE}
+    bad_cold = {n: e for n, e in cold.items() if not e <= TRAIN_CHANGE_NORMWISE}
     # the warm step: the CPU from the card's state
     with torch.no_grad():
         cpu.load_state_dict(gpu.state_dict())
@@ -2261,16 +2327,26 @@ def train_card_against_cpu(fa, rg, wk):
           f"limit {TRAIN_LOSS_ATOL}); gradient leaves normwise worst {worst(grad_errs)} (limit "
           f"{TRAIN_GRAD_NORMWISE:.3g}), median "
           f"{sorted(grad_errs.values())[len(grad_errs) // 2]:.3g}", flush=True)
-    print(f"[train-check] the first update from zero moments (a diagnostic): change normwise "
-          f"worst leaf {worst(cold)}, all parameters {cold_all:.3g}; the step from the card's "
-          f"state on the second batch: loss difference {warm_loss_err:.3g} (limit "
-          f"{TRAIN_LOSS_ATOL}), change normwise worst leaf {worst(warm_errs)} (limit "
-          f"{TRAIN_CHANGE_NORMWISE:.3g}), median "
+    print(f"[train-check] the first update from zero moments: first moment normwise worst leaf "
+          f"{worst(moment_errs)} (limit {TRAIN_GRAD_NORMWISE:.3g}); change normwise over the "
+          f"elements whose CPU gradient exceeds the card's error there, worst leaf {worst(cold)} "
+          f"(limit {TRAIN_CHANGE_NORMWISE:.3g}); over all elements "
+          f"{math.sqrt(sq_err / sq_cpu):.3g}, {100 * sq_unresolved / max(sq_err, 1e-300):.2f}% "
+          f"of its square on the {n_unresolved} of {n_all} elements "
+          f"({100 * n_unresolved / n_all:.3f}%) whose gradient lies within its error of zero",
+          flush=True)
+    print(f"[train-check] the step from the card's state on the second batch: loss difference "
+          f"{warm_loss_err:.3g} (limit {TRAIN_LOSS_ATOL}), change normwise worst leaf "
+          f"{worst(warm_errs)} (limit {TRAIN_CHANGE_NORMWISE:.3g}), median "
           f"{sorted(warm_errs.values())[len(warm_errs) // 2]:.3g}; flash launches on the card "
           f"{card[0]}", flush=True)
     fail_if(not loss_err <= TRAIN_LOSS_ATOL, f"train check: loss differs by {loss_err:.3g}")
     fail_if(bool(bad), f"train check: gradient leaves past {TRAIN_GRAD_NORMWISE:.3g} "
             f"normwise: {bad}")
+    fail_if(bool(bad_moment), f"train check: first moments past {TRAIN_GRAD_NORMWISE:.3g} "
+            f"normwise: {bad_moment}")
+    fail_if(bool(bad_cold), f"train check: the first update's change past "
+            f"{TRAIN_CHANGE_NORMWISE:.3g} normwise where the gradient is resolved: {bad_cold}")
     fail_if(not warm_loss_err <= TRAIN_LOSS_ATOL,
             f"train check: the second step's loss differs by {warm_loss_err:.3g}")
     bad = {n: e for n, e in warm_errs.items() if not e <= TRAIN_CHANGE_NORMWISE}

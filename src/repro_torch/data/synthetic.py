@@ -21,7 +21,6 @@ class DataConfig:
     global_batch: int = 8
     seq_len: int = 128
     seed: int = 0
-    order: int = 2  # markov order proxy (pattern period)
 
 
 class SyntheticLM:
