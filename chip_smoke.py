@@ -171,8 +171,7 @@ Phases, each printing its own lines:
      run on the same weights: prefill of 2 x 64 tokens, then 4
      teacher-forced decode steps; every layer of every call is replayed
      on the card on the CPU run's inputs (wkv state within rtol = atol =
-     1e-3, logits within atol 2e-2); the free-running drift is printed
-     beside the CPU's own drift between thread counts;
+     1e-3, logits within atol 2e-2); the free-running drift is printed;
   9. the hybrid serving path: recurrentgemma-9b at full width and depth
      (38 layers, 9,396,408,320 fp32 parameters from a seeded generator)
      serves 8 prompts of 512 tokens with 32 new greedy tokens (RG-LRU
@@ -257,9 +256,27 @@ Phases, each printing its own lines:
      printed); then, from the card's state on both, a step on a second
      batch: loss within 2e-2, each parameter's change within 2^-4
      normwise;
- 21. a {"kernels": [...]} JSON line (the flash row's launches_by_path
-     gains "train"), then the nvidia-smi name/power line, then the result
-     line {"ok": true, "device": {...}}.
+ 21. the fault-tolerant training loop: gemma3-1b at full width and depth
+     through ``train.loop.train`` on a ``Prefetcher`` of the same batches
+     and optimizer, 12 steps straight; then ``train_with_restarts`` around
+     a fresh model's 12 steps with an asynchronous checkpoint every 8
+     steps through ``checkpoint.ckpt`` on the transfer engine, under
+     build/ (24 GB free needed, removed after), the first attempt crashing
+     at step 10 (after the step-8 save, which it waits for), the second
+     restoring step 8 and running steps 9-12: 2 attempts; after the crash
+     only step_00000008 committed (35 leaf files and index.json, 11.998
+     GB); the resumed final state (parameters, both moments, count, step)
+     and the losses of steps 9-12 bit for bit the straight run's; exactly 26
+     tensor-core flash launches in each of the 26 steps (counts set to 0
+     after each step's metrics); peak device memory; each save's snapshot,
+     serialize and engine seconds, bytes, files, throughput, chunks and
+     moves, the restore's seconds and rate, the steps that overlap the
+     asynchronous save against those that do not, the host's peak RSS and
+     the free disk;
+ 22. a {"kernels": [...]} JSON line (the flash row's launches_by_path
+     gains "train", "train_loop" and "train_loop_resumed"), then the
+     nvidia-smi name/power line, then the result line {"ok": true,
+     "device": {...}}.
 
 Any failure exits non-zero without the result line. The script imports
 only the port (src/repro_torch) and needs the repository around it.
@@ -273,6 +290,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -445,6 +463,12 @@ TRAIN_LOSS_BAR = 0.9
 #: parameter's change in a step (normwise)
 TRAIN_CHECK_LAYERS, TRAIN_CHECK_B, TRAIN_CHECK_S = 6, 2, 64
 TRAIN_LOSS_ATOL, TRAIN_GRAD_NORMWISE, TRAIN_CHANGE_NORMWISE = 2e-2, 2.0 ** -5, 2.0 ** -4
+#: phase 21, the fault-tolerant loop: steps, checkpoint period, the step of
+#: the injected crash, the checkpoint directory (under build/, which git
+#: ignores) and the free disk it needs (two committed 12 GB train states)
+RESUME_STEPS, RESUME_EVERY, RESUME_CRASH = 12, 8, 10
+RESUME_DIR = ROOT / "build" / "phase21_ckpt"
+RESUME_DISK_BYTES = 24e9
 
 
 class SmokeFailure(RuntimeError):
@@ -1277,9 +1301,7 @@ def card_against_cpu(wk):
     CPU's last hidden state. Run freely, the two runs drift apart further:
     the residual stream is bf16, so an fp32 difference in the last bit
     (another summation order) can round a bf16 value the other way, and the
-    next layer carries that on. That drift is printed beside the CPU run's
-    own drift between one thread and all of them (another summation order
-    on the same machine)."""
+    next layer carries that on. That drift is printed."""
     import dataclasses
 
     import numpy as np
@@ -1308,10 +1330,6 @@ def card_against_cpu(wk):
     free = forced_run(gpu, prompt, forced)
     calls = []
     ref = forced_run(cpu, prompt, forced, calls)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    one_thread = forced_run(cpu, prompt, forced)
-    torch.set_num_threads(threads)
 
     # every layer of every call, on the CPU run's inputs
     worst_wkv = worst_lg = 0.0
@@ -1333,16 +1351,13 @@ def card_against_cpu(wk):
     want_launches = 2 * CHECK_LAYERS * (1 + CHECK_STEPS)
     fail_if(launches != want_launches, f"check: {launches} WKV launches, expected {want_launches}")
     free_lg, free_wkv = drift(free, ref)
-    cpu_lg, cpu_wkv = drift(one_thread, ref)
     print(f"[check] rwkv6-3b full width cut to {CHECK_LAYERS} layers, card vs the port's CPU run "
           f"({secs:.1f}s): {CHECK_B} x {CHECK_PROMPT} prefill + {CHECK_STEPS} forced decode "
           f"steps; each layer on the CPU run's inputs: worst |wkv| difference {worst_wkv:.3g} "
           f"(limit 1e-3 + 1e-3 |x|), output head worst |logits| difference {worst_lg:.3g} "
           f"(limit 2e-2); WKV launches {launches}", flush=True)
     print(f"[check] free-running drift: card vs CPU worst |logits| {free_lg:.3g}, |wkv| by layer "
-          f"{[float(f'{x:.3g}') for x in free_wkv]}; CPU 1 thread vs {threads} threads worst "
-          f"|logits| {cpu_lg:.3g}, |wkv| by layer {[float(f'{x:.3g}') for x in cpu_wkv]}",
-          flush=True)
+          f"{[float(f'{x:.3g}') for x in free_wkv]}", flush=True)
     fail_if(not worst_lg <= 2e-2, f"check: logits differ by {worst_lg:.3g}")
     return launches
 
@@ -1353,8 +1368,7 @@ def hybrid_card_against_cpu(rg, fa):
     phase 8, every block call of the CPU's prefill and forced decode steps
     is replayed on the card's block on the CPU's inputs (state, caches and
     block output held to the CPU's), and the card's output head is given
-    the CPU's last hidden state; the free-running drift is printed beside
-    the CPU run's own drift between one thread and all of them. The card's
+    the CPU's last hidden state; the free-running drift is printed. The card's
     run makes exactly one flash launch (the L layer's prefill, on the
     tensor cores). Returns the RG-LRU and the flash launch counts of the
     phase."""
@@ -1399,11 +1413,6 @@ def hybrid_card_against_cpu(rg, fa):
     calls = []
     ref = forced_run(cpu, prompt, forced, calls)
     cpu_s = time.perf_counter() - t0
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    one_thread = forced_run(cpu, prompt, forced)
-    torch.set_num_threads(threads)
-    one_s = time.perf_counter() - t0 - cpu_s
 
     # every layer of every call, on the CPU run's inputs
     tol = {"h": 1e-3, "conv": 1e-3, "k": 1e-2, "v": 1e-2}
@@ -1447,10 +1456,9 @@ def hybrid_card_against_cpu(rg, fa):
     fail_if(flash != 2 * n_att, f"hybrid check: {flash} flash launches, expected {2 * n_att} (the "
             "card's prefill and the replay of its layers)")
     free_lg, free_st = drift(free, ref)
-    cpu_lg, cpu_st = drift(one_thread, ref)
     print(f"[hybrid-check] recurrentgemma-9b full width cut to {HYB_CHECK_LAYERS} layers "
           f"({cfg.layer_types()}), card vs the port's CPU run ({secs:.1f}s; card and CPU runs "
-          f"{cpu_s:.1f}s, 1-thread CPU run {one_s:.1f}s): {CHECK_B} x "
+          f"{cpu_s:.1f}s): {CHECK_B} x "
           f"{CHECK_PROMPT} prefill + {CHECK_STEPS} forced decode steps; each layer on the CPU "
           f"run's inputs: worst differences h {worst['h']:.3g}, conv {worst['conv']:.3g} (limit "
           f"1e-3 + 1e-3 |x|), k {worst['k']:.3g}, v {worst['v']:.3g} (limit 1e-2 + 1e-2 |x|), "
@@ -1460,9 +1468,7 @@ def hybrid_card_against_cpu(rg, fa):
           f"launches {flash} ({card_flash[0]} in the card's prefill, none in its decode steps)",
           flush=True)
     print(f"[hybrid-check] free-running drift: card vs CPU worst |logits| {free_lg:.3g}, worst "
-          f"state difference by layer {[float(f'{x:.3g}') for x in free_st]}; CPU 1 thread vs "
-          f"{threads} threads worst |logits| {cpu_lg:.3g}, by layer "
-          f"{[float(f'{x:.3g}') for x in cpu_st]}", flush=True)
+          f"state difference by layer {[float(f'{x:.3g}') for x in free_st]}", flush=True)
     fail_if(not worst_lg <= 2e-2, f"hybrid check: logits differ by {worst_lg:.3g}")
     del gpu, cpu
     torch.cuda.empty_cache()
@@ -1531,11 +1537,6 @@ def dense_card_against_cpu(fa):
     calls = []
     ref = forced_run(cpu, prompt, forced, calls)
     cpu_s = time.perf_counter() - t0
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    one_thread = forced_run(cpu, prompt, forced)
-    torch.set_num_threads(threads)
-    one_s = time.perf_counter() - t0 - cpu_s
 
     # every layer of every call, on the CPU run's inputs
     worst = {"k": 0.0, "v": 0.0, "out": 0.0}
@@ -1567,10 +1568,9 @@ def dense_card_against_cpu(fa):
             "card's prefill and the replay of its layers)")
     free_lg, free_kv = drift(free, ref)
     plain_lg, plain_kv = drift(free_plain, ref)
-    cpu_lg, cpu_kv = drift(one_thread, ref)
     print(f"[dense-check] gemma3-1b full width cut to {DENSE_CHECK_LAYERS} layers "
           f"({''.join(cfg.layer_types())}), card vs the port's CPU run ({secs:.1f}s; card and CPU "
-          f"runs {cpu_s:.1f}s, 1-thread CPU run {one_s:.1f}s): {DENSE_CHECK_B} x "
+          f"runs {cpu_s:.1f}s): {DENSE_CHECK_B} x "
           f"{DENSE_CHECK_PROMPT} prefill + {CHECK_STEPS} forced decode steps; each layer on the "
           f"CPU run's inputs: worst differences k {worst['k']:.3g}, v {worst['v']:.3g} bf16 ulps "
           f"of their largest magnitude (limit 1), block output {worst['out']:.3g} (limit 2); "
@@ -1580,9 +1580,7 @@ def dense_card_against_cpu(fa):
     print(f"[dense-check] free-running drift: card vs CPU worst |logits| {free_lg:.3g}, worst k / v "
           f"difference by layer {[float(f'{x:.3g}') for x in free_kv]}; card with the plain "
           f"attention in place of the kernel vs CPU worst |logits| {plain_lg:.3g}, by layer "
-          f"{[float(f'{x:.3g}') for x in plain_kv]}; CPU 1 thread vs "
-          f"{threads} threads worst |logits| {cpu_lg:.3g}, by layer "
-          f"{[float(f'{x:.3g}') for x in cpu_kv]}", flush=True)
+          f"{[float(f'{x:.3g}') for x in plain_kv]}", flush=True)
     fail_if(not worst_lg <= 2e-2, f"dense check: logits differ by {worst_lg:.3g}")
     del gpu, cpu
     torch.cuda.empty_cache()
@@ -2355,6 +2353,234 @@ def train_card_against_cpu(fa, rg, wk):
     del gpu, cpu, states, steps
     torch.cuda.empty_cache()
     return card[0]
+
+
+class RssPeak:
+    """The process's peak resident memory while it runs, sampled from
+    /proc/self/statm every 20 ms on a thread of its own (the kernel's
+    high-water mark covers the whole process's life)."""
+
+    def __init__(self):
+        self.peak = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    @staticmethod
+    def sample() -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def _run(self):
+        while not self._stop.is_set():
+            self.peak = max(self.peak, self.sample())
+            self._stop.wait(0.02)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self.sample())
+
+
+def train_resume_full_width(fa, rg, wk):
+    """Phase 21: gemma3-1b's fault-tolerant training loop at full width and
+    depth. A straight run of RESUME_STEPS steps through ``train.loop.train``;
+    then ``train_with_restarts`` (one failure allowed) around a fresh
+    model's run of RESUME_STEPS with an asynchronous checkpoint every
+    RESUME_EVERY steps in RESUME_DIR: its first attempt crashes at step
+    RESUME_CRASH, its second restores and finishes. Each run takes a
+    ``Prefetcher`` of phase 19's batches and TRAIN_OPT; the launch counts
+    are set to 0 before each run and after each step's metrics are read.
+    Gates: 2 attempts; after the crash only the step-RESUME_EVERY
+    checkpoint committed, a file a leaf and the state's bytes; the final
+    state and the resumed steps' losses bit for bit the straight run's; one
+    tensor-core flash launch a layer in every step; peak device memory.
+    Returns the flash launches of the straight and the supervised runs."""
+    import resource
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import Prefetcher
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.distributed.fault import RestartPolicy
+    from repro_torch.models.model import build_model, is_param_leaf, tree_leaves
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import LoopConfig, train, train_with_restarts
+    from repro_torch.train.train_step import StepConfig
+
+    t_start = time.perf_counter()
+    smi = nvidia_smi_line()
+    d = RESUME_DIR
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    steps, reports, attempts, prefetchers, models = [], [], [], [], []
+
+    def on_metrics(run):
+        def record(step, entry):
+            steps.append((run, step, counts(fa, rg, wk), time.monotonic(), entry))
+            zero_counts(fa, rg, wk)
+        return record
+
+    def batches():
+        prefetchers.append(Prefetcher(data.batches()))
+        return prefetchers[-1]
+
+    def fresh_model():
+        gc.collect()
+        torch.cuda.empty_cache()
+        return build_model("gemma3-1b", device="cuda")
+
+    def run_once(batch_iter):
+        n = len(attempts) + 1
+        models.clear()  # the crashed attempt's model goes before the next is built
+        models.append(fresh_model())
+        committed = {p.name: sorted(os.listdir(p)) for p in sorted(d.iterdir())}
+        sizes = sum(f.stat().st_size for p in d.iterdir() for f in p.iterdir()
+                    if f.name != "index.json")
+        attempts.append({"committed": committed, "leaf_bytes": sizes})
+        zero_counts(fa, rg, wk)
+        try:
+            result = train(models[-1], step_cfg, batch_iter, LoopConfig(
+                total_steps=RESUME_STEPS, ckpt_every=RESUME_EVERY, ckpt_dir=str(d),
+                async_ckpt=True, log_every=1), crash_at=RESUME_CRASH if n == 1 else None,
+                on_metrics=on_metrics(f"attempt{n}"), on_checkpoint=reports.append)
+        except RuntimeError:
+            steps.append((f"attempt{n}", "crash", counts(fa, rg, wk), time.monotonic(), None))
+            raise
+        finally:
+            prefetchers[-1].close()
+        return result
+
+    try:
+        free = shutil.disk_usage(d).free
+        fail_if(free < RESUME_DISK_BYTES,
+                f"resume: {free / 1e9:.1f} GB free at {d}; the phase needs "
+                f"{RESUME_DISK_BYTES / 1e9:.0f} GB (two committed gemma3-1b train states)")
+        data = SyntheticLM(get_config("gemma3-1b"),
+                           DataConfig(global_batch=TRAIN_B, seq_len=TRAIN_S))
+        step_cfg = StepConfig(optimizer=AdamWConfig(**TRAIN_OPT))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with RssPeak() as rss:
+            straight_model = fresh_model()
+            zero_counts(fa, rg, wk)
+            t0 = time.perf_counter()
+            straight = train(straight_model, step_cfg, batches(),
+                             LoopConfig(total_steps=RESUME_STEPS, ckpt_dir=None, log_every=1),
+                             on_metrics=on_metrics("straight"))
+            prefetchers[-1].close()
+            straight_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            resumed = train_with_restarts(batches, run_once, RestartPolicy(max_failures=1))
+            supervised_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+    # ---- gates ----
+    layers = straight_model.cfg.num_layers
+    model = models[-1]
+    n_leaves = 3 * len(tree_leaves(model.param_tree(), is_param_leaf)) + 2
+    n_params = sum(p.numel() for p in model.parameters())
+    state_bytes = 3 * 4 * n_params + 2 * 4 + n_leaves * 128  # fp32 / int32, npy headers
+    fail_if(len(attempts) != 2, f"resume: {len(attempts)} attempts, expected 2")
+    after_crash = attempts[1]["committed"]
+    want_dir = f"step_{RESUME_EVERY:08d}"
+    fail_if(list(after_crash) != [want_dir] or len(after_crash[want_dir]) != n_leaves + 1
+            or "index.json" not in after_crash[want_dir]
+            or attempts[1]["leaf_bytes"] != state_bytes,
+            f"resume: after the crash the checkpoint directory held {after_crash} "
+            f"({attempts[1]['leaf_bytes']:,} bytes of leaves), expected only {want_dir} with "
+            f"{n_leaves} leaf files ({state_bytes:,} bytes) and index.json")
+    runs = {}
+    for run, step, got, _, _ in steps:
+        runs.setdefault(run, []).append(step)
+        fail_if(got != (layers, layers, 0),
+                f"resume: {run} step {step}: launches (flash, tensor cores, scans) {got}, "
+                f"expected ({layers}, {layers}, 0)")
+    want_steps = {"straight": list(range(1, RESUME_STEPS + 1)),
+                  "attempt1": list(range(1, RESUME_CRASH)) + ["crash"],
+                  "attempt2": list(range(RESUME_EVERY + 1, RESUME_STEPS + 1))}
+    fail_if(runs != want_steps, f"resume: steps by run {runs}, expected {want_steps}")
+    losses = {run: [e["loss"] for r, _, _, _, e in steps if r == run and e]
+              for run in ("straight", "attempt2")}
+    resumed_losses = losses["straight"][RESUME_EVERY:]
+    bad_losses = [(RESUME_EVERY + 1 + i, a, b) for i, (a, b) in
+                  enumerate(zip(resumed_losses, losses["attempt2"])) if a != b]
+    a_state, b_state = straight["state"], resumed["state"]
+    leaves = {("params", n): (p, dict(model.named_parameters())[n])
+              for n, p in straight_model.named_parameters()}
+    for part in ("m", "v"):
+        leaves.update({(part, n): (t, b_state["opt"][part][n])
+                       for n, t in a_state["opt"][part].items()})
+    leaves["count"] = (a_state["opt"]["count"], b_state["opt"]["count"])
+    leaves["step"] = (a_state["step"], b_state["step"])
+    differ = [k for k, (a, b) in leaves.items()
+              if not (a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b))]
+    n_elems = sum(a.numel() for a, _ in leaves.values())
+    print(f"[resume] gemma3-1b full width and depth, {layers} layers, {n_params:,} parameters; "
+          f"straight: {RESUME_STEPS} steps in {straight_s:.1f}s; supervised: {len(attempts)} "
+          f"attempts in {supervised_s:.1f}s (crash at step {RESUME_CRASH} after the asynchronous "
+          f"save of step {RESUME_EVERY}; then {want_dir} alone committed, {n_leaves} leaf files, "
+          f"{attempts[1]['leaf_bytes']:,} bytes); resumed at step {RESUME_EVERY}: the final state "
+          f"against the straight run's, {len(leaves)} leaves ({n_elems:,} values): "
+          f"{len(differ)} differ; the losses of steps {RESUME_EVERY + 1}-{RESUME_STEPS}: "
+          f"{' '.join(f'{x:.6f}' for x in losses['attempt2'])} ({len(bad_losses)} differ); "
+          f"flash launches {layers} in each of the {len(steps)} steps, all on the tensor cores",
+          flush=True)
+
+    # ---- readings ----
+    saves = [r for r in reports if r.kind == "save"]
+    (restore,) = [r for r in reports if r.kind == "restore"]
+    for r in saves:
+        e = r.engine
+        chunks = "; ".join(f"{name} {n} files {b / 1e9:.3f} GB (pp, p, cc) {params}"
+                           for name, n, b, params in r.chunks)
+        print(f"[resume] save of step {r.step} "
+              f"({'asynchronous' if r.snapshot_s else 'synchronous, at the end'}): snapshot to "
+              f"the host {r.snapshot_s:.2f}s on the loop thread; the save {r.seconds:.2f}s "
+              f"(the leaves to the host and serialized {r.serialize_s:.2f}s, the engine "
+              f"{e.total_time:.2f}s) for {r.files} files, {r.bytes:,} bytes, the engine "
+              f"{e.throughput / 1e9:.3f} GB/s ({e.scheduler}, {e.n_moves} moves); chunks: "
+              f"{chunks} | {smi}", flush=True)
+    print(f"[resume] restore of step {restore.step}: {restore.seconds:.2f}s for {restore.files} "
+          f"files, {restore.bytes:,} bytes, {restore.bytes / restore.seconds / 1e9:.3f} GB/s "
+          f"(warm: the files were just written) | {smi}", flush=True)
+    (async_save,) = [r for r in saves if r.snapshot_s]
+    overlap, alone = [], []
+    for run, step, _, t_end, entry in steps:
+        if entry is None or step == 1 or (run == "attempt2" and step == RESUME_EVERY + 1):
+            continue  # the crashed step has no metrics; a run's first step warms up
+        dt = entry["time_s"]
+        # a step after the saved one that starts before the save has ended
+        # (the metrics of the saved step are read after its snapshot)
+        hit = run == "attempt1" and step > async_save.step and t_end - dt < async_save.end
+        (overlap if hit else alone).append(dt)
+    print(f"[resume] step time: median {np.median(alone) * 1e3:.1f} ms over the {len(alone)} "
+          f"steps without a save beside them (each run's first left out), "
+          f"{np.median(overlap) * 1e3 if overlap else math.nan:.1f} ms over the {len(overlap)} "
+          f"that overlap the asynchronous save "
+          f"({', '.join(f'{x * 1e3:.1f}' for x in overlap)} ms) | {smi}", flush=True)
+    print(f"[resume] host peak RSS {rss.peak / 1e9:.2f} GB in the phase (the process's "
+          f"high-water mark {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9:.2f}"
+          f" GB); free disk at the checkpoint directory {free / 1e9:.1f} GB; peak device memory "
+          f"{peak / 1e9:.2f} GB; the phase {time.perf_counter() - t_start:.1f}s", flush=True)
+    fail_if(bool(differ), f"resume: the resumed state differs from the straight run's in "
+            f"{len(differ)} leaves: {differ[:8]}")
+    fail_if(bool(bad_losses), f"resume: resumed losses differ (step, straight, resumed): "
+            f"{bad_losses}")
+    fail_if(not peak < CARD_BYTES, f"resume: peak device memory {peak / 1e9:.2f} GB")
+    launches = {run: sum(got[0] for r, _, got, _, _ in steps if r.startswith(run))
+                for run in ("straight", "attempt")}
+    del straight, resumed, straight_model, model, models, leaves, a_state, b_state
+    torch.cuda.empty_cache()
+    return launches["straight"], launches["attempt"]
 
 
 #: step caps of phase 3's loop-kernel checks on the live default-grid state
@@ -4181,6 +4407,12 @@ def main(argv) -> int:
         # ---- 20. one train step, the card against the port's CPU run ----
         by_path["flash_attention_sm90"]["train_card_vs_cpu"] = train_card_against_cpu(fa, rg, wk)
         elapsed("19-20 (training)")
+
+        # ---- 21. the fault-tolerant loop: a crash, a restore, a bit-exact resume ----
+        (by_path["flash_attention_sm90"]["train_loop"],
+         by_path["flash_attention_sm90"]["train_loop_resumed"]) = train_resume_full_width(
+            fa, rg, wk)
+        elapsed("21 (the training loop)")
         # the main path's count: the serving and training runs, not the
         # card-against-CPU checks
         launches["flash_attention_sm90"] = sum(
@@ -4190,7 +4422,7 @@ def main(argv) -> int:
         # CUDA-core kernel
         launches["flash_attention"] = sum(by_path["flash_attention"].values())
 
-    # ---- 21. summary lines ----
+    # ---- 22. summary lines ----
     kernels = []
     for name, src, replaces, pick, shape in (
         ("waterfill", "src/repro_torch/eval/fabric/csrc/waterfill.cu",

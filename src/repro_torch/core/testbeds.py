@@ -1,6 +1,8 @@
 """Network presets of the scenario matrices: the paper's WAN testbeds
 (Tables 1-2), their impaired-path variants (loss / jitter / asymmetric
-control RTT) and the time-varying-capacity variants."""
+control RTT), the time-varying-capacity variants, and two accelerator-fabric
+presets: the pod-pair network (``DCN``) and the checkpoint store
+(``CKPT_STORE``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -180,6 +182,47 @@ RAMPY_EVENING = impaired_variant(
     bandwidth_ramp=(8.0, 88.0, 0.4, 8),
 )
 
+# ---------------------------------------------------------------------------
+# Accelerator-fabric presets
+# ---------------------------------------------------------------------------
+
+#: cross-pod data-center network, as one pod's gradient-sync engine sees it:
+#: "files" are gradient buckets, the channel window is the staging buffer
+DCN = NetworkSpec(
+    name="tpu-dcn-pod-pair",
+    bandwidth=25e9,  # 25 GB/s aggregate per pod pair
+    rtt=500e-6,
+    buffer_size=4 * MB,  # per-channel in-flight window (staging buffer)
+    disk=DiskSpec(
+        streaming_rate=700e9,  # device-side staging, far from binding
+        per_file_overhead=20e-6,
+        saturation_cc=64,
+        contention=0.001,
+        per_channel_rate=80e9,
+    ),
+    unhidden_overhead=50e-6,  # per-bucket collective launch overhead
+    channel_setup_cost=5e-3,  # collective-group re-materialization
+    window_efficiency=1.0,  # lossless fabric: no TCP dynamics
+)
+
+#: host <-> distributed checkpoint storage path (``checkpoint.ckpt``'s and
+#: ``data.pipeline.ingest_files``'s default)
+CKPT_STORE = NetworkSpec(
+    name="ckpt-object-store",
+    bandwidth=10e9,  # 10 GB/s per host aggregate
+    rtt=2e-3,
+    buffer_size=8 * MB,
+    disk=DiskSpec(
+        streaming_rate=8e9,
+        per_file_overhead=0.002,
+        saturation_cc=16,
+        contention=0.01,
+        per_channel_rate=1.2e9,
+    ),
+    unhidden_overhead=1e-3,
+    window_efficiency=0.9,
+)
+
 TESTBEDS = {
     t.name: t
     for t in (
@@ -194,5 +237,7 @@ TESTBEDS = {
         ASYM_CONTROL_PATH,
         STEPPY_BACKBONE,
         RAMPY_EVENING,
+        DCN,
+        CKPT_STORE,
     )
 }

@@ -5,7 +5,9 @@ The train state is ``{"params": {name: the model's nn.Parameter}, "opt":
 {"m", "v", "count"}, "step": int32 0-d}``: the parameters are the model's
 own tensors, which :func:`repro_torch.optim.adamw.adamw_update` writes in
 place. Everything runs on the model's device: a batch of numpy arrays or
-tensors is moved there. Gradients pass the kernels through the
+tensors is moved there. :func:`state_tree` gives the state in the
+reference's layout (what a checkpoint holds), :func:`put_state_tree` puts
+such a tree back. Gradients pass the kernels through the
 ``torch.autograd.Function``s of :mod:`repro_torch.kernels.ops` (the
 kernels forward, their gradients in torch ops).
 """
@@ -14,8 +16,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.models.convert import put_tree
 from repro_torch.models.model import BaseLM
 from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
 
@@ -52,6 +56,51 @@ def train_state(model: BaseLM) -> Dict:
         p.requires_grad_(True)
     return {"params": params, "opt": init_opt_state(params),
             "step": torch.zeros((), dtype=torch.int32, device=model.device)}
+
+
+def state_tree(model: BaseLM, state: Dict) -> Dict:
+    """The train state in the reference's layout, the tree its
+    ``init_train_state`` gives and its checkpoints hold: ``{"params":
+    model.param_tree(), "opt": {"m", "v": the same layout, "count"},
+    "step"}``. A stacked leaf is the list of the per-layer tensors (see
+    :mod:`repro_torch.checkpoint.ckpt`); the tensors are the state's own,
+    not copies."""
+    params = model.param_tree()
+    names = {id(p): n for n, p in model.named_parameters()}
+
+    def like(values: Dict[str, torch.Tensor]):
+        def sub(node):
+            if isinstance(node, torch.Tensor):
+                return values[names[id(node)]]
+            if isinstance(node, dict):
+                return {k: sub(v) for k, v in node.items()}
+            return [sub(v) for v in node]
+        return sub(params)
+
+    opt = state["opt"]
+    return {"params": params,
+            "opt": {"m": like(opt["m"]), "v": like(opt["v"]), "count": opt["count"]},
+            "step": state["step"]}
+
+
+def put_state_tree(model: BaseLM, state: Dict, tree: Mapping) -> Dict:
+    """The inverse of :func:`state_tree` (the reference's ``_tree_put``):
+    write a tree in the reference's layout (numpy arrays, a restored
+    checkpoint's) into ``state`` in place, each leaf in the dtype of the
+    tensor it replaces: the model's parameters (names and shapes checked,
+    as ``params_from_jax`` does), the AdamW moments, ``count`` and
+    ``step``. Returns ``state``."""
+    template = state_tree(model, state)
+    put_tree(model, tree["params"], template["params"])
+    for part in ("m", "v"):
+        put_tree(model, tree["opt"][part], template["opt"][part])
+    with torch.no_grad():
+        for t, value in ((state["opt"]["count"], tree["opt"]["count"]),
+                         (state["step"], tree["step"])):
+            if np.shape(value) != tuple(t.shape):
+                raise ValueError(f"a counter of shape {np.shape(value)}, expected {tuple(t.shape)}")
+            t.copy_(torch.as_tensor(np.asarray(value)))
+    return state
 
 
 def init_train_state(model: BaseLM, generator: Optional[torch.Generator] = None) -> Dict:

@@ -1063,3 +1063,70 @@ def test_dense_train_step_on_the_card(cuda):
     for name, gr in grads.items():
         assert bool(torch.isfinite(gr).all()) and bool(gr.any()), name
         assert _normwise(gr.cpu(), want[name]) <= 2.0 ** -5, name
+
+
+def _card_states_equal(model_a, state_a, model_b, state_b):
+    from repro_torch.train.train_step import state_tree
+
+    def leaves(model, state):
+        tree = state_tree(model, state)
+        out = {("params", n): p for n, p in model.named_parameters()}
+        for part in ("m", "v"):
+            out.update({(part, n): t for n, t in state["opt"][part].items()})
+        out["count"], out["step"] = tree["opt"]["count"], tree["step"]
+        return out
+
+    a, b = leaves(model_a, state_a), leaves(model_b, state_b)
+    assert a.keys() == b.keys()
+    return [k for k in a if not (a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]))]
+
+
+def test_train_state_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """A smoke gemma3-1b's train state after two steps on the card, saved
+    from the card and restored into a fresh card model's state: every
+    parameter, moment, the count and the step bit for bit."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.train.train_step import (StepConfig, init_train_state, make_train_step,
+                                              put_state_tree, state_tree)
+
+    cfg = reduce_for_smoke(get_config("gemma3-1b"))
+    model = build_model(cfg, device=cuda)
+    state = init_train_state(model, torch.Generator(device=cuda).manual_seed(0))
+    step = make_train_step(model, StepConfig())
+    for batch in SyntheticLM(cfg, DataConfig(global_batch=2, seq_len=32)).batches(2):
+        state, _ = step(state, batch)
+    ckpt.save(state_tree(model, state), str(tmp_path), 2)
+    loaded, at = ckpt.restore(str(tmp_path))
+    fresh = build_model(cfg, device=cuda)
+    fresh_state = put_state_tree(fresh, init_train_state(
+        fresh, torch.Generator(device=cuda).manual_seed(1)), loaded)
+    assert at == 2 and int(fresh_state["step"]) == 2
+    assert all(p.device.type == cuda.type for p in fresh.parameters())
+    assert _card_states_equal(model, state, fresh, fresh_state) == []
+
+
+def test_crash_resume_on_the_card_bit_for_bit(cuda, tmp_path):
+    """A smoke gemma3-1b trained 6 steps on the card straight, and crashed
+    at step 4 then resumed from its step-3 checkpoint (asynchronous): the
+    final states bit for bit, and the resumed steps' losses."""
+    from repro_torch.data.pipeline import Prefetcher
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.train.loop import LoopConfig, train
+    from repro_torch.train.train_step import StepConfig
+
+    cfg = reduce_for_smoke(get_config("gemma3-1b"))
+    data = SyntheticLM(cfg, DataConfig(global_batch=2, seq_len=32))
+    lc = dict(total_steps=6, ckpt_every=3, async_ckpt=True, log_every=1)
+    straight_model = build_model(cfg, device=cuda)
+    straight = train(straight_model, StepConfig(), Prefetcher(data.batches()), LoopConfig(**lc))
+    with pytest.raises(RuntimeError, match="injected crash at step 4"):
+        train(build_model(cfg, device=cuda), StepConfig(), Prefetcher(data.batches()),
+              LoopConfig(ckpt_dir=str(tmp_path), **lc), crash_at=4)
+    model = build_model(cfg, device=cuda)
+    resumed = train(model, StepConfig(), Prefetcher(data.batches()),
+                    LoopConfig(ckpt_dir=str(tmp_path), **lc))
+    assert [h["step"] for h in resumed["history"]] == [4, 5, 6]
+    assert [h["loss"] for h in resumed["history"]] == [
+        h["loss"] for h in straight["history"][3:]]
+    assert _card_states_equal(straight_model, straight["state"], model, resumed["state"]) == []

@@ -382,6 +382,25 @@ def test_testbeds_channel_caps_and_param_triple_match_the_reference():
     assert param_triple([1, 2, 3]) == ref_param_triple([1, 2, 3]) == (1, 2, 3)
 
 
+@pytest.mark.parametrize("network", ["ckpt-object-store", "tpu-dcn-pod-pair"])
+@pytest.mark.parametrize("algorithm", ["sc", "mc", "promc"])
+def test_fabric_testbeds_resolve_in_a_scenario(network, algorithm):
+    """A scenario on the checkpoint store or the pod-pair network (a
+    ``KeyError`` before the port had them) builds and runs, and its event
+    simulation equals the reference's."""
+    from repro.eval.scenarios import Scenario as RefScenario
+    from repro.eval.scenarios import build_simulation as ref_build_simulation
+    from repro_torch.eval.scenarios import Scenario, build_simulation
+
+    kw = dict(network=network, dataset="mixed", algorithm=algorithm, max_cc=4)
+    ours = build_simulation(Scenario(**kw)).run()
+    theirs = ref_build_simulation(RefScenario(**kw)).run()
+    assert ours.network == theirs.network == network
+    assert (ours.n_events, ours.n_moves) == (theirs.n_events, theirs.n_moves)
+    assert ours.total_bytes == theirs.total_bytes > 0
+    assert ours.total_time == pytest.approx(theirs.total_time, rel=1e-12)
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_every_dataset_builds_the_reference_file_set(seed):
     from repro.eval.scenarios import DATASET_BUILDERS as REF_BUILDERS

@@ -57,6 +57,15 @@ TRAINING_MODULES = (
     "repro_torch.kernels.backward",
     "repro_torch.train.train_step",
 )
+#: modules of checkpointing and the training loop: the transfer engine,
+#: the checkpoint, the data pipeline, fault tolerance and the loop
+CHECKPOINT_MODULES = (
+    "repro_torch.core.engine",
+    "repro_torch.checkpoint.ckpt",
+    "repro_torch.data.pipeline",
+    "repro_torch.distributed.fault",
+    "repro_torch.train.loop",
+)
 
 
 def _port_sources():
@@ -75,6 +84,7 @@ def test_port_imports_with_jax_and_reference_blocked():
     assert set(SHARED_FABRIC_MODULES) <= names
     assert set(EXECUTOR_MODULES) <= names
     assert set(TRAINING_MODULES) <= names
+    assert set(CHECKPOINT_MODULES) <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
