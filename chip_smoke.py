@@ -159,9 +159,9 @@ Phases, each printing its own lines:
      collector ran (a host stall by collection shows there);
   6. profiled runs of the sweep: the default grid on the "rounds" and
      "kernel" routes, the full grid on "rounds", the tenant matrix on
-     "rounds", the full-grid oracle plane and successive halving: device
-     busy and idle share, device operations per host round, plan ingest,
-     the wall split;
+     "rounds" (the oracle plane's profiles are phase 5f's): device busy and
+     idle share, device operations per host round, plan ingest, the wall
+     split;
   7. the serving path: rwkv6-3b at full width (32 layers, fp32 weights
      from a seeded generator) serves 8 prompts of 512 tokens and 32 new
      greedy tokens through ``train.serve_step.generate``, with the WKV
@@ -178,10 +178,9 @@ Phases, each printing its own lines:
      launches exactly 26 x 32) and 1 prompt of 3,072 tokens with 8 new
      tokens (the 2,048-token window wraps the rolling cache; 26 x 8
      launches); each prefill attends through the tensor-core flash kernel
-     (exactly 12 launches a run, one a local-attention layer, decode none)
-     and is timed also with the plain attention it took before; prefill and
-     decode timed, each prefill and 4 decode steps profiled, peak device
-     memory under 80 GB;
+     (exactly 12 launches a run, one a local-attention layer, decode none);
+     prefill and decode timed, each prefill and 4 decode steps profiled,
+     peak device memory under 80 GB;
  10. recurrentgemma-9b cut to one period (R, R, L) at full width on the
      card against the port's CPU run, as phase 8: h / conv states within
      rtol = atol = 1e-3, bf16 k / v caches within 1e-2, positions exact,
@@ -199,8 +198,7 @@ Phases, each printing its own lines:
      4 forced decode steps, each layer on the CPU's inputs (k / v within
      one bf16 ulp of their largest magnitude, block outputs two, logits
      atol 2e-2), exactly 6 flash launches in the card's prefill; the
-     free-running drift printed beside that of a second card run with the
-     plain attention in place of the kernel;
+     free-running drift printed;
  13. the MoE serving path: deepseek-moe-16b at full width and depth (28
      layers of 64 routed experts, top 6, and 2 shared; 16,879,568,896 fp32
      parameters from a seeded generator, 2,830,747,648 active a token)
@@ -273,10 +271,29 @@ Phases, each printing its own lines:
      moves, the restore's seconds and rate, the steps that overlap the
      asynchronous save against those that do not, the host's peak RSS and
      the free disk;
- 22. a {"kernels": [...]} JSON line (the flash row's launches_by_path
-     gains "train", "train_loop" and "train_loop_resumed"), then the
-     nvidia-smi name/power line, then the result line {"ok": true,
-     "device": {...}}.
+ 22. gradient sync between ranks: 2 spawned ranks share the card
+     (``distributed.pods.init_pods``: gloo over CUDA tensors, a file://
+     store in a temporary directory under build/; started beside phase 21,
+     they wait there for the phase), each with gemma3-1b at
+     full width cut to 6 layers from the same seed, the global batch 8 x
+     512 (4 rows a rank); one train step each of naive, sc, mc, promc (no
+     compression), promc bf16 and promc int8 (``make_train_step(...,
+     group=...)``), each from the same state, the counts set to 0 just
+     before and read just after: exactly 6 tensor-core flash launches a
+     rank a step; sc / mc / promc parameters bit for bit naive's; the two
+     ranks' parameters the same bits; promc bf16 within 5e-3 max abs of
+     naive (the reference's limit). Printed: int8's distance, the first
+     gradient synced by the promc plan with bf16 or int8 forced on every
+     class against the whole batch's gradient on one rank (the ranks'
+     results the same bits, gated), the 2-rank naive step against one
+     rank's step of the whole batch (normwise), each
+     variant's step and sync seconds, wire bytes and collectives a rank,
+     each rank's peak device memory, ``simulate_sync`` on DCN for gemma3-1b
+     at full depth under sc / mc / promc with and without compression;
+ 23. a {"kernels": [...]} JSON line (the flash row's launches_by_path
+     gains "train", "train_loop", "train_loop_resumed" and "grad_sync"),
+     then the nvidia-smi name/power line, then the result line {"ok":
+     true, "device": {...}}.
 
 Any failure exits non-zero without the result line. The script imports
 only the port (src/repro_torch) and needs the repository around it.
@@ -469,6 +486,29 @@ TRAIN_LOSS_ATOL, TRAIN_GRAD_NORMWISE, TRAIN_CHANGE_NORMWISE = 2e-2, 2.0 ** -5, 2
 RESUME_STEPS, RESUME_EVERY, RESUME_CRASH = 12, 8, 10
 RESUME_DIR = ROOT / "build" / "phase21_ckpt"
 RESUME_DISK_BYTES = 24e9
+#: phase 22, gradient sync over ranks sharing the card: gemma3-1b at full
+#: width cut to SYNC_LAYERS, the global batch (rows, tokens), the ranks; the
+#: variants (StepConfig's sync options); the reference's limit on a
+#: compressed sync against naive's parameters; the codecs forced on every
+#: chunk class (the DCN's classes put every gemma3-1b leaf in Small, which
+#: the reference's tables keep fp32), each with its limit on the synced
+#: first gradient's distance (normwise) from the whole batch's gradient on
+#: one rank: bf16 rounds each rank's gradient (H100 reading 0.00245), int8
+#: quantizes an item to 127 levels of one scale (0.030); a rank's own
+#: gradient, unsynced, must lie beyond both, or the limits tell nothing
+SYNC_LAYERS, SYNC_B, SYNC_S, SYNC_RANKS = 6, 8, 512, 2
+SYNC_VARIANTS = {
+    "naive": dict(sync_algorithm="naive"),
+    "sc": dict(sync_algorithm="sc", compress=False),
+    "mc": dict(sync_algorithm="mc", compress=False),
+    "promc": dict(sync_algorithm="promc", compress=False),
+    "promc_bf16": dict(sync_algorithm="promc", compress=True, compress_codec="bf16"),
+    "promc_int8": dict(sync_algorithm="promc", compress=True, compress_codec="int8"),
+}
+SYNC_COMPRESSED_MAX_ABS = 5e-3
+SYNC_FORCED = {"bf16": 2.0 ** -7, "int8": 0.1}
+#: the longest a started rank waits for phase 22 (phase 21 takes ~60 s)
+SYNC_WAIT_S = 900
 
 
 class SmokeFailure(RuntimeError):
@@ -1074,34 +1114,6 @@ def serve_full_width(wk):
     return launches
 
 
-def plain_attention(q, k, v, *, causal=True, window=None, logit_softcap=0.0):
-    """The model-layout attention the port's prefills took before they went
-    through the flash kernel: ``L.attend`` with queries and keys at
-    positions 0..S-1 (one dense pass, query-chunked above 2,048 queries)."""
-    import torch
-
-    from repro_torch.models import layers as L
-
-    pos = torch.arange(q.shape[1], device=q.device)
-    return L.attend(q, k, v, pos, pos, causal=causal, window=window,
-                    logit_softcap=logit_softcap)
-
-
-@contextlib.contextmanager
-def attention_swapped(fn):
-    """Within the block, every model attends with ``fn`` in place of the
-    flash kernel's wrapper ``ops.flash_attention`` (a diagnostic, not a route
-    of the port)."""
-    from repro_torch.kernels import ops
-
-    kernel = ops.flash_attention
-    ops.flash_attention = fn
-    try:
-        yield
-    finally:
-        ops.flash_attention = kernel
-
-
 def serve_hybrid(rg, wk, fa):
     """Phase 9: recurrentgemma-9b at full width and depth through
     ``generate``. Returns ({run: RG-LRU launches of its generate}, {run:
@@ -1174,21 +1186,6 @@ def serve_hybrid(rg, wk, fa):
             for key, v in state.items():
                 fail_if(key != "pos" and not bool(torch.isfinite(v.float()).all()),
                         f"{run}: non-finite {name}.{key} state")
-        # the prefill as it was before it went through the flash kernel (the
-        # plain attention), between two more runs through the kernel
-        timed = {"kernel": [prefill_s], "plain": []}
-        for how in ("plain", "kernel"):
-            with contextlib.ExitStack() as stack:
-                if how == "plain":
-                    stack.enter_context(attention_swapped(plain_attention))
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                lg, _ = prefill({"tokens": prompt}, model.init_cache(b, s_len + new))
-                torch.cuda.synchronize()
-                timed[how].append(time.perf_counter() - t0)
-            if how == "plain":
-                plain_diff = (lg.float() - logits.float()).abs().max().item()
-            del lg
         written = cache["periods"]["l2"]["pos"]
         want_pos = min(s_len + new - 1, cfg.window_size)
         fail_if(int((written >= 0).sum(dim=-1).min()) != want_pos,
@@ -1201,10 +1198,6 @@ def serve_hybrid(rg, wk, fa):
               f"tokens/s); decode {steps} steps in {decode_s * 1e3:.1f} ms "
               f"({decode_s / steps * 1e3:.2f} ms a step, {b * steps / decode_s:.1f} tokens/s)",
               flush=True)
-        print(f"[hybrid] {b} x {s_len} prefill, attention through the flash kernel: "
-              f"{', '.join(f'{x * 1e3:.1f}' for x in timed['kernel'])} ms; through the plain "
-              f"attention (the path before the kernel): {timed['plain'][0] * 1e3:.1f} ms; "
-              f"worst |logits| difference between the two {plain_diff:.3g}", flush=True)
         # where the time goes: one prefill (and 4 decode steps) under the profiler
         cache0 = model.init_cache(b, s_len + new)
         print(f"[hybrid] profiled prefill {b} x {s_len}: "
@@ -1491,17 +1484,14 @@ def dense_card_against_cpu(fa):
     within one bf16 ulp of their largest magnitude, block outputs within
     two (both held normwise: rope and the residual sum cancel, so a one-ulp
     flip of an input can exceed an ulp of a small output), logits atol
-    2e-2. The free-running card run is made a second time with the plain
-    attention in place of the kernel (a diagnostic: which of the two
-    carries the card's drift from the CPU). Returns the flash launch count
-    of the phase."""
+    2e-2. The free-running card run's drift from the CPU is printed.
+    Returns the flash launch count of the phase."""
     import dataclasses
 
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.ref import flash_attention_ref
     from repro_torch.models.model import build_model
 
     cfg = dataclasses.replace(get_config("gemma3-1b"), num_layers=DENSE_CHECK_LAYERS)
@@ -1529,11 +1519,6 @@ def dense_card_against_cpu(fa):
             f"({fa.flash_attention.tc_launches} on the tensor cores), expected "
             f"{DENSE_CHECK_LAYERS} (one a layer in the prefill, none in decode), all on the "
             "tensor cores")
-    with attention_swapped(lambda q, k, v, **kw: flash_attention_ref(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kw).transpose(1, 2)):
-        free_plain = forced_run(gpu, prompt, forced)
-    fail_if(fa.flash_attention.launches != card_launches,
-            "dense check: the run with the plain attention launched the kernel")
     calls = []
     ref = forced_run(cpu, prompt, forced, calls)
     cpu_s = time.perf_counter() - t0
@@ -1567,7 +1552,6 @@ def dense_card_against_cpu(fa):
             f"dense check: {launches} flash launches, expected {2 * DENSE_CHECK_LAYERS} (the "
             "card's prefill and the replay of its layers)")
     free_lg, free_kv = drift(free, ref)
-    plain_lg, plain_kv = drift(free_plain, ref)
     print(f"[dense-check] gemma3-1b full width cut to {DENSE_CHECK_LAYERS} layers "
           f"({''.join(cfg.layer_types())}), card vs the port's CPU run ({secs:.1f}s; card and CPU "
           f"runs {cpu_s:.1f}s): {DENSE_CHECK_B} x "
@@ -1578,9 +1562,7 @@ def dense_card_against_cpu(fa):
           f"{launches} ({card_launches} in the card's prefill, none in its decode steps, "
           f"{DENSE_CHECK_LAYERS} in the replay)", flush=True)
     print(f"[dense-check] free-running drift: card vs CPU worst |logits| {free_lg:.3g}, worst k / v "
-          f"difference by layer {[float(f'{x:.3g}') for x in free_kv]}; card with the plain "
-          f"attention in place of the kernel vs CPU worst |logits| {plain_lg:.3g}, by layer "
-          f"{[float(f'{x:.3g}') for x in plain_kv]}", flush=True)
+          f"difference by layer {[float(f'{x:.3g}') for x in free_kv]}", flush=True)
     fail_if(not worst_lg <= 2e-2, f"dense check: logits differ by {worst_lg:.3g}")
     del gpu, cpu
     torch.cuda.empty_cache()
@@ -2581,6 +2563,328 @@ def train_resume_full_width(fa, rg, wk):
     del straight, resumed, straight_model, model, models, leaves, a_state, b_state
     torch.cuda.empty_cache()
     return launches["straight"], launches["attempt"]
+
+
+def bit_fingerprint(tensors) -> list:
+    """Two int64 sums a 16 M-element block of each tensor's fp32 bits (as
+    int32), one of them position-weighted (weights 1..65,521): equal bits
+    give equal lists, and a flipped bit changes both sums of its block."""
+    import torch
+
+    out = []
+    for t in tensors:
+        bits = t.detach().reshape(-1).view(torch.int32)
+        for lo in range(0, bits.numel(), 1 << 24):
+            b = bits[lo:lo + (1 << 24)].to(torch.int64)
+            w = torch.arange(lo, lo + b.numel(), device=b.device, dtype=torch.int64) % 65521 + 1
+            out += [int(b.sum()), int((b * w).sum())]
+    return out
+
+
+def sync_rank(rank, out_dir):
+    """Phase 22's rank ``rank`` of SYNC_RANKS (a spawned process, started
+    ahead by ``start_sync_ranks``): joins the group through a ``file://``
+    store in ``out_dir`` (``init_pods`` on the card: the ranks share it, so
+    gloo over CUDA tensors) and makes its context on the card, waits for
+    the file ``go`` there (SYNC_WAIT_S at most), then builds gemma3-1b at
+    full width cut to
+    SYNC_LAYERS from seed 0, then one train step of each SYNC_VARIANTS
+    entry from that state on the global batch (its rows of the rank), the
+    launch counts set to 0 just before and read just after. Then rank 0
+    alone takes the whole batch's gradient and one step from the same
+    state (the other rank frees its memory meanwhile), and both sync their
+    first gradient by the promc plan with each SYNC_FORCED codec on every
+    class; rank 0 holds each result, and its own gradient unsynced (the
+    limits' control), to the whole batch's gradient. Writes its readings
+    as JSON to ``out_dir``."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
+    from repro_torch.core.types import ChunkType
+    from repro_torch.data.synthetic import DataConfig, SyntheticLM
+    from repro_torch.distributed import grad_sync
+    from repro_torch.distributed.pods import close_pods, init_pods, local_rows
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import build_model, leaf_paths
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import (StepConfig, loss_and_grads, make_train_step,
+                                              to_device_batch, train_state, tree_of)
+
+    pods = init_pods(rank, SYNC_RANKS, init_method=f"file://{os.path.join(out_dir, 'store')}")
+    out = {"rank": rank, "backend": pods.backend, "device": str(pods.device),
+           "variants": {}, "forced": {}}
+    try:
+        dev = pods.device
+        torch.zeros(1, device=dev)  # the context on the card, before the wait
+        waited = time.perf_counter()
+        while not os.path.exists(os.path.join(out_dir, "go")):
+            if time.perf_counter() - waited > SYNC_WAIT_S:
+                raise TimeoutError(f"rank {rank}: no go after {SYNC_WAIT_S}s")
+            time.sleep(0.05)
+        t_start = time.perf_counter()
+        cfg = dataclasses.replace(get_config("gemma3-1b"), num_layers=SYNC_LAYERS)
+        model = build_model(cfg, device=dev)
+        names = sorted(n for n, _ in model.named_parameters())
+        batch = next(SyntheticLM(cfg, DataConfig(global_batch=SYNC_B, seq_len=SYNC_S)).batches(1))
+
+        def reset():
+            """The phase's start: seed 0's weights, zero moments, step 0."""
+            model.init(torch.Generator(device=dev).manual_seed(0))
+            return train_state(model)
+
+        def flat(tree):
+            return [t for _, leaf in leaf_paths(tree)
+                    for t in (leaf if isinstance(leaf, list) else [leaf])]
+
+        def from_whole(got):
+            """(normwise, max abs) distance of ``got`` from ``whole``."""
+            num = sum((g - r).double().pow(2).sum().item() for g, r in zip(got, whole))
+            den = sum(r.double().pow(2).sum().item() for r in whole)
+            return math.sqrt(num / den), max((g - r).abs().max().item()
+                                             for g, r in zip(got, whole))
+
+        out["setup_s"] = time.perf_counter() - t_start
+        naive = None
+        for name, kw in SYNC_VARIANTS.items():
+            state = reset()
+            step = make_train_step(model, StepConfig(optimizer=AdamWConfig(**TRAIN_OPT), **kw),
+                                   group=pods.group)
+            torch.cuda.synchronize(dev)
+            dist.barrier()
+            fa.flash_attention.launches = fa.flash_attention.tc_launches = 0
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize(dev)
+            secs = time.perf_counter() - t0
+            launches = (fa.flash_attention.launches, fa.flash_attention.tc_launches)
+            params = [state["params"][n] for n in names]
+            if naive is None:
+                naive = [p.detach().clone() for p in params]
+            rep = step.last_sync
+            out["variants"][name] = {
+                "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                "step_s": secs, "sync_s": rep.seconds, "collectives": rep.collectives,
+                "max_outstanding": rep.max_outstanding, "wire_bytes": rep.wire_bytes,
+                "launches": launches,
+                "same_as_naive": all(torch.equal(p, q) for p, q in zip(params, naive)),
+                "max_abs_from_naive": max((p - q).abs().max().item()
+                                          for p, q in zip(params, naive)),
+                "fingerprint": bit_fingerprint(params),
+            }
+            del state, step, metrics, params
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+
+        # rank 0: the whole batch's gradient and one step of it alone
+        whole = None
+        if rank != 0:
+            del naive
+            torch.cuda.empty_cache()
+        else:
+            from repro_torch.optim.adamw import adamw_update
+
+            state = reset()
+            init = [state["params"][n].detach().clone() for n in names]
+            fa.flash_attention.launches = 0
+            t0 = time.perf_counter()
+            loss, _, grads = loss_and_grads(model, state["params"],
+                                            to_device_batch(batch, dev))
+            _, state["opt"], _ = adamw_update(AdamWConfig(**TRAIN_OPT), state["params"], grads,
+                                              state["opt"])
+            torch.cuda.synchronize(dev)
+            secs = time.perf_counter() - t0
+            whole = flat(tree_of(model, grads))
+            del grads
+            num = den = 0.0
+            for n, q, i in zip(names, naive, init):
+                d1, d2 = state["params"][n] - i, q - i
+                num += (d2 - d1).double().pow(2).sum().item()
+                den += d1.double().pow(2).sum().item()
+            out["one_rank"] = {"loss": float(loss), "step_s": secs,
+                               "launches": fa.flash_attention.launches,
+                               "change_normwise": math.sqrt(num / den)}
+            del naive, init, state
+            torch.cuda.empty_cache()
+        dist.barrier()
+
+        # the codecs on every class of the promc plan, on this rank's first gradient
+        state = reset()
+        _, _, grads = loss_and_grads(model, state["params"], to_device_batch(
+            local_rows(batch, rank, SYNC_RANKS), dev))
+        tree = tree_of(model, grads)
+        if whole is not None:
+            out["local_from_whole"] = from_whole(flat(tree))
+        for codec in SYNC_FORCED:
+            plan = grad_sync.build_sync_plan(
+                tree, algorithm="promc", compress_by_class={t: codec for t in ChunkType})
+            rep = grad_sync.SyncReport()
+            torch.cuda.synchronize(dev)
+            dist.barrier()
+            synced, _ = grad_sync.apply_sync(plan, tree, group=pods.group, report=rep)
+            torch.cuda.synchronize(dev)
+            got = flat(synced)
+            row = {"sync_s": rep.seconds, "collectives": rep.collectives,
+                   "wire_bytes": rep.wire_bytes,
+                   "finite": all(bool(torch.isfinite(g).all()) for g in got),
+                   "fingerprint": bit_fingerprint(got)}
+            if whole is not None:
+                row["normwise_from_whole"], row["max_abs_from_whole"] = from_whole(got)
+            out["forced"][codec] = row
+            del synced, got
+        dist.barrier()
+        out["seconds"] = time.perf_counter() - t_start
+    finally:
+        close_pods()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def start_sync_ranks():
+    """Start phase 22's ranks (``sync_rank``, spawned daemons, so they end
+    with this process): their interpreter, torch, the group's rendezvous and
+    their context on the card take ~10 s, which they spend beside the
+    phases before 22. -> (their process context, their directory under
+    build/)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    out_dir = tempfile.mkdtemp(prefix="phase22_", dir=ROOT / "build")
+    # the ranks' allocators map growing segments (less held and unused)
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ctx = mp.start_processes(sync_rank, args=(out_dir,), nprocs=SYNC_RANKS, join=False,
+                                 daemon=True, start_method="spawn")
+    finally:
+        del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+    return ctx, out_dir
+
+
+def grad_sync_phase(ranks_started, smi):
+    """Phase 22: gradient sync over SYNC_RANKS ranks that share the card
+    (``ranks_started``: ``start_sync_ranks``'s; the ranks start at the file
+    ``go``). Gates: every variant's step made exactly SYNC_LAYERS flash
+    launches a rank, all on the tensor cores; sc / mc / promc parameters
+    bit for bit naive's on each rank; each variant's parameters (and each
+    forced codec's synced gradient) the same bits on both ranks (by
+    ``bit_fingerprint``); promc bf16 within SYNC_COMPRESSED_MAX_ABS of
+    naive (the reference's limit); each forced codec's synced gradient
+    within its SYNC_FORCED limit of the whole batch's gradient on one rank,
+    and rank 0's own gradient unsynced beyond every limit; every value
+    finite. Printed: the rest (int8's distance, the 2-rank naive step against one rank's step of the
+    whole batch, each variant's step and sync seconds, wire bytes and
+    collectives a rank, each rank's peak device memory) and
+    ``simulate_sync`` on DCN for gemma3-1b at full depth. Returns the flash
+    launches of the variant steps (both ranks)."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import grad_sync
+    from repro_torch.models.model import build_model
+
+    ctx, out_dir = ranks_started
+    t_start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"[sync] before the ranks: this process holds {torch.cuda.memory_allocated() / 1e9:.2f} "
+          f"GB ({torch.cuda.memory_reserved() / 1e9:.2f} GB reserved); the card has "
+          f"{free / 1e9:.2f} of {total / 1e9:.2f} GB free", flush=True)
+    open(os.path.join(out_dir, "go"), "w").close()
+    # the schedules on the reference's DCN for gemma3-1b at full depth (host
+    # arithmetic, beside the ranks' run)
+    tree = build_model(dataclasses.replace(get_config("gemma3-1b")), device="meta").param_tree()
+    plan = grad_sync.build_sync_plan(tree)
+    sims = {(alg, comp): grad_sync.simulate_sync(
+        tree, algorithm=alg, compress_by_class=None if comp else grad_sync.NO_COMPRESSION).total_time
+        for alg in ("sc", "mc", "promc") for comp in (False, True)}
+    try:
+        while not ctx.join():
+            pass
+    except Exception as exc:  # a rank's failure fails the phase
+        raise SmokeFailure(f"grad sync: a rank failed: {exc}") from exc
+    ranks = []
+    for r in range(SYNC_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(out_dir)
+    spawn_s = time.perf_counter() - t_start
+    r0 = ranks[0]
+    print(f"[sync] gemma3-1b full width cut to {SYNC_LAYERS} layers on {SYNC_RANKS} ranks "
+          f"sharing {r0['device']} (backend {r0['backend']}), the global batch {SYNC_B} x "
+          f"{SYNC_S} ({SYNC_B // SYNC_RANKS} rows a rank), TRAIN_OPT; ranks' setup "
+          f"{', '.join(f'{r['setup_s']:.1f}' for r in ranks)}s, the phase {spawn_s:.1f}s (the ranks "
+          f"started beside phase 21) | {smi}",
+          flush=True)
+    launches, bad = 0, []
+    for name in SYNC_VARIANTS:
+        rows = [r["variants"][name] for r in ranks]
+        for r, v in enumerate(rows):
+            if tuple(v["launches"]) != (SYNC_LAYERS, SYNC_LAYERS):
+                bad.append(f"{name} rank {r}: launches {v['launches']}")
+            if not (math.isfinite(v["loss"]) and math.isfinite(v["grad_norm"])):
+                bad.append(f"{name} rank {r}: loss {v['loss']}, grad norm {v['grad_norm']}")
+            launches += v["launches"][0]
+        if any(v["fingerprint"] != rows[0]["fingerprint"] for v in rows):
+            bad.append(f"{name}: the ranks' parameters differ")
+        if name in ("sc", "mc", "promc") and not all(v["same_as_naive"] for v in rows):
+            bad.append(f"{name}: parameters differ from naive's")
+        if name == "promc_bf16" and not rows[0]["max_abs_from_naive"] <= SYNC_COMPRESSED_MAX_ABS:
+            bad.append(f"promc bf16: {rows[0]['max_abs_from_naive']:.3g} from naive")
+        v = rows[0]
+        print(f"[sync] {name}: loss {v['loss']:.6f}, grad norm {v['grad_norm']:.6g}; step "
+              f"{', '.join(f'{x['step_s'] * 1e3:.1f}' for x in rows)} ms, of it the sync "
+              f"{', '.join(f'{x['sync_s'] * 1e3:.1f}' for x in rows)} ms (rank 0, 1); "
+              f"{v['collectives']} collectives, at most {v['max_outstanding']} outstanding; "
+              f"wire bytes a rank {v['wire_bytes']} ({sum(v['wire_bytes'].values()) / 1e9:.4f} "
+              f"GB); parameters bit for bit naive's: {v['same_as_naive']}, max |difference| "
+              f"{v['max_abs_from_naive']:.3g}; ranks bit for bit: "
+              f"{all(x['fingerprint'] == v['fingerprint'] for x in rows)}", flush=True)
+    for codec in SYNC_FORCED:
+        rows = [r["forced"][codec] for r in ranks]
+        v = rows[0]
+        if any(x["fingerprint"] != v["fingerprint"] for x in rows):
+            bad.append(f"forced {codec}: the ranks' synced gradients differ")
+        if not all(x["finite"] for x in rows):
+            bad.append(f"forced {codec}: non-finite synced gradients")
+        if not v["normwise_from_whole"] <= SYNC_FORCED[codec]:
+            bad.append(f"forced {codec}: {v['normwise_from_whole']:.3g} normwise from the whole "
+                       f"batch's gradient, over {SYNC_FORCED[codec]:.3g}")
+        print(f"[sync] promc plan with {codec} on every class, the first gradient: sync "
+              f"{', '.join(f'{x['sync_s'] * 1e3:.1f}' for x in rows)} ms, {v['collectives']} "
+              f"collectives, wire bytes a rank {v['wire_bytes']} "
+              f"({sum(v['wire_bytes'].values()) / 1e9:.4f} GB); against the whole batch's "
+              f"gradient on one rank normwise {v['normwise_from_whole']:.3g} (limit "
+              f"{SYNC_FORCED[codec]:.3g}), max |difference| "
+              f"{v['max_abs_from_whole']:.3g}; ranks bit for bit: "
+              f"{all(x['fingerprint'] == v['fingerprint'] for x in rows)}", flush=True)
+    local, local_max = r0["local_from_whole"]
+    if not local > max(SYNC_FORCED.values()):
+        bad.append(f"rank 0's gradient unsynced is {local:.3g} normwise from the whole batch's: "
+                   f"the forced codecs' limits would not tell a sync that did nothing")
+    print(f"[sync] the control, rank 0's gradient unsynced: normwise {local:.3g} from the whole "
+          f"batch's gradient, max |difference| {local_max:.3g}", flush=True)
+    one = r0["one_rank"]
+    print(f"[sync] one rank, the whole batch, the same start: loss {one['loss']:.6f} (2-rank "
+          f"naive {r0['variants']['naive']['loss']:.6f}), step {one['step_s'] * 1e3:.1f} ms, "
+          f"{one['launches']} flash launches; the 2-rank naive step's parameter change against "
+          f"it normwise {one['change_normwise']:.3g}", flush=True)
+    print(f"[sync] peak device memory a rank (the variant steps) "
+          f"{', '.join(f'{r['peak_bytes'] / 1e9:.2f}' for r in ranks)} GB; the ranks' whole "
+          f"runs {', '.join(f'{r['seconds']:.1f}' for r in ranks)}s", flush=True)
+    print(f"[sync] {plan.summary()}".replace("\n", " |"), flush=True)
+    print("[sync] simulate_sync on DCN, gemma3-1b full depth (s): " + ", ".join(
+        f"{alg}{' compressed' if comp else ''} {t:.6f}" for (alg, comp), t in sims.items()),
+        flush=True)
+    fail_if(bool(bad), "grad sync: " + "; ".join(bad))
+    torch.cuda.empty_cache()
+    return launches
 
 
 #: step caps of phase 3's loop-kernel checks on the live default-grid state
@@ -3633,7 +3937,6 @@ def sweep_paths(wf, fs, by_path):
     print(f"[executor] phase 5f in {time.perf_counter() - t0:.1f}s", flush=True)
 
     # ---- 6. profiled sweeps ----
-    from repro_torch.eval import tune
     from repro_torch.eval.scenarios import tenant_matrix
 
     def sweep(grid, route):
@@ -3644,9 +3947,6 @@ def sweep_paths(wf, fs, by_path):
         ("default grid, fused_step=kernel", sweep(scs, "kernel")),
         ("full grid, fused_step=rounds", sweep(full, "rounds")),
         ("tenant matrix, fused_step=rounds", sweep(tenant_matrix(), "rounds")),
-        ("full-grid oracle plane", lambda st: tune.oracle_search(full, device="cuda", stats=st)),
-        ("full-grid successive halving",
-         lambda st: tune.successive_halving(full, device="cuda", stats=st)),
     ):
         profile_sweep(label, run)
     return launches
@@ -4409,10 +4709,16 @@ def main(argv) -> int:
         elapsed("19-20 (training)")
 
         # ---- 21. the fault-tolerant loop: a crash, a restore, a bit-exact resume ----
+        # (phase 22's ranks start beside it)
+        sync_ranks = start_sync_ranks()
         (by_path["flash_attention_sm90"]["train_loop"],
          by_path["flash_attention_sm90"]["train_loop_resumed"]) = train_resume_full_width(
             fa, rg, wk)
         elapsed("21 (the training loop)")
+
+        # ---- 22. gradient sync over two ranks sharing the card ----
+        by_path["flash_attention_sm90"]["grad_sync"] = grad_sync_phase(sync_ranks, smi)
+        elapsed("22 (gradient sync)")
         # the main path's count: the serving and training runs, not the
         # card-against-CPU checks
         launches["flash_attention_sm90"] = sum(
@@ -4422,7 +4728,7 @@ def main(argv) -> int:
         # CUDA-core kernel
         launches["flash_attention"] = sum(by_path["flash_attention"].values())
 
-    # ---- 22. summary lines ----
+    # ---- 23. summary lines ----
     kernels = []
     for name, src, replaces, pick, shape in (
         ("waterfill", "src/repro_torch/eval/fabric/csrc/waterfill.cu",

@@ -44,6 +44,7 @@ from repro_torch.core.engine import EngineReport, TransferEngine, TransferTask, 
 from repro_torch.core.runner import prepare_chunks
 from repro_torch.core.schedulers import make_scheduler
 from repro_torch.core.types import FileSpec, NetworkSpec
+from repro_torch.models.model import is_stacked, leaf_paths
 
 Tree = Any
 
@@ -74,11 +75,6 @@ class CheckpointReport:
 Observer = Callable[[CheckpointReport], None]
 
 
-def _is_stacked(node) -> bool:
-    return (isinstance(node, list) and bool(node)
-            and all(isinstance(x, torch.Tensor) for x in node))
-
-
 def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
     return torch.empty(0, dtype=dtype).numpy().dtype
 
@@ -96,7 +92,7 @@ def _to_host(leaf, copy: bool) -> np.ndarray:
     """A leaf as a C-ordered host array; with ``copy`` one that shares no
     memory with the leaf (a tensor on the CPU shares it with ``.numpy()``,
     and a training step writes the parameters in place)."""
-    if _is_stacked(leaf):
+    if is_stacked(leaf):
         first = leaf[0]
         out = np.empty((len(leaf), *first.shape), dtype=_numpy_dtype(first.dtype))
         for i, t in enumerate(leaf):
@@ -109,26 +105,10 @@ def _to_host(leaf, copy: bool) -> np.ndarray:
     return np.array(leaf, order="C") if copy else np.asarray(leaf, order="C")
 
 
-def _items(node):
-    if isinstance(node, dict):
-        return [(k, node[k]) for k in sorted(node)]
-    return [(f"#{i}", v) for i, v in enumerate(node)]
-
-
 def _flatten(tree: Tree, copy: bool = False) -> List[Tuple[str, np.ndarray]]:
     """(reference leaf name, host array) of every leaf, in the reference's
     flattening order."""
-    out: List[Tuple[str, np.ndarray]] = []
-
-    def visit(prefix, node):
-        if isinstance(node, (dict, list, tuple)) and not _is_stacked(node):
-            for key, sub in _items(node):
-                visit(prefix + [str(key)], sub)
-        else:
-            out.append((".".join(prefix), _to_host(node, copy)))
-
-    visit([], tree)
-    return out
+    return [(name, _to_host(leaf, copy)) for name, leaf in leaf_paths(tree, ".", "#{}".format)]
 
 
 class _NpyFile:

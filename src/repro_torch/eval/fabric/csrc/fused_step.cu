@@ -1700,7 +1700,8 @@ enum CoupledPhase {
 // demand (0 off the link), sorts link l's R caps (every lane of the link the
 // same network), sums the sorted prefix before position j in order
 // (cumsum's), and tests the candidate level (pool_eff - prefix) / (R - j)
-// against the sorted cap; the link's first valid position gives its level,
+// against the sorted cap (exactly, as _level_of_prefix does); the link's
+// first valid position gives its level,
 // +inf where the link's capacity covers the total. A lane past the rows
 // (j >= R) divides by 1 (its candidate is never valid), and a zero dividend
 // (a link without demand) takes quot's exact shortcut: no lane calls the
@@ -1746,7 +1747,7 @@ __device__ __forceinline__ double coupled_grant(double dj, const long long (&m)[
     }
     const double pool_eff = dmax(dmin(capl, total), 0.0);
     const double lam = quot(pool_eff - prev, den);
-    const bool valid = rowj && lam <= vj + 1e-9 * dmax(vj, 1.0);
+    const bool valid = rowj && lam <= vj;
     clk.mark(kCpPrefix);
     const unsigned vb = (__ballot_sync(kFull, valid) >> (l << 3)) & 0xffu;
     const int k = vb ? __ffs(vb) - 1 : 0;

@@ -5,7 +5,11 @@ trailing axes and broadcasts over a leading scenario axis S; every
 tensor it makes names its dtype and device. The operation order of each
 kernel is the NumPy reference's, so on the CPU the results agree with it
 bit for bit wherever the reference does no summation (and to the last
-bits where the order of a sum differs).
+bits where the order of a sum differs). One rule departs from the
+reference: the water level's candidate is tested against its cap
+exactly, where the reference allows it ``1e-9 * max(cap, 1)`` above (see
+:func:`_level_of_prefix`); the two differ only where a candidate falls
+in that gap.
 
 The two CUDA kernels of the sweep live in :mod:`.waterfill_bisect` (the
 bisected water level) and :mod:`.fused_step` (whole resume-free sweep
@@ -44,14 +48,17 @@ def _level_of_prefix(caps_sorted, prefix, pool):
     C = caps_sorted.shape[-1]
     pool_eff = torch.clamp(torch.minimum(pool, prefix[..., -1]), min=0.0)
     # candidate level if the k smallest caps are filled outright:
-    #   lam_k = (pool_eff - prefix[k-1]) / (C - k); valid when lam_k <= c_(k)
+    #   lam_k = (pool_eff - prefix[k-1]) / (C - k); valid when lam_k <= c_(k).
+    # The test is exact: a slack above c_(k) would take a level past a cap
+    # the pool does fill, and the others would then get less than the pool
+    # leaves them (the sum of the grants short of ``pool_eff``)
     prev = torch.cat(
         [torch.zeros_like(prefix[..., :1]), prefix[..., :-1]], dim=-1
     )
     ks = torch.arange(C, dtype=torch.int64, device=caps_sorted.device)
     denom = (C - ks).to(caps_sorted.dtype)
     lam_k = (pool_eff.unsqueeze(-1) - prev) / denom
-    valid = lam_k <= caps_sorted + 1e-9 * torch.clamp(caps_sorted, min=1.0)
+    valid = lam_k <= caps_sorted
     # first valid k; rows with no valid candidate take the largest cap
     k = torch.argmax(valid.to(torch.uint8), dim=-1, keepdim=True)
     no_valid = ~valid.any(dim=-1)

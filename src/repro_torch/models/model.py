@@ -59,11 +59,40 @@ def tree_leaves(tree, is_leaf) -> Dict[Tuple, object]:
             for path, leaf in tree_leaves(sub, is_leaf).items()}
 
 
+def is_stacked(node) -> bool:
+    """A non-empty list of tensors: one parameter that the reference stacks
+    on a leading axis (a leaf of ``param_tree``, one file of a checkpoint
+    or of a gradient sync)."""
+    return (isinstance(node, list) and bool(node)
+            and all(isinstance(x, torch.Tensor) for x in node))
+
+
 def is_param_leaf(node) -> bool:
-    """A leaf of ``param_tree``: a parameter, or a non-empty list of the
-    parameters that the reference stacks on a leading axis."""
-    return isinstance(node, torch.Tensor) or (
-        isinstance(node, list) and bool(node) and isinstance(node[0], torch.Tensor))
+    """A leaf of ``param_tree``: a parameter, or a stacked list of them."""
+    return isinstance(node, torch.Tensor) or is_stacked(node)
+
+
+def map_leaves(fn, tree, sep: str = "/", list_key=str):
+    """``tree`` (nested dicts and lists or tuples) with each leaf replaced by
+    ``fn(name, leaf)``, the leaves visited in the reference's flattening
+    order: dict keys sorted, list entries by index (the ``i``-th named
+    ``list_key(i)``), a leaf's name its path's parts joined by ``sep``. A
+    stacked list (:func:`is_stacked`) is one leaf."""
+    def visit(prefix, node):
+        if not isinstance(node, (dict, list, tuple)) or is_stacked(node):
+            return fn(sep.join(prefix), node)
+        if isinstance(node, dict):
+            return {k: visit(prefix + [str(k)], node[k]) for k in sorted(node)}
+        return type(node)(visit(prefix + [list_key(i)], v) for i, v in enumerate(node))
+    return visit([], tree)
+
+
+def leaf_paths(tree, sep: str = "/", list_key=str) -> List[Tuple[str, object]]:
+    """(name, leaf) of every leaf of ``tree``, in :func:`map_leaves`' order
+    and naming."""
+    out: List[Tuple[str, object]] = []
+    map_leaves(lambda name, leaf: out.append((name, leaf)), tree, sep, list_key)
+    return out
 
 
 def _params(shapes: Dict[str, Tuple[int, ...]], device) -> Dict[str, nn.Parameter]:

@@ -13,6 +13,13 @@ writes in place (:mod:`repro_torch.train.train_step`), so a checkpoint is
 the state's :func:`~repro_torch.train.train_step.state_tree` and a restore
 writes back into the model and the optimizer state
 (:func:`~repro_torch.train.train_step.put_state_tree`).
+
+Over a group of ranks (``train(..., group=...)``) every rank takes the
+same update, so the state is the same on every rank after each step: rank
+0 alone writes checkpoints, and the ranks meet at a barrier after each
+save call (a synchronous save's commit, an asynchronous save's snapshot)
+and after the final commit. At a start rank 0 reads the newest committed
+step and sends it to the others, so every rank restores the same step.
 """
 from __future__ import annotations
 
@@ -21,9 +28,11 @@ import time
 from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import ckpt
 from repro_torch.distributed.fault import RestartPolicy, StragglerDetector
+from repro_torch.distributed.pods import group_size
 from repro_torch.models.model import BaseLM
 from repro_torch.train.train_step import (StepConfig, init_train_state, make_train_step,
                                           put_state_tree, state_tree)
@@ -48,27 +57,40 @@ def train(
     crash_at: Optional[int] = None,  # test hook: raise at this step
     on_metrics: Optional[Callable[[int, Dict], None]] = None,
     on_checkpoint: Optional[ckpt.Observer] = None,
+    group: Optional[dist.ProcessGroup] = None,
 ) -> Dict[str, Any]:
     """Run (or resume) training on the model's device; returns ``{"state",
     "history", "stragglers"}``. The state starts from ``seed`` (a
     ``torch.Generator`` on the model's device), or from the newest
     committed checkpoint in ``loop.ckpt_dir``. ``on_checkpoint`` is called
     with each save's and the restore's :class:`~repro_torch.checkpoint.
-    ckpt.CheckpointReport` (an asynchronous save's on its saver thread)."""
-    step_fn = make_train_step(model, step_cfg)
+    ckpt.CheckpointReport` (an asynchronous save's on its saver thread).
+    ``group``: train over its ranks (see the module's docstring); every
+    rank is given the same ``batches``, the global batch."""
+    step_fn = make_train_step(model, step_cfg, group=group)
     state = init_train_state(model, torch.Generator(device=model.device).manual_seed(seed))
+    ranks = group_size(group)
+    writer = ranks == 1 or dist.get_rank(group) == 0
+
+    def meet():
+        if ranks > 1:
+            dist.barrier(group=group)
 
     start_step = 0
     if loop.ckpt_dir:
-        latest = ckpt.latest_step(loop.ckpt_dir)
+        latest = ckpt.latest_step(loop.ckpt_dir) if writer else None
+        if ranks > 1:
+            sent = [latest]
+            dist.broadcast_object_list(sent, src=dist.get_global_rank(group, 0), group=group)
+            latest = sent[0]
         if latest is not None:
-            loaded, start_step = ckpt.restore(loop.ckpt_dir, on_report=on_checkpoint)
+            loaded, start_step = ckpt.restore(loop.ckpt_dir, latest, on_report=on_checkpoint)
             put_state_tree(model, state, loaded)
             del loaded
 
     saver = (
         ckpt.AsyncCheckpointer(loop.ckpt_dir, on_report=on_checkpoint)
-        if (loop.ckpt_dir and loop.async_ckpt)
+        if (loop.ckpt_dir and loop.async_ckpt and writer)
         else None
     )
     detector = StragglerDetector()
@@ -95,9 +117,10 @@ def train(
         if loop.ckpt_dir and (step + 1) % loop.ckpt_every == 0:
             if saver:
                 saver.save(state_tree(model, state), step + 1)
-            else:
+            elif writer:
                 ckpt.save(state_tree(model, state), loop.ckpt_dir, step + 1,
                           on_report=on_checkpoint)
+            meet()
 
         if (step + 1) % loop.log_every == 0 or step + 1 == loop.total_steps:
             entry = {"step": step + 1, "time_s": dt, **metrics}
@@ -108,8 +131,10 @@ def train(
     if saver:
         saver.wait()
     if loop.ckpt_dir:
-        ckpt.save(state_tree(model, state), loop.ckpt_dir, loop.total_steps,
-                  on_report=on_checkpoint)
+        if writer:
+            ckpt.save(state_tree(model, state), loop.ckpt_dir, loop.total_steps,
+                      on_report=on_checkpoint)
+        meet()
     return {"state": state, "history": history, "stragglers": detector}
 
 

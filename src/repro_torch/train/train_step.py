@@ -1,5 +1,15 @@
-"""Train step on one device: loss -> gradients -> AdamW, the reference's
-``train/train_step.py`` without a mesh (its single-pod path).
+"""Train step: loss -> gradients -> (chunk-scheduled sync between ranks)
+-> AdamW, the reference's ``train/train_step.py``.
+
+On one device (no group, or a group of one rank) it is the reference's
+single-pod path. Over a ``torch.distributed`` group of P > 1 ranks it is
+its multi-pod path: each rank holds the whole model (the reference's
+pod-level replication), takes its block of the global batch
+(:func:`repro_torch.distributed.pods.local_rows`), computes its loss and
+gradients, and syncs them with :func:`repro_torch.distributed.grad_sync.
+naive_sync` or the paper-scheduled plan of :func:`~repro_torch.
+distributed.grad_sync.apply_sync`; the loss and metrics are averaged over
+the ranks before AdamW, so every rank takes the same update.
 
 The train state is ``{"params": {name: the model's nn.Parameter}, "opt":
 {"m", "v", "count"}, "step": int32 0-d}``: the parameters are the model's
@@ -18,9 +28,12 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed import grad_sync
+from repro_torch.distributed.pods import group_size, local_rows
 from repro_torch.models.convert import put_tree
-from repro_torch.models.model import BaseLM
+from repro_torch.models.model import BaseLM, is_stacked, leaf_paths, map_leaves
 from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
 
 Batch = Dict[str, torch.Tensor]
@@ -29,9 +42,16 @@ Metrics = Dict[str, torch.Tensor]
 
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
-    """The reference's step options that one device reads; its gradient
-    sync, compression and ``gather_once`` options need a mesh."""
+    """The reference's step options, but ``gather_once`` (FSDP within a
+    pod) and the plan's ``sync_max_cc`` / ``sync_num_chunks``, which keep
+    the reference's defaults (``build_sync_plan``'s: 8 and 2). The sync
+    options take effect over a group of more than one rank."""
     optimizer: AdamWConfig = AdamWConfig()
+    sync_algorithm: str = "promc"  # sc | mc | promc | naive
+    compress: bool = True  # per-class compression (beyond-paper)
+    #: codec for the bandwidth-bound (Medium+) chunk classes: "bf16" or
+    #: "int8" (int8 travels as all-gather + local dequant-sum)
+    compress_codec: str = "bf16"
     #: gradient-accumulation microbatches per step (1 = off)
     accum_steps: int = 1
 
@@ -65,22 +85,31 @@ def state_tree(model: BaseLM, state: Dict) -> Dict:
     "step"}``. A stacked leaf is the list of the per-layer tensors (see
     :mod:`repro_torch.checkpoint.ckpt`); the tensors are the state's own,
     not copies."""
-    params = model.param_tree()
-    names = {id(p): n for n, p in model.named_parameters()}
-
-    def like(values: Dict[str, torch.Tensor]):
-        def sub(node):
-            if isinstance(node, torch.Tensor):
-                return values[names[id(node)]]
-            if isinstance(node, dict):
-                return {k: sub(v) for k, v in node.items()}
-            return [sub(v) for v in node]
-        return sub(params)
-
     opt = state["opt"]
-    return {"params": params,
-            "opt": {"m": like(opt["m"]), "v": like(opt["v"]), "count": opt["count"]},
+    return {"params": model.param_tree(),
+            "opt": {"m": tree_of(model, opt["m"]), "v": tree_of(model, opt["v"]),
+                    "count": opt["count"]},
             "step": state["step"]}
+
+
+def tree_of(model: BaseLM, values: Mapping[str, torch.Tensor]):
+    """``values`` ({parameter name: tensor}) in the layout of
+    ``model.param_tree()``: a stacked leaf the list of its layers'
+    tensors."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return map_leaves(lambda _, leaf: [values[names[id(p)]] for p in leaf] if is_stacked(leaf)
+                      else values[names[id(leaf)]], model.param_tree())
+
+
+def named_of(model: BaseLM, tree) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`tree_of`: {parameter name: tensor}."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    values = dict(leaf_paths(tree))
+    out = {}
+    for path, leaf in leaf_paths(model.param_tree()):
+        for p, t in zip(leaf, values[path]) if is_stacked(leaf) else ((leaf, values[path]),):
+            out[names[id(p)]] = t
+    return out
 
 
 def put_state_tree(model: BaseLM, state: Dict, tree: Mapping) -> Dict:
@@ -122,17 +151,53 @@ def loss_and_grads(model: BaseLM, params: Dict[str, torch.Tensor],
     return loss.detach(), {k: m.detach() for k, m in metrics.items()}, grads
 
 
-def make_train_step(model: BaseLM, cfg: StepConfig) -> Callable[[Dict, Mapping], Tuple[Dict, Metrics]]:
+def make_train_step(model: BaseLM, cfg: StepConfig,
+                    group: Optional[dist.ProcessGroup] = None
+                    ) -> Callable[[Dict, Mapping], Tuple[Dict, Metrics]]:
     """Returns step(state, batch) -> (state, metrics): the loss and its
     gradients, then one AdamW update. With ``accum_steps`` = k > 1 the
     batch splits into k microbatches on axis 0 (rows i B/k .. (i+1) B/k - 1
     in the i-th); their fp32 gradients, losses and metrics are summed in
     order, then divided by k. metrics: ``loss``, ``xent``, ``aux``,
     ``grad_norm`` (before clipping) and ``lr``, 0-d fp32 tensors on the
-    model's device."""
+    model's device.
+
+    With a ``group`` of P > 1 ranks each rank takes the global batch's
+    rows of its rank (:func:`~repro_torch.distributed.pods.local_rows`),
+    then syncs the gradients before the update: ``naive_sync`` for
+    ``sync_algorithm="naive"``, else the plan of ``build_sync_plan`` (made
+    at the first step, the reference's choice of per-class codecs) run by
+    ``apply_sync``; loss and metrics are averaged over the ranks. The
+    step's ``last_sync`` is then the last sync's
+    :class:`~repro_torch.distributed.grad_sync.SyncReport`."""
+    world = group_size(group)
+    rank = dist.get_rank(group) if world > 1 else 0
+    plan = None
+
+    def sync(grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        nonlocal plan
+        tree, report = tree_of(model, grads), grad_sync.SyncReport()
+        if cfg.sync_algorithm == "naive":
+            tree = grad_sync.naive_sync(tree, group=group, report=report)
+        else:
+            if plan is None:
+                plan = grad_sync.build_sync_plan(
+                    tree, algorithm=cfg.sync_algorithm,
+                    compress_by_class=grad_sync.compress_table(cfg.compress, cfg.compress_codec))
+            tree, _ = grad_sync.apply_sync(plan, tree, group=group, report=report)
+        step.last_sync = report
+        return named_of(model, tree)
+
+    def mean_over_ranks(loss: torch.Tensor, metrics: Metrics) -> Tuple[torch.Tensor, Metrics]:
+        both = torch.stack([loss, *metrics.values()])
+        dist.all_reduce(both, group=group)
+        both = both / world
+        return both[0], dict(zip(metrics, both[1:]))
 
     def step(state: Dict, batch: Mapping) -> Tuple[Dict, Metrics]:
         params = state["params"]
+        if world > 1:
+            batch = local_rows(batch, rank, world)
         batch = to_device_batch(batch, model.device)
         k = cfg.accum_steps
         if k <= 1:
@@ -152,10 +217,14 @@ def make_train_step(model: BaseLM, cfg: StepConfig) -> Callable[[Dict, Mapping],
             loss = loss / k
             metrics = {name: m / k for name, m in metrics.items()}
             grads = {name: g / k for name, g in grads.items()}
+        if world > 1:
+            grads = sync(grads)
+            loss, metrics = mean_over_ranks(loss, metrics)
         _, opt, opt_metrics = adamw_update(cfg.optimizer, params, grads, state["opt"])
         new_state = {"params": params, "opt": opt, "step": state["step"] + 1}
         return new_state, {"loss": loss, **metrics, **opt_metrics}
 
+    step.last_sync = None
     return step
 
 

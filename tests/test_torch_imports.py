@@ -9,6 +9,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -66,10 +67,17 @@ CHECKPOINT_MODULES = (
     "repro_torch.distributed.fault",
     "repro_torch.train.loop",
 )
+#: modules of the gradient sync between ranks
+DISTRIBUTED_MODULES = (
+    "repro_torch.distributed.compression",
+    "repro_torch.distributed.grad_sync",
+    "repro_torch.distributed.pods",
+)
 
 
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def test_port_imports_with_jax_and_reference_blocked():
@@ -85,6 +93,7 @@ def test_port_imports_with_jax_and_reference_blocked():
     assert set(EXECUTOR_MODULES) <= names
     assert set(TRAINING_MODULES) <= names
     assert set(CHECKPOINT_MODULES) <= names
+    assert set(DISTRIBUTED_MODULES) <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
@@ -274,3 +283,26 @@ def test_train_entry_points_need_the_card_unless_asked_for_the_cpu(monkeypatch):
     assert all(m.device.type == "cpu" for m in metrics.values())
     assert all(p.device.type == "cpu" for p in state["params"].values())
     assert fa.flash_attention.launches == before
+
+
+def test_pods_need_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """A rank asks for the card and raises without one; the backend rule:
+    NCCL only when every rank has a card of its own, gloo on the CPU or
+    when ranks share a card."""
+    from repro_torch.distributed import pods
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pods.init_pods(0, 2, init_method="file:///nonexistent/store")
+    assert pods.pod_device(1, 2, "cpu") == torch.device("cpu")
+    assert pods.pick_backend(torch.device("cpu"), 0, 2) == "gloo"
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert pods.pick_backend(torch.device("cuda", 0), 1, 2) == "gloo"
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert pods.pick_backend(torch.device("cuda", 1), 1, 2) == "nccl"
+    assert pods.pick_backend(torch.device("cuda", 0), 1, 2) == "gloo"  # shares card 0
+    assert pods.group_size(None) == 1
+    rows = pods.local_rows({"tokens": np.arange(12).reshape(4, 3)}, 1, 2)
+    np.testing.assert_array_equal(rows["tokens"], np.arange(6, 12).reshape(2, 3))
+    with pytest.raises(ValueError, match="do not split"):
+        pods.local_rows({"tokens": np.zeros((3, 2))}, 0, 2)

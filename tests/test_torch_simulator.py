@@ -18,7 +18,7 @@ import random
 
 import numpy as np
 import pytest
-from hypothesis import given, settings
+from hypothesis import example, given, settings
 from hypothesis import strategies as st
 
 from repro.core import baselines as r_base
@@ -596,6 +596,13 @@ def test_scalar_model_matches_the_plan_columns():
     st.sampled_from(sorted(p_testbeds.TESTBEDS)), st.floats(0.0, 300.0), st.integers(0, 40),
     st.integers(0, 4096), st.lists(_RATE, min_size=1, max_size=20), st.floats(0.0, 5e10),
 )
+# pools a cap's water level fills, where a level allowed 1e-9 * max(cap, 1)
+# above its cap (the reference's rule) grants less than the pool
+@example(net=sorted(p_testbeds.TESTBEDS)[0], t=0.0, n=0, pp=0, caps=[0.0, 1.0], pool=1.86e-9)
+@example(net=sorted(p_testbeds.TESTBEDS)[0], t=0.0, n=0, pp=0, caps=[0.0, 1.0], pool=9.89e-12)
+@example(net=sorted(p_testbeds.TESTBEDS)[0], t=0.0, n=0, pp=0, caps=[1e9, 2e9], pool=2e9 + 1)
+@example(net=sorted(p_testbeds.TESTBEDS)[0], t=0.0, n=0, pp=0,
+         caps=[9999999559.0, 9999999579.0], pool=19999999119.0)
 def test_scalar_model_matches_the_sweep_kernels(net, t, n, pp, caps, pool):
     """The event loop's scalar rate model against the fluid kernels the
     sweep runs (their plain versions): the bandwidth profile and the
